@@ -1,0 +1,160 @@
+"""isa-l-compatible Reed-Solomon (w=8) code family.
+
+Re-design of src/erasure-code/isa/ErasureCodeIsa.{h,cc}: Vandermonde
+(gf_gen_rs_matrix walk) or Cauchy (gf_gen_cauchy1_matrix) coding matrices,
+per-chunk 32-byte alignment (EC_ISA_ADDRESS_ALIGNMENT, xor_op.h:28), and a
+decode-matrix LRU cache keyed by the erasure signature exactly like
+ErasureCodeIsaTableCache (ErasureCodeIsa.cc:249,303).  k+m <= 32.
+
+Profile keys ``backend`` (default ``torch``) and ``device`` (default
+``cuda``) select where region math runs; see ``ec.jerasure``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+
+from .. import gf
+from ._matrix_ops import matrix_decode
+from .backend import get_backend
+from .interface import (
+    ErasureCode,
+    ErasureCodeError,
+    ErasureCodeProfile,
+    sanity_check_k_m,
+    to_int,
+    to_string,
+)
+from .registry import ErasureCodePlugin, register
+
+EC_ISA_ADDRESS_ALIGNMENT = 32
+
+
+class IsaTableCache:
+    """LRU of decode matrices keyed by (k, m, matrixtype, signature).
+
+    The reference caches expanded SIMD lookup tables; the analog here is
+    the assembled GF decode rows (their bit-expanded device form is
+    cached by ``ops.gf_matmul.matrix_to_device_bitmatrix``)."""
+
+    def __init__(self, capacity: int = 2516):  # reference default pool size
+        self._lru: OrderedDict[tuple, tuple] = OrderedDict()
+        self.capacity = capacity
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key):
+        hit = self._lru.get(key)
+        if hit is not None:
+            self.hits += 1
+            self._lru.move_to_end(key)
+        else:
+            self.misses += 1
+        return hit
+
+    def put(self, key, value):
+        self._lru[key] = value
+        self._lru.move_to_end(key)
+        while len(self._lru) > self.capacity:
+            self._lru.popitem(last=False)
+
+
+_table_cache = IsaTableCache()
+
+
+class ErasureCodeIsa(ErasureCode):
+    """matrixtype: reed_sol_van (default) or cauchy."""
+
+    def __init__(self, matrixtype: str = "reed_sol_van"):
+        super().__init__()
+        self.matrixtype = matrixtype
+        self.matrix: np.ndarray | None = None
+        self.backend = None
+
+    def init(self, profile: ErasureCodeProfile) -> None:
+        self.parse(profile)
+        super().init(profile)
+        self.prepare()
+
+    def parse(self, profile: ErasureCodeProfile) -> None:
+        super().parse(profile)
+        self.k = to_int("k", profile, 7)
+        self.m = to_int("m", profile, 3)
+        sanity_check_k_m(self.k, self.m)
+        if self.k + self.m > 32:
+            raise ErasureCodeError("(k + m) must be <= 32")
+        self.backend = get_backend(
+            to_string("backend", profile, "torch"),
+            to_string("device", profile, "cuda"),
+        )
+
+    def prepare(self) -> None:
+        if self.matrixtype == "reed_sol_van":
+            self.matrix = gf.isa_rs_matrix(self.k, self.m)
+        elif self.matrixtype == "cauchy":
+            self.matrix = gf.isa_cauchy_matrix(self.k, self.m)
+        else:
+            raise ErasureCodeError(f"unknown matrixtype {self.matrixtype}")
+
+    def get_chunk_size(self, object_size: int) -> int:
+        # ErasureCodeIsa.cc:66-80: ceil(object_size / k) rounded up to 32
+        chunk_size = (object_size + self.k - 1) // self.k
+        modulo = chunk_size % EC_ISA_ADDRESS_ALIGNMENT
+        if modulo:
+            chunk_size += EC_ISA_ADDRESS_ALIGNMENT - modulo
+        return chunk_size
+
+    def encode_chunks(self, want_to_encode, encoded) -> None:
+        data = np.stack(
+            [encoded[self.chunk_index(i)] for i in range(self.k)]
+        )
+        coding = self.backend.matrix_regions(self.matrix, data, 8)
+        for i in range(self.m):
+            np.copyto(encoded[self.chunk_index(self.k + i)], coding[i])
+
+    def _decode_rows_cached(self, erasures):
+        """ErasureCodeIsaTableCache analog: decode rows keyed by the
+        erasure signature (ErasureCodeIsa.cc:249,303)."""
+        signature = "".join(f"+{i}" for i in erasures)
+        key = (self.k, self.m, self.matrixtype, signature)
+        cached = _table_cache.get(key)
+        if cached is None:
+            cached = gf.make_decoding_matrix(
+                self.matrix, erasures, self.k, 8
+            )
+            _table_cache.put(key, cached)
+        return cached
+
+    def decode_chunks(self, want_to_read, chunks, decoded) -> None:
+        erasures = [
+            i
+            for i in range(self.k + self.m)
+            if self.chunk_index(i) not in chunks
+        ]
+        if not erasures:
+            return
+        logical = {
+            i: decoded[self.chunk_index(i)] for i in range(self.k + self.m)
+        }
+        matrix_decode(
+            self.backend,
+            self.matrix,
+            erasures,
+            logical,
+            self.k,
+            8,
+            decode_rows_fn=self._decode_rows_cached,
+        )
+
+
+@register("isa")
+class ErasureCodePluginIsa(ErasureCodePlugin):
+    def make(self, profile: ErasureCodeProfile):
+        technique = profile.get("technique", "reed_sol_van")
+        if technique not in ("reed_sol_van", "cauchy"):
+            raise ErasureCodeError(
+                f"technique={technique} must be reed_sol_van or cauchy"
+            )
+        return ErasureCodeIsa(technique)

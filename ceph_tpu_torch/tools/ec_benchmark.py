@@ -1,0 +1,176 @@
+"""Flag-compatible ceph_erasure_code_benchmark
+(src/test/erasure-code/ceph_erasure_code_benchmark.cc).
+
+Same options (-s/-i/-p/-w/-e/--erased/-E/-P), same output contract —
+one line ``<seconds>\\t<KB>`` so qa/workunits/erasure-code/bench.sh's
+GB/s conversion works unchanged.  Extensions: ``--batch B`` encodes B
+stripes per iteration through the hoisted batched path (ECUtil::encode's
+per-stripe loop in one device call); ``--device`` (default ``cuda``)
+picks where the torch backend runs (``cpu`` for the plain versions).
+
+    python -m ceph_tpu_torch.tools.ec_benchmark -p isa -P k=8 -P m=3 \\
+        -s 1048576 -i 10 --batch 1024
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+import sys
+import time
+
+import numpy as np
+
+from ..ec import ErasureCodeProfile, registry_instance
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="ec_benchmark", description=__doc__.splitlines()[0]
+    )
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-s", "--size", type=int, default=1024 * 1024,
+                   help="size of the buffer to be encoded")
+    p.add_argument("-i", "--iterations", type=int, default=1,
+                   help="number of encode/decode runs")
+    p.add_argument("-p", "--plugin", default="jerasure",
+                   help="erasure code plugin name")
+    p.add_argument("-w", "--workload", default="encode",
+                   choices=["encode", "decode"])
+    p.add_argument("-e", "--erasures", type=int, default=1,
+                   help="number of erasures when decoding")
+    p.add_argument("--erased", type=int, action="append", default=[],
+                   help="erased chunk (repeat for more than one)")
+    p.add_argument("-E", "--erasures-generation", default="random",
+                   choices=["random", "exhaustive"])
+    p.add_argument("-P", "--parameter", action="append", default=[],
+                   help="add key=value to the erasure code profile")
+    p.add_argument("--batch", type=int, default=1,
+                   help="stripes per device call (batched path)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the backend (cuda or cpu)")
+    return p.parse_args(argv)
+
+
+def make_code(args):
+    profile = ErasureCodeProfile()
+    for kv in args.parameter:
+        if kv.count("=") != 1:
+            print(f"--parameter {kv} ignored: not exactly one =",
+                  file=sys.stderr)
+            continue
+        key, value = kv.split("=")
+        profile[key] = value
+    profile.setdefault("k", "7")
+    profile.setdefault("m", "3")
+    profile.setdefault("device", args.device)
+    return registry_instance().factory(args.plugin, profile)
+
+
+def run_encode(args, ec) -> tuple[float, int]:
+    data = b"X" * args.size
+    want = set(range(ec.get_chunk_count()))
+    if args.batch > 1:
+        # hoisted path: B identical-geometry stripes in one call
+        chunk = ec.get_chunk_size(args.size)
+        k = ec.get_data_chunk_count()
+        stripes = np.frombuffer(
+            data.ljust(chunk * k, b"\0"), dtype=np.uint8
+        ).reshape(1, k, chunk)
+        stripes = np.broadcast_to(
+            stripes, (args.batch, k, chunk)
+        ).copy()
+        backend = ec.backend
+        matrix = getattr(ec, "matrix", None)
+        if matrix is None or not hasattr(backend, "matrix_stripes"):
+            raise SystemExit(
+                "--batch needs a matrix technique (reed_sol_*, isa)"
+            )
+        begin = time.perf_counter()
+        w = getattr(ec, "w", 8)  # isa codes are w=8 and carry no w
+        for _ in range(args.iterations):
+            backend.matrix_stripes(matrix, stripes, w)
+        elapsed = time.perf_counter() - begin
+        kb = args.iterations * args.batch * (args.size // 1024)
+        return elapsed, kb
+    begin = time.perf_counter()
+    for _ in range(args.iterations):
+        ec.encode(want, data)
+    elapsed = time.perf_counter() - begin
+    return elapsed, args.iterations * (args.size // 1024)
+
+
+def _display_chunks(chunks, count):
+    out = "chunks "
+    for c in range(count):
+        out += f"({c})  " if c not in chunks else f" {c}   "
+    print(out + "(X) is an erased chunk")
+
+
+def _decode_exhaustive(ec, all_chunks, chunks, start, want, verbose):
+    """Recursive exhaustive erasure sweep with content verification
+    (decode_erasures, ceph_erasure_code_benchmark.cc:202-249)."""
+    n = ec.get_chunk_count()
+    if want == 0:
+        if verbose:
+            _display_chunks(chunks, n)
+        want_to_read = {c for c in range(n) if c not in chunks}
+        decoded = ec.decode(want_to_read, chunks)
+        for c in want_to_read:
+            if not np.array_equal(decoded[c], all_chunks[c]):
+                raise SystemExit(
+                    f"chunk {c}: recovered content differs"
+                )
+        return
+    for i in range(start, n):
+        if i not in chunks:
+            continue
+        one_less = {c: v for c, v in chunks.items() if c != i}
+        _decode_exhaustive(ec, all_chunks, one_less, i + 1, want - 1,
+                           verbose)
+
+
+def run_decode(args, ec) -> tuple[float, int]:
+    data = b"X" * args.size
+    n = ec.get_chunk_count()
+    want = set(range(n))
+    encoded = ec.encode(want, data)
+    if args.erased:
+        for c in args.erased:
+            encoded.pop(c, None)
+        _display_chunks(encoded, n)
+    rng = random.Random()
+    begin = time.perf_counter()
+    for _ in range(args.iterations):
+        if args.erasures_generation == "exhaustive":
+            _decode_exhaustive(
+                ec, encoded, dict(encoded), 0, args.erasures, args.verbose
+            )
+        elif args.erased:
+            ec.decode(want, encoded)
+        else:
+            chunks = dict(encoded)
+            for _ in range(args.erasures):
+                while True:
+                    erasure = rng.randrange(n)
+                    if erasure in chunks:
+                        break
+                chunks.pop(erasure)
+            ec.decode(want, chunks)
+    elapsed = time.perf_counter() - begin
+    return elapsed, args.iterations * (args.size // 1024)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    ec = make_code(args)
+    if args.workload == "encode":
+        elapsed, kb = run_encode(args, ec)
+    else:
+        elapsed, kb = run_decode(args, ec)
+    print(f"{elapsed:.6f}\t{kb}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
