@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -40,6 +41,11 @@ _STRIPES_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,
 ]
 ENTRIES = ("gf8_packed_stripes", "gf8_bitplane_stripes")
+# (in, in_sb, in_sk, out, B, chunk) -> K1's words per thread, 4 or 1
+_WORDS_ARGS = [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_longlong,
+]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -58,13 +64,18 @@ def nvcc() -> str:
 
 
 def build(source: str = SOURCE) -> pathlib.Path:
-    """Compile ``csrc/<source>`` unless a library of the same digest exists."""
+    """Compile ``csrc/<source>`` (or ``source``, an absolute path) unless a
+    library of the same digest exists.  What ptxas printed is kept beside
+    the library and in ``build_log[source]``."""
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    log = out.with_suffix(".ptxas.txt")
     if out.exists():
+        if source not in build_log and log.exists():
+            build_log[source] = log.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -76,36 +87,73 @@ def build(source: str = SOURCE) -> pathlib.Path:
     )
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    log.write_text(proc.stderr)
     os.replace(tmp, out)
     build_seconds[source] = time.perf_counter() - t0
     build_log[source] = proc.stderr
     return out
 
 
+def kernel_resources(source: str = SOURCE) -> dict[str, str]:
+    """Registers and spills of each kernel of the last build of ``source``,
+    from ptxas's report: ``{"gf8_packed_kernel<R=3,W=4>": "40 registers,
+    0 bytes spill stores, 0 bytes spill loads", ...}``."""
+    found: dict[str, list[str]] = {}
+    name = None
+    for line in build_log.get(source, "").splitlines():
+        hit = re.search(r"(?:entry function '|properties for )(\S+?)'?$", line)
+        if hit:
+            k = re.search(r"(gf8_[a-z]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", hit.group(1))
+            name = hit.group(1) if k is None else (
+                k.group(1) + (f"<R={k.group(2)},W={k.group(3)}>" if k.group(2) else "")
+            )
+            found.setdefault(name, [])
+        elif name and "spill" in line:
+            found[name] += [p.strip() for p in line.split(",") if "spill" in p]
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                found[name].insert(0, f"{regs.group(1)} registers")
+    return {n: ", ".join(v) for n, v in found.items()}
+
+
+def bind(lib: ctypes.CDLL, entries=ENTRIES) -> ctypes.CDLL:
+    """Declare the C signatures of ``entries`` and the error string."""
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = _STRIPES_ARGS
+        fn.restype = ctypes.c_int
+    lib.gf8_error_string.argtypes = [ctypes.c_int]
+    lib.gf8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in ENTRIES:
-                fn = getattr(lib, name)
-                fn.argtypes = _STRIPES_ARGS
-                fn.restype = ctypes.c_int
-            lib.gf8_error_string.argtypes = [ctypes.c_int]
-            lib.gf8_error_string.restype = ctypes.c_char_p
+            lib = bind(ctypes.CDLL(str(build())))
+            lib.gf8_packed_words.argtypes = _WORDS_ARGS
+            lib.gf8_packed_words.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
 def launch_stripes(
-    entry: str, bm: torch.Tensor, stripes: torch.Tensor, out: torch.Tensor
+    entry: str,
+    bm: torch.Tensor,
+    stripes: torch.Tensor,
+    out: torch.Tensor,
+    lib: ctypes.CDLL | None = None,
 ) -> None:
     """Launch one of the stripe kernels on the current stream.
 
     ``stripes`` (B, k, chunk) uint8 may have any batch and row strides
     but unit stride along the chunk; ``out`` is a contiguous (B, m, chunk)
     uint8; ``bm`` a contiguous (m*8, k*8) uint8 0/1 bitmatrix; all on one
-    CUDA device.  The caller has checked the kernel's own limits."""
+    CUDA device.  The caller has checked the kernel's own limits.  ``lib``
+    is the package's library unless another build is given (a bound
+    library of an older source, to time beside it)."""
     b, k, chunk = stripes.shape
     m = bm.shape[0] // 8
     for name, t in (("stripes", stripes), ("out", out), ("bitmatrix", bm)):
@@ -124,7 +172,7 @@ def launch_stripes(
         )
     if b * chunk == 0 or m == 0:
         return
-    lib = library()
+    lib = lib or library()
     with torch.cuda.device(stripes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(

@@ -128,7 +128,7 @@ def _bitmatrix_cache(key: bytes, shape: tuple, w: int, device: str):
 
 
 def matrix_to_device_bitmatrix(
-    matrix: np.ndarray, w: int, device="cpu"
+    matrix: np.ndarray, w: int, device
 ) -> torch.Tensor:
     """Lift a GF(2^w) matrix (numpy, any int dtype) to its (m·w, k·w)
     0/1 uint8 bitmatrix on ``device``, cached by value — the bitmatrix

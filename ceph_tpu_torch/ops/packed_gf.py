@@ -3,19 +3,19 @@
 Replaces ``ceph_tpu/ops/packed_gf.py`` ``_make_kernel`` (launched at :179
 by ``_packed_call``), the TPU's fast w=8 encode/decode path: bytes stay
 packed four per 32-bit lane (byte 4w+q of a region is field q of word w,
-little-endian), ``(x >> b) & 0x01010101`` extracts bit b of the four
-bytes at once, and the output bits are deposited back into the packed
-byte fields.
+little-endian), bit b of the four bytes is taken at once, and the output
+bits are deposited back into the packed byte fields.
 
-On this card it is bound by bytes moved, (k + m) bytes per byte column.
-The CUDA kernel (``csrc/gf8_kernels.cu``, ``gf8_packed_kernel``) runs one
-thread per 32-bit word of each stripe, reading the (B, k, chunk) stripes
-in place through their strides (no host fold), and XOR-accumulates
-``plane * column_byte`` products: a field of 0 or 1 times a byte cannot
-carry into its neighbour, so one multiply places all 8 output bits of the
-four bytes, and XOR replaces the TPU's ADD-chain (the popcount ≤ 255
-carry bound does not bind it).  The kernel takes k ≤ 32 and m ≤ 32 (its
-shared-memory column table) and 4-byte-aligned rows.
+On this card it is bound by integer instructions (the CUDA source,
+``csrc/gf8_kernels.cu`` ``gf8_packed_kernel``, has the count).  For each
+input column (j, b) it builds one full-byte mask, each byte 0xFF where bit
+b of that input byte is set, and every output row XORs in the mask ANDed
+with its column byte replicated into the four fields.  XOR replaces the
+TPU's ADD-chain, so the popcount ≤ 255 carry bound does not bind it.  It
+reads the (B, k, chunk) stripes in place through their strides: 16 bytes
+a thread where every address is 16-byte aligned and the batch fills the
+card, 4 otherwise (``words_per_thread``).  It takes k ≤ 32 and m ≤ 32
+(its shared-memory column table) and 4-byte-aligned rows.
 
 Not carried over: ``_schedule``'s pair-CSE (trace-time unrolling for
 Mosaic; per-matrix specialisation is later performance work) and the
@@ -39,6 +39,7 @@ launches = 0
 MAX_K = 32
 MAX_M = 32
 _LSB = 0x01010101
+_MSB = 0x80808080
 # plain version: words per slice of the chunk axis per stripe row
 _PLAIN_SLICE_WORDS = 1 << 24
 
@@ -85,18 +86,20 @@ def _check(bm, stripes: torch.Tensor) -> None:
 
 
 def packed_stripes_plain(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
-    """K1's plain version, the same arithmetic on int64 word lanes:
-    out_word[i] = XOR over columns c=(j, b) of ((x_j >> b) & LSB) * cb[i, c],
-    cb[i, c] the byte of bits bm[8i..8i+7, c].  (B, k, chunk) uint8 →
-    (B, m, chunk) uint8, a slice of words at a time."""
+    """K1's plain version, the same arithmetic on int64 word lanes: for
+    each column c = (j, b), mask = each byte of ``x_j << (7 - b)`` set to
+    0xFF where its bit 7 is set, and out_word[i] ^= mask & rep[i, c], where
+    rep[i, c] is the byte of bits bm[8i..8i+7, c] in all four fields.
+    (B, k, chunk) uint8 → (B, m, chunk) uint8, a slice of words at a
+    time."""
     _check(bm, stripes)
     b, k, chunk = stripes.shape
     m = bm.shape[0] // 8
     dev = stripes.device
-    cb = (
+    rep = (
         bm.to(device=dev, dtype=torch.int64).reshape(m, 8, k * 8)
         << torch.arange(8, device=dev)[None, :, None]
-    ).sum(1)  # (m, k*8)
+    ).sum(1) * _LSB  # (m, k*8)
     nw = chunk // 4
     out = torch.empty((b, m, nw), dtype=torch.int32, device=dev)
     step = max(1, _PLAIN_SLICE_WORDS // max(1, b * m))
@@ -107,8 +110,8 @@ def packed_stripes_plain(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tenso
         acc = torch.zeros((b, m, x.shape[2]), dtype=torch.int64, device=dev)
         for c in range(k * 8):
             j, bit = divmod(c, 8)
-            plane = (x[:, j] >> bit) & _LSB  # (b, n)
-            acc ^= plane[:, None, :] * cb[None, :, c, None]
+            mask = (((x[:, j] << (7 - bit)) & _MSB) >> 7) * 0xFF  # (b, n)
+            acc ^= mask[:, None, :] & rep[None, :, c, None]
         # back into int32's range before narrowing (no reliance on wrap)
         out[:, :, s : s + step] = (acc - ((acc >> 31) << 32)).to(torch.int32)
     return out.view(torch.uint8)
@@ -134,6 +137,15 @@ def packed_matrix_stripes(bm, stripes: torch.Tensor) -> torch.Tensor:
     _build.launch_stripes("gf8_packed_stripes", bm, stripes, out)
     launches += 1
     return out
+
+
+def words_per_thread(stripes: torch.Tensor, out: torch.Tensor) -> int:
+    """The variant K1 takes for these CUDA stripes and this output, as the
+    C entry decides it: 4 words a thread (16-byte loads and stores) or 1."""
+    return _build.library().gf8_packed_words(
+        stripes.data_ptr(), stripes.stride(0), stripes.stride(1),
+        out.data_ptr(), stripes.shape[0], stripes.shape[2],
+    )
 
 
 def packed_bitmatrix_regions(bm, regions: torch.Tensor) -> torch.Tensor:

@@ -7,19 +7,23 @@ Phases, each reported on its own lines; any mismatch raises and the
 script exits non-zero:
 
 1. the card (nvidia-smi name and power limit), CUDA version, and the
-   nvcc build of ``ceph_tpu_torch/csrc/gf8_kernels.cu`` with its time;
+   nvcc build of ``ceph_tpu_torch/csrc/gf8_kernels.cu`` with its time and
+   the registers and spills of each kernel instance;
 2. kernels K1 (packed) and K2 (bitplane) against their plain PyTorch
    versions on the card, exactly (``torch.equal``), for the coding and
-   decoding matrices of the main path at widths 4096, 4100 and 1 GiB of
-   data, and against the numpy oracle at 4096;
+   decoding matrices of the main path and m = 1, 9 and 32 at widths 4096,
+   4100 and 1 GiB of data, and on views read in place (rows 4 bytes off a
+   16-byte boundary, every other stripe), and against the numpy oracle;
 3. the main path through the registry on ``device="cuda"``: jerasure and
    isa encode and decode of seeded 1 MiB and 16 KiB objects with every
    decode's content verified, a bitmatrix technique, the batched encode
    and decode routes, and the ``ec_benchmark`` exhaustive decode; the
    kernels' launch counts are zeroed before and must be non-zero after;
 4. resident throughput at full size: 1024 stripes of k=8 x 128 KiB
-   (1 GiB of data) encoded through K1 and through K2, and 1 GiB of
-   survivors decoded, timed with CUDA events beside the bound and the
+   (1 GiB of data) encoded through K1 and through K2, 1 GiB of survivors
+   decoded, one 1 MiB object (the main path's shape, also timed from a
+   CUDA graph for the device time alone) and 1024 isa cauchy k=10 m=4
+   objects of 1 MiB, timed with CUDA events beside the bound and the
    plain versions; then the numpy-in/numpy-out ``ec_benchmark --batch
    1024`` rate, host transfers included;
 5. one JSON line describing each kernel;
@@ -46,6 +50,8 @@ SEED = 20261016
 GIB = 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor rate, published
+# K1's first design, 1 GiB encode, H100 80GB HBM3 at 700 W (PERF.md)
+K1_FIRST_DESIGN_MS = 1.4978
 
 
 def check(cond: bool, what: str) -> None:
@@ -55,20 +61,6 @@ def check(cond: bool, what: str) -> None:
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int16) - want.to(torch.int16)).abs().max().item())
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def bound_ms(k: int, m: int, nbytes: int) -> tuple[float, str]:
@@ -100,15 +92,41 @@ def phase_build():
     print(f"[1] nvcc build of {_build.SOURCE}: "
           f"{_build.build_seconds.get(_build.SOURCE, 0.0):.2f} s compile, "
           f"{time.perf_counter() - t0:.2f} s to load")
-    for line in _build.build_log.get(_build.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("    ptxas:" + line.split(":", 1)[-1])
+    for name, res in _build.kernel_resources().items():
+        print(f"    ptxas {name}: {res}")
     return smi
+
+
+def _check_kernels(errs: dict, label: str, mat, bm, x, oracle: bool) -> str:
+    """K1 (where it takes the matrix) and K2 against their plain versions
+    on stripes ``x``, exactly; against the numpy oracle on stripe 0 when
+    ``oracle``.  Returns what was checked, K1 with its words per thread."""
+    from ceph_tpu_torch import gf
+    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+
+    checked = []
+    for kname, kernel, plain in (
+        ("K1", packed_gf.packed_matrix_stripes, packed_gf.packed_stripes_plain),
+        ("K2", bitplane_gf.gf8_bitplane_stripes, bitplane_gf.gf8_bitplane_plain),
+    ):
+        if kname == "K1" and not packed_gf.supports(bm.cpu().numpy(), 8):
+            continue
+        got = kernel(bm, x)
+        torch.cuda.synchronize()
+        want = plain(bm, x)
+        err = max_abs_err(got, want)
+        errs[kname] = max(errs[kname], err)
+        check(torch.equal(got, want), f"{kname} != plain on {label}")
+        if oracle:
+            ref = gf.matrix_vector_mul_region(mat, x[0].cpu().numpy(), 8)
+            check(np.array_equal(got[0].cpu().numpy(), ref), f"{kname} != numpy oracle on {label}")
+        checked.append(kname if kname == "K2" else f"K1(W={packed_gf.words_per_thread(x, got)})")
+        del got, want
+    return " ".join(checked)
 
 
 def phase_kernels(errs: dict):
     from ceph_tpu_torch import gf
-    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
     from ceph_tpu_torch.ops.gf_matmul import matrix_to_device_bitmatrix
 
     rs83 = gf.reed_sol_vandermonde_coding_matrix(8, 3, 8)
@@ -117,6 +135,8 @@ def phase_kernels(errs: dict):
         "decode_k8_m3_e1_6": gf.make_decoding_matrix(rs83, [1, 6], 8, 8)[0],
         "isa_cauchy_k10_m4": gf.isa_cauchy_matrix(10, 4),
         "rs_k4_m2": gf.reed_sol_vandermonde_coding_matrix(4, 2, 8),
+        "rs_k8_m1": gf.reed_sol_vandermonde_coding_matrix(8, 1, 8),
+        "rs_k8_m9": gf.reed_sol_vandermonde_coding_matrix(8, 9, 8),
         "rs_k32_m32": gf.reed_sol_vandermonde_coding_matrix(32, 32, 8),
         "rs_k40_m4": gf.reed_sol_vandermonde_coding_matrix(40, 4, 8),
     }
@@ -126,28 +146,20 @@ def phase_kernels(errs: dict):
         bm = matrix_to_device_bitmatrix(mat, 8, "cuda")
         for width in (4096, 4100, (GIB // k) // 4 * 4):
             x = random_u8((1, k, width), SEED + mi * 7 + width % 97)
-            checked = []
-            for kname, kernel, plain in (
-                ("K1", packed_gf.packed_matrix_stripes, packed_gf.packed_stripes_plain),
-                ("K2", bitplane_gf.gf8_bitplane_stripes, bitplane_gf.gf8_bitplane_plain),
-            ):
-                if kname == "K1" and not packed_gf.supports(bm.cpu().numpy(), 8):
-                    continue
-                got = kernel(bm, x)
-                torch.cuda.synchronize()
-                want = plain(bm, x)
-                err = max_abs_err(got, want)
-                errs[kname] = max(errs[kname], err)
-                check(torch.equal(got, want), f"{kname} != plain on {name} width {width}")
-                if width == 4096:
-                    oracle = gf.matrix_vector_mul_region(mat, x[0].cpu().numpy(), 8)
-                    check(np.array_equal(got[0].cpu().numpy(), oracle),
-                          f"{kname} != numpy oracle on {name}")
-                checked.append(kname)
-                del got, want
-            print(f"[2] {name} k={k} m={m} width {width}: "
-                  f"{' '.join(checked)} equal to plain (max_abs_err 0)")
+            what = _check_kernels(errs, f"{name} width {width}", mat, bm, x, width == 4096)
+            print(f"[2] {name} k={k} m={m} width {width}: {what} equal to plain (max_abs_err 0)")
             del x
+    # views read in place: rows 4 bytes past a 16-byte boundary, and every
+    # other stripe of a larger batch
+    bm = matrix_to_device_bitmatrix(rs83, 8, "cuda")
+    for label, x in (
+        ("rows offset by 4 bytes", random_u8((64, 8, 65536 + 4), SEED + 3)[:, :, 4:]),
+        ("stripes [::2]", random_u8((128, 8, 65536), SEED + 5)[::2]),
+    ):
+        what = _check_kernels(errs, f"rs_k8_m3 {label}", rs83, bm, x, True)
+        print(f"[2] rs_k8_m3 {tuple(x.shape)} {label} (strides {x.stride()}): "
+              f"{what} equal to plain (max_abs_err 0)")
+        del x
     torch.cuda.empty_cache()
     print(f"[2] kernel checks took {time.perf_counter() - t0:.1f} s")
 
@@ -232,28 +244,40 @@ def phase_main_path():
 
 def phase_resident():
     from ceph_tpu_torch import gf
+    from ceph_tpu_torch.ec import ErasureCodeProfile, registry_instance
     from ceph_tpu_torch.ec.backend import get_backend
     from ceph_tpu_torch.ops import bitplane_gf, packed_gf
     from ceph_tpu_torch.ops.gf_matmul import gf_matrix_stripes, matrix_to_device_bitmatrix
     from ceph_tpu_torch.tools import ec_benchmark
+    from ceph_tpu_torch.tools.k1_compare import graph_ms, time_ms
 
-    b, k, m, chunk = 1024, 8, 3, 128 << 10
     backend = get_backend("torch", "cuda")
-    mat = gf.reed_sol_vandermonde_coding_matrix(k, m, 8)
-    dec = gf.make_decoding_matrix(mat, [1, 6], k, 8)[0]
+    mat = gf.reed_sol_vandermonde_coding_matrix(8, 3, 8)
+    dec = gf.make_decoding_matrix(mat, [1, 6], 8, 8)[0]
+    cauchy = gf.isa_cauchy_matrix(10, 4)
+    isa_chunk = registry_instance().factory(
+        "isa", ErasureCodeProfile(technique="cauchy", k="10", m="4", device="cuda")
+    ).get_chunk_size(1 << 20)
+    big = random_u8((1024, 8, 128 << 10), SEED + 1)  # 1 GiB
+    one = random_u8((1, 8, 128 << 10), SEED + 2)  # one 1 MiB object
+    wide = random_u8((1024, 10, isa_chunk), SEED + 3)  # 1024 isa objects of 1 MiB
+
+    def k1(matrix, x):
+        bm = matrix_to_device_bitmatrix(matrix, 8, "cuda")
+        return (lambda: backend.matrix_stripes_device(matrix, x, 8),
+                lambda: packed_gf.packed_stripes_plain(bm, x), x, matrix.shape[0])
+
     bm = matrix_to_device_bitmatrix(mat, 8, "cuda")
-    bm_dec = matrix_to_device_bitmatrix(dec, 8, "cuda")
-    stripes = random_u8((b, k, chunk), SEED + 1)
-    nbytes = b * chunk
     rows = {}
-    for label, kernel_fn, plain_fn, bmx, mm in (
-        ("K1 encode", lambda: backend.matrix_stripes_device(mat, stripes, 8),
-         lambda: packed_gf.packed_stripes_plain(bm, stripes), bm, m),
-        ("K2 encode", lambda: gf_matrix_stripes(bm, stripes, w=8),
-         lambda: bitplane_gf.gf8_bitplane_plain(bm, stripes), bm, m),
-        ("K1 decode", lambda: backend.matrix_stripes_device(dec, stripes, 8),
-         lambda: packed_gf.packed_stripes_plain(bm_dec, stripes), bm_dec, dec.shape[0]),
+    for label, (kernel_fn, plain_fn, x, mm) in (
+        ("K1 encode", k1(mat, big)),
+        ("K2 encode", (lambda: gf_matrix_stripes(bm, big, w=8),
+                       lambda: bitplane_gf.gf8_bitplane_plain(bm, big), big, 3)),
+        ("K1 decode", k1(dec, big)),
+        ("K1 encode 1 MiB object", k1(mat, one)),
+        ("K1 isa cauchy k=10 m=4", k1(cauchy, wide)),
     ):
+        b, k, chunk = x.shape
         before = (packed_gf.launches, bitplane_gf.launches)
         got = kernel_fn()
         launched = (packed_gf.launches - before[0], bitplane_gf.launches - before[1])
@@ -261,16 +285,22 @@ def phase_resident():
               f"{label} did not go through its kernel: {launched}")
         want = plain_fn()
         check(torch.equal(got, want), f"{label}: kernel != plain at full size")
+        words = packed_gf.words_per_thread(x, got) if label.startswith("K1") else None
         del got, want
-        ms = time_ms(kernel_fn, iters=10)
+        ms = time_ms(kernel_fn, iters=10 if b > 1 else 200)
         plain_ms = time_ms(plain_fn, iters=1, warmup=0)
-        bms, by = bound_ms(k, mm, nbytes)
+        bms, by = bound_ms(k, mm, b * chunk)
         rows[label] = (ms, plain_ms, bms, by)
-        print(f"[4] {label} B={b} k={k} m={mm} chunk={chunk}: {ms:.4f} ms "
-              f"({k * nbytes / ms / 1e6:.1f} GB/s of input), bound {bms:.4f} ms ({by}), "
+        print(f"[4] {label} B={b} k={k} m={mm} chunk={chunk}"
+              f"{f' W={words}' if words else ''}: {ms:.4f} ms "
+              f"({k * b * chunk / ms / 1e6:.1f} GB/s of input), bound {bms:.4f} ms ({by}), "
               f"plain {plain_ms:.2f} ms")
+        if b == 1:
+            gms = graph_ms(kernel_fn)
+            print(f"[4] {label}: {gms:.4f} ms a launch on the device alone "
+                  "(100 launches replayed from a CUDA graph)")
         torch.cuda.empty_cache()
-    del stripes
+    del big, one, wide
     torch.cuda.empty_cache()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -309,6 +339,8 @@ def main() -> int:
             "library_ms": None, "library_note": note,
             "shape": "B=1024 k=8 m=3 chunk=131072 (1 GiB in)",
         })
+    # the first K1 design's time at this shape (PERF.md), beside the new one
+    kernels[0]["ms_pr1"] = K1_FIRST_DESIGN_MS
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

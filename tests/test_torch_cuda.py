@@ -13,7 +13,7 @@ import torch
 
 from ceph_tpu_torch import gf
 from ceph_tpu_torch.ec import ErasureCodeProfile, registry_instance
-from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+from ceph_tpu_torch.ops import _build, bitplane_gf, packed_gf
 from ceph_tpu_torch.ops.gf_matmul import matrix_to_device_bitmatrix
 
 pytestmark = pytest.mark.cuda
@@ -51,3 +51,82 @@ def test_registry_path_on_the_card(cuda):
     avail = {i: c for i, c in enc.items() if i not in (1, 9)}
     assert ec.decode_concat(avail)[: len(data)].tobytes() == data
     assert packed_gf.launches > before
+
+
+def _k1_equals_plain(bm, x):
+    got = packed_gf.packed_matrix_stripes(bm, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, packed_gf.packed_stripes_plain(bm, x))
+    return got
+
+
+def _stripes(cuda, shape, seed):
+    host = np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+    return torch.from_numpy(host).to(cuda)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 32])
+@pytest.mark.parametrize("k", [4, 8, 10, 32])
+def test_k1_matches_plain_across_shapes(cuda, k, m):
+    bm = matrix_to_device_bitmatrix(gf.reed_sol_vandermonde_coding_matrix(k, m, 8), 8, cuda)
+    for chunk in (4, 12, 4096, 4100, 131072):
+        _k1_equals_plain(bm, _stripes(cuda, (2, k, chunk), k * 100 + m + chunk))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 32])
+def test_k1_sixteen_byte_variant_matches_plain(cuda, m):
+    # a batch large enough that K1 takes 4 words a thread
+    k = 10
+    bm = matrix_to_device_bitmatrix(gf.reed_sol_vandermonde_coding_matrix(k, m, 8), 8, cuda)
+    x = _stripes(cuda, (64, k, 65536), m)
+    got = _k1_equals_plain(bm, x)
+    assert packed_gf.words_per_thread(x, got) == 4
+
+
+def test_k1_misaligned_and_strided_views(cuda):
+    k, m = 8, 3
+    mat = gf.reed_sol_vandermonde_coding_matrix(k, m, 8)
+    bm = matrix_to_device_bitmatrix(mat, 8, cuda)
+    base = _stripes(cuda, (64, k, 65536 + 4), 7)
+    offset = base[:, :, 4:]  # rows start 4 bytes past a 16-byte boundary
+    got = _k1_equals_plain(bm, offset)
+    assert packed_gf.words_per_thread(offset, got) == 1
+    wide = _stripes(cuda, (128, k, 65536), 8)
+    _k1_equals_plain(bm, wide[::2])
+    for tail in (4, 8, 12):  # chunk % 16 != 0: one word a thread
+        x = _stripes(cuda, (64, k, 65536 + tail), tail)
+        got = _k1_equals_plain(bm, x)
+        assert packed_gf.words_per_thread(x, got) == 1
+    np.testing.assert_array_equal(
+        got[5].cpu().numpy(), gf.matrix_vector_mul_region(mat, x[5].cpu().numpy(), 8)
+    )
+
+
+def test_k1_decoding_matrix(cuda):
+    k, m = 8, 3
+    enc = gf.reed_sol_vandermonde_coding_matrix(k, m, 8)
+    dec = gf.make_decoding_matrix(enc, [1, 6], k, 8)[0]
+    bm = matrix_to_device_bitmatrix(dec, 8, cuda)
+    for shape in ((1, k, 131072), (64, k, 65536)):
+        x = _stripes(cuda, shape, shape[0])
+        got = _k1_equals_plain(bm, x)
+    np.testing.assert_array_equal(
+        got[3].cpu().numpy(), gf.matrix_vector_mul_region(dec, x[3].cpu().numpy(), 8)
+    )
+
+
+def test_k1_refused_launch_raises(cuda):
+    bm = matrix_to_device_bitmatrix(gf.reed_sol_vandermonde_coding_matrix(4, 2, 8), 8, cuda)
+    base = _stripes(cuda, (1, 4, 4097), 9)
+    out = torch.empty((1, 2, 4096), dtype=torch.uint8, device=cuda)
+    # rows one byte off a word boundary: the C entry refuses, the wrapper raises
+    with pytest.raises(RuntimeError, match="gf8_packed_stripes launch failed"):
+        _build.launch_stripes("gf8_packed_stripes", bm, base[:, :, 1:], out)
+    with pytest.raises(ValueError):
+        packed_gf.packed_matrix_stripes(bm, base[:, :, 1:])
+    wide = torch.zeros((8, 33 * 8), dtype=torch.uint8, device=cuda)  # k = 33
+    with pytest.raises(RuntimeError, match="gf8_packed_stripes launch failed"):
+        _build.launch_stripes(
+            "gf8_packed_stripes", wide, _stripes(cuda, (1, 33, 64), 10),
+            torch.empty((1, 1, 64), dtype=torch.uint8, device=cuda),
+        )

@@ -1,10 +1,13 @@
 """ceph_tpu_torch packed kernel K1's plain version held against ceph_tpu's
-packed-lane Pallas kernel (interpret mode), over tests/test_packed_gf.py's
-cases.  Byte-exact: tolerance 0.
+packed-lane Pallas kernel (interpret mode) and the numpy oracle, over
+tests/test_packed_gf.py's cases and the shapes where the CUDA kernel
+changes form (rows per register group, words per thread, strides).
+Byte-exact: tolerance 0.
 """
 
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ from ceph_tpu.gf.matrix import (
     make_decoding_matrix,
     reed_sol_vandermonde_coding_matrix,
 )
+from ceph_tpu.ops import gf_matmul as jgm
 from ceph_tpu.ops import packed_gf as jpacked
 from ceph_tpu.ops.gf_matmul import matrix_to_device_bitmatrix as j_bitmatrix
 from ceph_tpu_torch.ops import packed_gf
@@ -70,6 +74,53 @@ def test_stripes_layout_matches_packed_kernel():
         np.testing.assert_array_equal(
             got[s].numpy(), matrix_vector_mul_region(mat, wide[2 * s].numpy(), 8)
         )
+
+
+@pytest.mark.parametrize(
+    "k,m,nbytes,case",
+    [
+        (8, 1, 4096, "regions"),  # rows held in registers: R = m up to 8
+        (8, 5, 4096, "regions"),
+        (8, 8, 4096, "regions"),
+        (8, 9, 4096, "regions"),  # m > 8: a group of eight, then one more row
+        # the largest column table, narrow; held against the JAX package's
+        # XLA bitplane product, since the Pallas kernel unrolls 256 ADD-chains
+        # of up to 256 terms at trace time and takes minutes in interpret mode
+        (32, 32, 256, "xla"),
+        (6, 3, 4100, "regions"),  # chunk % 16 == 4, 8, 12: one word a thread
+        (6, 3, 4104, "regions"),
+        (6, 3, 4108, "regions"),
+        (8, 9, 1040, "strided"),  # every other stripe of a batch, read in place
+    ],
+)
+def test_plain_matches_packed_kernel_across_shapes(k, m, nbytes, case):
+    mat = reed_sol_vandermonde_coding_matrix(k, m, 8)
+    bm_np = np.asarray(j_bitmatrix(mat, 8))
+    bm = matrix_to_device_bitmatrix(mat, 8, "cpu")
+    if case == "regions":
+        _check(mat, k, nbytes, k * 100 + m + nbytes)
+    elif case == "xla":
+        assert packed_gf.supports(bm_np, 8)
+        regions = np.random.default_rng(m).integers(0, 256, (k, nbytes), dtype=np.uint8)
+        got = packed_gf.packed_bitmatrix_regions(bm, torch.from_numpy(regions)).numpy()
+        want = np.asarray(
+            jgm.gf_matrix_regions(jnp.asarray(bm_np), jnp.asarray(regions), w=8)
+        )
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, matrix_vector_mul_region(mat, regions, 8))
+    else:
+        wide = np.random.default_rng(m).integers(0, 256, (6, k, nbytes), dtype=np.uint8)
+        want = np.asarray(
+            jpacked.packed_matrix_stripes(
+                bm_np, np.ascontiguousarray(wide[::2]), interpret=True
+            )
+        )
+        got = packed_gf.packed_matrix_stripes(bm, torch.from_numpy(wide)[::2])
+        np.testing.assert_array_equal(got.numpy(), want)
+        for s in range(3):
+            np.testing.assert_array_equal(
+                got[s].numpy(), matrix_vector_mul_region(mat, wide[2 * s], 8)
+            )
 
 
 def test_supports_guard():
