@@ -57,9 +57,9 @@ int grid_for(long long items) {
 //    in groups of eight, and the rest in one more launch.
 //  - W words per thread: W = 4 (one 16-byte load per input row, one
 //    16-byte store per output row) when the base pointers, the strides and
-//    the chunk are all multiples of 16 and the batch is large enough to fill
-//    the card at four words a thread (gf8_packed_words), else W = 1.  Each
-//    rep word, loaded from shared memory four at a time, serves W words.
+//    the chunk are all multiples of 16 (gf8_packed_words), else W = 1.
+//    Each rep word, loaded from shared memory four at a time, serves W
+//    words.
 //  - The next input row is loaded while the current one is computed.
 //  - The rep table, m*k*8 words (32 KiB at most), is folded from the 0/1
 //    bitmatrix once per block.  The grid is one resident wave (the
@@ -178,22 +178,28 @@ struct PackedArgs {
   int B, k, m;
   unsigned nw;
   const uint8_t* bm;
-  int sms;
   cudaStream_t stream;
 };
 
-// Resident blocks per SM of one instance at this shared-memory size, asked
-// once per size (rows*k words of rep table) and kept.
+// Blocks in one resident wave of one instance at this shared-memory size
+// (rows*k words of rep table): the occupancy query times the SMs, asked
+// once per size and kept.  Blocks loop over tiles, so any grid is correct;
+// this one fills the card once.
 template <int R, int W>
-cudaError_t blocks_per_sm(size_t shm, int* blocks) {
+cudaError_t resident_wave(size_t shm, int* blocks) {
   static std::atomic<int> known[32 * 32 + 1];
   std::atomic<int>& slot = known[shm / (8 * sizeof(uint32_t))];
   int v = slot.load(std::memory_order_relaxed);
   if (v == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &v, gf8_packed_kernel<R, W>, kThreads, shm);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gf8_packed_kernel<R, W>,
+                                                        kThreads, shm);
     if (e != cudaSuccess) return e;
-    v = v > 0 ? v : 1;
+    v = (per_sm > 0 ? per_sm : 1) * sms;
     slot.store(v, std::memory_order_relaxed);
   }
   *blocks = v;
@@ -206,10 +212,9 @@ cudaError_t launch_packed(const PackedArgs& a, int row0, int groups) {
   const unsigned nv = a.nw / W;
   const unsigned tiles_per_stripe = (nv + kThreads - 1) / kThreads;
   const long long tiles = (long long)a.B * tiles_per_stripe;
-  int per_sm = 0;
-  const cudaError_t e = blocks_per_sm<R, W>(shm, &per_sm);
+  int wave = 0;
+  const cudaError_t e = resident_wave<R, W>(shm, &wave);
   if (e != cudaSuccess) return e;
-  const long long wave = (long long)per_sm * a.sms;
   const int grid = (int)(tiles < wave ? tiles : wave);
   gf8_packed_kernel<R, W><<<grid, kThreads, shm, a.stream>>>(
       a.in, a.in_sb, a.in_sk, a.out, a.k, a.m, row0, groups, a.nw, tiles,
@@ -294,35 +299,18 @@ gf8_bitplane_kernel(const uint8_t* __restrict__ in, long long in_sb, long long i
   }
 }
 
-// K1's words per thread for these stripes and this output: 4 when every
-// address it forms is 16-byte aligned and the batch holds at least 4096
-// words per SM (so 4-word items still give each SM a full complement of
-// threads), else 1.  Below that the work is too small to fill the card at
-// 4 words a thread, and one word a thread runs 4 times as many threads.
-int packed_words(const void* in, long long in_sb, long long in_sk, const void* out,
-                 int B, long long chunk, int sms) {
-  const unsigned long long any =
-      reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
-      (unsigned long long)in_sb | (unsigned long long)in_sk | (unsigned long long)chunk;
-  return any % 16 == 0 && (long long)B * (chunk / 4) >= 4096LL * sms ? 4 : 1;
-}
-
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  return e == cudaSuccess ? cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)
-                          : e;
-}
-
 }  // namespace
 
 extern "C" {
 
+// K1's words per thread for these stripes and this output: 4 when every
+// address it forms is 16-byte aligned, else 1.
 int gf8_packed_words(const void* in, long long in_sb, long long in_sk, const void* out,
-                     int B, long long chunk) {
-  int sms = 0;
-  return sm_count(&sms) == cudaSuccess ? packed_words(in, in_sb, in_sk, out, B, chunk, sms)
-                                       : 1;
+                     long long chunk) {
+  const unsigned long long any =
+      reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
+      (unsigned long long)in_sb | (unsigned long long)in_sk | (unsigned long long)chunk;
+  return any % 16 == 0 ? 4 : 1;
 }
 
 int gf8_packed_stripes(const void* in, long long in_sb, long long in_sk, void* out,
@@ -333,15 +321,13 @@ int gf8_packed_stripes(const void* in, long long in_sb, long long in_sk, void* o
       reinterpret_cast<uintptr_t>(in) % 4 || reinterpret_cast<uintptr_t>(out) % 4)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || chunk == 0) return (int)cudaGetLastError();
-  int sms = 0;
-  cudaError_t e = sm_count(&sms);
-  if (e != cudaSuccess) return (int)e;
   const PackedArgs a{(const uint8_t*)in, in_sb, in_sk, (uint8_t*)out, B, k, m,
-                     (unsigned)(chunk / 4), (const uint8_t*)bm, sms,
-                     (cudaStream_t)stream};
-  const bool vec = packed_words(in, in_sb, in_sk, out, B, chunk, sms) == 4;
+                     (unsigned)(chunk / 4), (const uint8_t*)bm, (cudaStream_t)stream};
+  const bool vec = gf8_packed_words(in, in_sb, in_sk, out, chunk) == 4;
+  // groups of eight rows in one launch, and the rest (m % 8) in a second
   const int full = m <= 8 ? 1 : m / 8, R = m <= 8 ? m : 8, rest = m <= 8 ? 0 : m % 8;
-  e = vec ? launch_packed_rows<4>(a, R, 0, full) : launch_packed_rows<1>(a, R, 0, full);
+  cudaError_t e =
+      vec ? launch_packed_rows<4>(a, R, 0, full) : launch_packed_rows<1>(a, R, 0, full);
   if (e == cudaSuccess && rest)
     e = vec ? launch_packed_rows<4>(a, rest, full * 8, 1)
             : launch_packed_rows<1>(a, rest, full * 8, 1);

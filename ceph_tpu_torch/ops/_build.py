@@ -41,10 +41,10 @@ _STRIPES_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,
 ]
 ENTRIES = ("gf8_packed_stripes", "gf8_bitplane_stripes")
-# (in, in_sb, in_sk, out, B, chunk) -> K1's words per thread, 4 or 1
+# (in, in_sb, in_sk, out, chunk) -> K1's words per thread, 4 or 1
 _WORDS_ARGS = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_longlong,
 ]
 
 _lock = threading.Lock()
@@ -64,9 +64,9 @@ def nvcc() -> str:
 
 
 def build(source: str = SOURCE) -> pathlib.Path:
-    """Compile ``csrc/<source>`` (or ``source``, an absolute path) unless a
-    library of the same digest exists.  What ptxas printed is kept beside
-    the library and in ``build_log[source]``."""
+    """Compile ``csrc/<source>`` unless a library of the same digest
+    exists.  What ptxas printed is kept beside the library and in
+    ``build_log[source]``."""
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
@@ -94,13 +94,13 @@ def build(source: str = SOURCE) -> pathlib.Path:
     return out
 
 
-def kernel_resources(source: str = SOURCE) -> dict[str, str]:
-    """Registers and spills of each kernel of the last build of ``source``,
-    from ptxas's report: ``{"gf8_packed_kernel<R=3,W=4>": "40 registers,
-    0 bytes spill stores, 0 bytes spill loads", ...}``."""
+def kernel_resources(ptxas: str) -> dict[str, str]:
+    """Registers and spills of each kernel in ptxas's report of a build
+    (``build_log[source]``): ``{"gf8_packed_kernel<R=3,W=4>": "40
+    registers, 0 bytes spill stores, 0 bytes spill loads", ...}``."""
     found: dict[str, list[str]] = {}
     name = None
-    for line in build_log.get(source, "").splitlines():
+    for line in ptxas.splitlines():
         hit = re.search(r"(?:entry function '|properties for )(\S+?)'?$", line)
         if hit:
             k = re.search(r"(gf8_[a-z]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", hit.group(1))
@@ -117,22 +117,17 @@ def kernel_resources(source: str = SOURCE) -> dict[str, str]:
     return {n: ", ".join(v) for n, v in found.items()}
 
 
-def bind(lib: ctypes.CDLL, entries=ENTRIES) -> ctypes.CDLL:
-    """Declare the C signatures of ``entries`` and the error string."""
-    for name in entries:
-        fn = getattr(lib, name)
-        fn.argtypes = _STRIPES_ARGS
-        fn.restype = ctypes.c_int
-    lib.gf8_error_string.argtypes = [ctypes.c_int]
-    lib.gf8_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = bind(ctypes.CDLL(str(build())))
+            lib = ctypes.CDLL(str(build()))
+            for name in ENTRIES:
+                fn = getattr(lib, name)
+                fn.argtypes = _STRIPES_ARGS
+                fn.restype = ctypes.c_int
+            lib.gf8_error_string.argtypes = [ctypes.c_int]
+            lib.gf8_error_string.restype = ctypes.c_char_p
             lib.gf8_packed_words.argtypes = _WORDS_ARGS
             lib.gf8_packed_words.restype = ctypes.c_int
             _lib = lib
@@ -140,20 +135,14 @@ def library() -> ctypes.CDLL:
 
 
 def launch_stripes(
-    entry: str,
-    bm: torch.Tensor,
-    stripes: torch.Tensor,
-    out: torch.Tensor,
-    lib: ctypes.CDLL | None = None,
+    entry: str, bm: torch.Tensor, stripes: torch.Tensor, out: torch.Tensor
 ) -> None:
     """Launch one of the stripe kernels on the current stream.
 
     ``stripes`` (B, k, chunk) uint8 may have any batch and row strides
     but unit stride along the chunk; ``out`` is a contiguous (B, m, chunk)
     uint8; ``bm`` a contiguous (m*8, k*8) uint8 0/1 bitmatrix; all on one
-    CUDA device.  The caller has checked the kernel's own limits.  ``lib``
-    is the package's library unless another build is given (a bound
-    library of an older source, to time beside it)."""
+    CUDA device.  The caller has checked the kernel's own limits."""
     b, k, chunk = stripes.shape
     m = bm.shape[0] // 8
     for name, t in (("stripes", stripes), ("out", out), ("bitmatrix", bm)):
@@ -172,7 +161,7 @@ def launch_stripes(
         )
     if b * chunk == 0 or m == 0:
         return
-    lib = lib or library()
+    lib = library()
     with torch.cuda.device(stripes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(

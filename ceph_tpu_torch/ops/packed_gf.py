@@ -13,9 +13,9 @@ b of that input byte is set, and every output row XORs in the mask ANDed
 with its column byte replicated into the four fields.  XOR replaces the
 TPU's ADD-chain, so the popcount ≤ 255 carry bound does not bind it.  It
 reads the (B, k, chunk) stripes in place through their strides: 16 bytes
-a thread where every address is 16-byte aligned and the batch fills the
-card, 4 otherwise (``words_per_thread``).  It takes k ≤ 32 and m ≤ 32
-(its shared-memory column table) and 4-byte-aligned rows.
+a thread where every address is 16-byte aligned, 4 otherwise
+(``words_per_thread``).  It takes k ≤ 32 and m ≤ 32 (its shared-memory
+column table) and 4-byte-aligned rows.
 
 Not carried over: ``_schedule``'s pair-CSE (trace-time unrolling for
 Mosaic; per-matrix specialisation is later performance work) and the
@@ -25,7 +25,9 @@ shifts on uint32, so words travel as int32 and the plain version widens
 them to int64).
 
 The wrapper takes the plain version only for a CPU tensor; on a CUDA
-tensor it launches the kernel or raises.  ``launches`` counts launches.
+tensor it launches the kernel or raises.  ``launches`` counts kernel
+launches: one a call, two for m > 8 when m is not a multiple of 8 (the
+groups of eight rows, then the rest).
 """
 
 from __future__ import annotations
@@ -135,7 +137,8 @@ def packed_matrix_stripes(bm, stripes: torch.Tensor) -> torch.Tensor:
         (b, bm.shape[0] // 8, chunk), dtype=torch.uint8, device=stripes.device
     )
     _build.launch_stripes("gf8_packed_stripes", bm, stripes, out)
-    launches += 1
+    m = out.shape[1]
+    launches += 2 if m > 8 and m % 8 else 1
     return out
 
 
@@ -144,7 +147,7 @@ def words_per_thread(stripes: torch.Tensor, out: torch.Tensor) -> int:
     C entry decides it: 4 words a thread (16-byte loads and stores) or 1."""
     return _build.library().gf8_packed_words(
         stripes.data_ptr(), stripes.stride(0), stripes.stride(1),
-        out.data_ptr(), stripes.shape[0], stripes.shape[2],
+        out.data_ptr(), stripes.shape[2],
     )
 
 

@@ -1,23 +1,25 @@
-"""Time kernel K1 beside an older build of it, on one CUDA card.
+"""Time kernel K1 beside another build of it, on one CUDA card.
 
     python -m ceph_tpu_torch.tools.k1_compare --baseline OLD.cu
 
 ``OLD.cu`` is another version of ``csrc/gf8_kernels.cu`` (for example one
-taken from an earlier commit with ``git show``); it is built with the same
-flags and its ``gf8_packed_stripes`` entry is launched on the same tensors
-as the package's.  At each shape both outputs must equal K1's plain
-version, then the two are timed with CUDA events in turns (old, new, new,
-old), each through the same host path, and one JSON line per shape is
-printed with both times and the byte bound.  For the one-stripe shape
-the device time alone is also taken, from a CUDA graph of 100 launches.
-Before that it prints ptxas's registers and spills of both builds' K1
-and, for each K1 instance of the package's build, the count of each
+taken from an earlier commit with ``git show``).  This tool builds it with
+the package's nvcc flags into ``build/ceph_tpu_torch/compare/`` and calls
+its ``gf8_packed_stripes`` entry on the same tensors as the package's, both
+through the same ctypes call.  At each shape both outputs must equal K1's
+plain version; then the two are timed with CUDA events in turns (old, new,
+new, old), and for batches of at most 64 stripes also from a CUDA graph of
+100 launches (the device time alone).  One JSON line per shape carries
+both times, the words per thread the package's build takes, and the byte
+bound.  Before that it prints ptxas's registers and spills of both builds'
+K1 and, for each K1 instance of the package's build, the count of each
 SASS opcode (``cuobjdump -sass``).
 
-The shapes: 1 GiB encode (B=1024, k=8, m=3, 128 KiB chunks), 1 GiB decode
-of erasures {1, 6} (m=2), the registry path's 1 MiB object (B=1, k=8,
-m=3), and the 1 GiB encode on rows offset by 4 bytes (K1's 4-byte word
-variant).  Needs a CUDA device; exits non-zero without one.
+The shapes, k=8 and 128 KiB chunks: the 1 GiB encode (B=1024, m=3), the
+1 GiB decode of erasures {1, 6} (m=2), encodes of B = 1 (the registry
+path's 1 MiB object), 8 and 64 stripes, and the 1 GiB encode on rows
+offset by 4 bytes (K1's one-word form).  Needs a CUDA device; exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import hashlib
 import json
 import pathlib
 import re
@@ -37,35 +40,37 @@ import torch
 from .. import gf
 from ..ops import _build, packed_gf
 from ..ops.gf_matmul import matrix_to_device_bitmatrix
+from .timing import graph_ms, time_ms
 
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Milliseconds per call of ``fn``, from CUDA events around ``iters``
-    calls after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
+def build_other(source: pathlib.Path) -> tuple[pathlib.Path, str]:
+    """Build another ``gf8_kernels.cu`` with the package's flags; returns
+    the library and what ptxas printed."""
+    text = source.read_bytes()
+    digest = hashlib.sha256(text + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = _build.BUILD_DIR / "compare" / f"lib{source.stem}_{digest}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(source)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    return out, proc.stderr
 
 
-def graph_ms(fn, launches: int = 100, replays: int = 10) -> float:
-    """Device time of one call of ``fn``: ``launches`` calls captured in a
-    CUDA graph and replayed, so no host work sits between launches."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    return time_ms(graph.replay, iters=replays) / launches
+def packed_entry(lib: ctypes.CDLL):
+    fn = lib.gf8_packed_stripes
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _shapes():
@@ -76,6 +81,8 @@ def _shapes():
         ("encode 1 GiB", rs83, 1024, chunk, 0),
         ("decode 1 GiB, erasures {1,6}", dec, 1024, chunk, 0),
         ("encode 1 MiB object", rs83, 1, chunk, 0),
+        ("encode 8 objects of 1 MiB", rs83, 8, chunk, 0),
+        ("encode 64 objects of 1 MiB", rs83, 64, chunk, 0),
         ("encode 1 GiB, rows offset by 4 bytes", rs83, 1024, chunk, 4),
     ]
 
@@ -103,7 +110,7 @@ def sass_counts(lib_path: pathlib.Path) -> dict[str, collections.Counter]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--baseline", required=True, help="an older gf8_kernels.cu")
+    ap.add_argument("--baseline", required=True, help="another gf8_kernels.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_compare: no CUDA device", file=sys.stderr)
@@ -113,14 +120,18 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    _build.library()
-    base_src = str(pathlib.Path(args.baseline).resolve())
-    old_lib = _build.bind(ctypes.CDLL(str(_build.build(base_src))), ("gf8_packed_stripes",))
-    for label, src in (("new", _build.SOURCE), ("baseline", base_src)):
-        for name, res in _build.kernel_resources(src).items():
+    new_path = _build.build()
+    old_path, old_ptxas = build_other(pathlib.Path(args.baseline).resolve())
+    entry = {
+        "new": packed_entry(_build.library()),
+        "old": packed_entry(ctypes.CDLL(str(old_path))),
+    }
+    new_ptxas = _build.build_log.get(_build.SOURCE, "")
+    for label, ptxas in (("new", new_ptxas), ("baseline", old_ptxas)):
+        for name, res in _build.kernel_resources(ptxas).items():
             if "packed" in name:
                 print(f"ptxas {label} {name}: {res}")
-    for inst, ops in sorted(sass_counts(_build.build()).items()):
+    for inst, ops in sorted(sass_counts(new_path).items()):
         top = ", ".join(f"{o} {n}" for o, n in ops.most_common(12))
         print(f"sass new {inst}: {sum(ops.values())} instructions; {top}")
 
@@ -131,32 +142,35 @@ def main(argv=None) -> int:
         base = torch.randint(0, 256, (b, k, chunk + offset), dtype=torch.uint8,
                              device="cuda", generator=gen)
         stripes = base[:, :, offset:]
-        out_old = torch.empty((b, m, chunk), dtype=torch.uint8, device="cuda")
-        out_new = torch.empty_like(out_old)
+        outs = {who: torch.empty((b, m, chunk), dtype=torch.uint8, device="cuda")
+                for who in entry}
 
-        def run_old():
-            _build.launch_stripes("gf8_packed_stripes", bm, stripes, out_old, lib=old_lib)
+        def run(who):
+            err = entry[who](
+                stripes.data_ptr(), stripes.stride(0), stripes.stride(1),
+                outs[who].data_ptr(), b, k, m, chunk, bm.data_ptr(),
+                torch.cuda.current_stream().cuda_stream,
+            )
+            if err:
+                raise RuntimeError(f"k1_compare: {who} launch failed ({err})")
 
-        def run_new():
-            _build.launch_stripes("gf8_packed_stripes", bm, stripes, out_new)
-
-        run_new()
-        run_old()
+        run("new")
+        run("old")
         torch.cuda.synchronize()
         want = packed_gf.packed_stripes_plain(bm, stripes)
-        if not (torch.equal(out_new, want) and torch.equal(out_old, want)):
+        if not all(torch.equal(o, want) for o in outs.values()):
             raise RuntimeError(f"k1_compare: {label}: a kernel disagrees with the plain version")
-        words = packed_gf.words_per_thread(stripes, out_new)
+        words = packed_gf.words_per_thread(stripes, outs["new"])
         del want
-        # the same host path for both: a launch through launch_stripes
         iters = 200 if b == 1 else 20  # a 1 MiB launch is microseconds
+        turns = ("old", "new", "new", "old")
         times = {"old": [], "new": []}
-        for who in ("old", "new", "new", "old"):
-            times[who].append(time_ms(run_old if who == "old" else run_new, iters, warmup=1))
+        for who in turns:
+            times[who].append(time_ms(lambda: run(who), iters, warmup=1))
         graph = {"old": [], "new": []}
-        if b == 1:  # device time alone: 100 launches replayed from a CUDA graph
-            for who in ("old", "new", "new", "old"):
-                graph[who].append(graph_ms(run_old if who == "old" else run_new))
+        if b <= 64:
+            for who in turns:
+                graph[who].append(graph_ms(lambda: run(who)))
         nbytes = b * chunk
         row = {
             "shape": label, "B": b, "k": k, "m": m, "chunk": chunk,
@@ -167,7 +181,7 @@ def main(argv=None) -> int:
             "speedup": sum(times["old"]) / sum(times["new"]),
         }
         print(json.dumps(row))
-        del base, stripes, out_old, out_new
+        del base, stripes, outs
         torch.cuda.empty_cache()
     return 0
 

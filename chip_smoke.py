@@ -50,8 +50,6 @@ SEED = 20261016
 GIB = 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor rate, published
-# K1's first design, 1 GiB encode, H100 80GB HBM3 at 700 W (PERF.md)
-K1_FIRST_DESIGN_MS = 1.4978
 
 
 def check(cond: bool, what: str) -> None:
@@ -92,7 +90,7 @@ def phase_build():
     print(f"[1] nvcc build of {_build.SOURCE}: "
           f"{_build.build_seconds.get(_build.SOURCE, 0.0):.2f} s compile, "
           f"{time.perf_counter() - t0:.2f} s to load")
-    for name, res in _build.kernel_resources().items():
+    for name, res in _build.kernel_resources(_build.build_log.get(_build.SOURCE, "")).items():
         print(f"    ptxas {name}: {res}")
     return smi
 
@@ -249,7 +247,7 @@ def phase_resident():
     from ceph_tpu_torch.ops import bitplane_gf, packed_gf
     from ceph_tpu_torch.ops.gf_matmul import gf_matrix_stripes, matrix_to_device_bitmatrix
     from ceph_tpu_torch.tools import ec_benchmark
-    from ceph_tpu_torch.tools.k1_compare import graph_ms, time_ms
+    from ceph_tpu_torch.tools.timing import graph_ms, time_ms
 
     backend = get_backend("torch", "cuda")
     mat = gf.reed_sol_vandermonde_coding_matrix(8, 3, 8)
@@ -339,8 +337,6 @@ def main() -> int:
             "library_ms": None, "library_note": note,
             "shape": "B=1024 k=8 m=3 chunk=131072 (1 GiB in)",
         })
-    # the first K1 design's time at this shape (PERF.md), beside the new one
-    kernels[0]["ms_pr1"] = K1_FIRST_DESIGN_MS
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,12 +75,22 @@ def test_k1_matches_plain_across_shapes(cuda, k, m):
 
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 32])
 def test_k1_sixteen_byte_variant_matches_plain(cuda, m):
-    # a batch large enough that K1 takes 4 words a thread
+    # 16-byte aligned rows: K1 takes 4 words a thread, for one stripe too
     k = 10
     bm = matrix_to_device_bitmatrix(gf.reed_sol_vandermonde_coding_matrix(k, m, 8), 8, cuda)
-    x = _stripes(cuda, (64, k, 65536), m)
-    got = _k1_equals_plain(bm, x)
-    assert packed_gf.words_per_thread(x, got) == 4
+    for b in (1, 64):
+        x = _stripes(cuda, (b, k, 65536), m + b)
+        got = _k1_equals_plain(bm, x)
+        assert packed_gf.words_per_thread(x, got) == 4
+
+
+@pytest.mark.parametrize("m,kernels", [(3, 1), (8, 1), (9, 2), (16, 1), (20, 2)])
+def test_k1_counts_each_kernel_launch(cuda, m, kernels):
+    # m > 8: the groups of eight rows in one launch, the rest in another
+    bm = matrix_to_device_bitmatrix(gf.reed_sol_vandermonde_coding_matrix(8, m, 8), 8, cuda)
+    before = packed_gf.launches
+    _k1_equals_plain(bm, _stripes(cuda, (2, 8, 4096), m))
+    assert packed_gf.launches - before == kernels
 
 
 def test_k1_misaligned_and_strided_views(cuda):
