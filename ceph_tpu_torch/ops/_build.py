@@ -41,7 +41,7 @@ _STRIPES_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,
 ]
 ENTRIES = ("gf8_packed_stripes", "gf8_bitplane_stripes")
-# (in, in_sb, in_sk, out, chunk) -> K1's words per thread, 4 or 1
+# (in, in_sb, in_sk, out, chunk) -> the kernels' words per thread, 4 or 1
 _WORDS_ARGS = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong,
@@ -128,10 +128,22 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.gf8_error_string.argtypes = [ctypes.c_int]
             lib.gf8_error_string.restype = ctypes.c_char_p
-            lib.gf8_packed_words.argtypes = _WORDS_ARGS
-            lib.gf8_packed_words.restype = ctypes.c_int
+            lib.gf8_words_per_thread.argtypes = _WORDS_ARGS
+            lib.gf8_words_per_thread.restype = ctypes.c_int
+            lib.gf8_bitplane_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.gf8_bitplane_rows.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def words_per_thread(stripes: torch.Tensor, out: torch.Tensor) -> int:
+    """The form both kernels take for these CUDA stripes and this output,
+    as the C entries decide it: 4 words a thread (16-byte loads and
+    stores) where every address is 16-byte aligned, else 1."""
+    return library().gf8_words_per_thread(
+        stripes.data_ptr(), stripes.stride(0), stripes.stride(1),
+        out.data_ptr(), stripes.shape[2],
+    )
 
 
 def launch_stripes(

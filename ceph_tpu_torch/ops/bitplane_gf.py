@@ -5,34 +5,34 @@ Replaces ``ceph_tpu/ops/pallas_gf.py`` ``_kernel`` (launched at :60 by
 planes, takes a bf16 dot with the (m·8, k·8) 0/1 bitmatrix, masks ``& 1``
 and repacks.  It is the w=8 case of ``gf_matmul.gf_matrix_regions`` /
 ``gf_matrix_stripes``: the batched encode and decode routes of the torch
-backend and widths the packed kernel K1 does not take.
+backend and the w=8 products kernel K1 does not take.
 
-On this card it is bound by bytes moved, (k + m) bytes per byte column.
-The CUDA kernel (``csrc/gf8_kernels.cu``, ``gf8_bitplane_kernel``) never
-forms the planes: a thread gathers its column's k bytes into 32-bit
-groups and takes ``popc(row_mask & column) & 1`` per output bit, the
-bitmatrix rows held as masks in shared memory.  It reads the stripes in
-place through their strides and masks the ragged edge itself, so any
-width works: the TPU's ``N % TILE_N == 0`` (``pallas_gf.py:91-95``) was a
-tiling artefact and is not kept.
+What it keeps from the TPU kernel is the bitmatrix product; the planes,
+the popcounts and the bf16 dot do not pay on this card (the CUDA source,
+``csrc/gf8_kernels.cu`` ``gf8_bitplane_kernel``, gives the counts).  It
+runs K1's arithmetic: one full-byte mask per input bit, shared by every
+output row, and one AND-XOR per row.  It keeps its own contract, which is
+wider than K1's: any chunk width (the TPU's ``N % TILE_N == 0``,
+``pallas_gf.py:91-95``, was a tiling artefact), any byte alignment of the
+rows, read in place through their strides, and any k and m of a GF(2^8)
+code.  It computes at most eight output rows a launch, as many as its
+shared-memory table of k·8 words per row holds (``rows_per_launch``), so
+a larger m takes one launch per group of rows.
 
 The wrapper takes the plain version only for a CPU tensor; on a CUDA
-tensor it launches the kernel or raises.  ``launches`` counts launches.
+tensor it launches the kernel or raises.  ``launches`` counts kernel
+launches, one per group of rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..layout import fold_stripes, unfold_stripes
 from . import _build
-from .gf_matmul import word_regions_plain
+from .packed_gf import word_product_plain
 
 launches = 0
-# shared-memory rows the kernel can hold: m*8*ceil(k/4) u32 in 227 KB
-_MAX_SHARED = 232448
-# plain version: bytes of input per slice (its float32 planes are 32x)
-_PLAIN_SLICE_BYTES = 1 << 26
 
 
 def _check(bm: torch.Tensor, stripes: torch.Tensor) -> None:
@@ -46,19 +46,22 @@ def _check(bm: torch.Tensor, stripes: torch.Tensor) -> None:
 
 
 def gf8_bitplane_plain(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
-    """K2's plain version: unpack → mod2_matmul → pack on the folded
-    stripes, one slice of byte columns at a time so the float32 planes
-    stay bounded.  (B, k, chunk) uint8 → (B, m, chunk) uint8."""
+    """K2's plain version: the kernels' shared arithmetic
+    (``packed_gf.word_product_plain``) on the stripes, the chunk padded
+    with zeros to a multiple of 4 and cut back.  (B, k, chunk) uint8 →
+    (B, m, chunk) uint8."""
     _check(bm, stripes)
-    b, k, chunk = stripes.shape
-    regions = fold_stripes(stripes)
-    out = torch.empty(
-        (bm.shape[0] // 8, b * chunk), dtype=torch.uint8, device=stripes.device
-    )
-    step = max(1, _PLAIN_SLICE_BYTES // k)
-    for s in range(0, b * chunk, step):
-        out[:, s : s + step] = word_regions_plain(bm, regions[:, s : s + step], 8)
-    return unfold_stripes(out, b, chunk).contiguous()
+    chunk = stripes.shape[2]
+    if chunk % 4:
+        stripes = F.pad(stripes, (0, -chunk % 4))
+    return word_product_plain(bm, stripes)[:, :, :chunk].contiguous()
+
+
+def rows_per_launch(k: int, m: int) -> int:
+    """Output rows one launch of K2 computes, as the C entry decides it:
+    at most 8, and no more than its shared-memory table holds; 0 where
+    not one row's table fits."""
+    return _build.library().gf8_bitplane_rows(k, m)
 
 
 def gf8_bitplane_stripes(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
@@ -71,12 +74,15 @@ def gf8_bitplane_stripes(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tenso
     _check(bm, stripes)
     b, k, chunk = stripes.shape
     m = bm.shape[0] // 8
-    if m * 8 * ((k + 3) // 4) * 4 > _MAX_SHARED:
-        raise ValueError(f"k={k}, m={m}: bitmatrix rows exceed shared memory")
-    bm = bm.to(device=stripes.device, dtype=torch.uint8).contiguous()
     out = torch.empty((b, m, chunk), dtype=torch.uint8, device=stripes.device)
+    if out.numel() == 0:
+        return out
+    rows = rows_per_launch(k, m)
+    if rows < 1:
+        raise ValueError(f"k={k}: one output row's table exceeds shared memory")
+    bm = bm.to(device=stripes.device, dtype=torch.uint8).contiguous()
     _build.launch_stripes("gf8_bitplane_stripes", bm, stripes, out)
-    launches += 1
+    launches += -(-m // rows)
     return out
 
 

@@ -10,7 +10,10 @@ backend, with "the device is CUDA" in place of "the chip is a TPU":
 - otherwise ``gf_matmul.gf_matrix_regions`` / ``gf_matrix_stripes``,
   which launch kernel K2 (``bitplane_gf``) at w=8 on CUDA and run plain
   PyTorch for other word sizes and on the CPU;
-- the batch methods take the bitplane route, as the JAX ones do.
+- the batch methods take the bitplane route, as the JAX ones do, on each
+  group of stripes as it is: K2 reads any batch size in place, so the
+  JAX package's padding of the batch to a power of two (which keeps
+  ``jit`` to few shapes) has no counterpart here.
 
 On the CPU device the kernels' plain versions run.  Asking for a CUDA
 device where there is none raises ErasureCodeError: the backend never
@@ -35,13 +38,6 @@ from .gf_matmul import (
     gf_matrix_stripes,
     matrix_to_device_bitmatrix,
 )
-
-
-def bucket_pow2(n: int, floor: int = 1) -> int:
-    """Next power of two >= max(n, floor): the batch size the bitplane
-    batch routes pad to, so ragged batches land on few shapes."""
-    n = max(int(n), int(floor), 1)
-    return 1 << (n - 1).bit_length()
 
 
 @functools.lru_cache(maxsize=512)
@@ -115,7 +111,7 @@ class TorchBackend:
         bm = matrix_to_device_bitmatrix(matrix, w, stripes.device)
         if stripes.is_cuda and stripes.shape[2] % 4 == 0 and _packed_ok(matrix, w):
             return packed_gf.packed_matrix_stripes(bm, stripes)
-        return self._bitplane_dispatch(bm, stripes, w)
+        return gf_matrix_stripes(bm, stripes, w=w)
 
     def matrix_stripes(
         self, matrix: np.ndarray, stripes: np.ndarray, w: int
@@ -123,18 +119,6 @@ class TorchBackend:
         """Batched (B, k, chunk) → (B, m, chunk); numpy in, numpy out."""
         out = self.matrix_stripes_device(matrix, self._upload(stripes), w)
         return self._download(out)
-
-    @staticmethod
-    def _bitplane_dispatch(bm, dev: torch.Tensor, w: int) -> torch.Tensor:
-        """The bitplane route on an uploaded (B, k, chunk) batch: the
-        batch pads on the device to a power of two (the JAX package's
-        bucketing, kept so both see the same shapes) and is sliced back."""
-        b, k, chunk = dev.shape
-        bb = bucket_pow2(b)
-        if bb != b:
-            pad = torch.zeros((bb - b, k, chunk), dtype=dev.dtype, device=dev.device)
-            dev = torch.cat([dev, pad])
-        return gf_matrix_stripes(bm, dev, w=w)[:b]
 
     def _grouped(self, bm, arrays: list[np.ndarray], w: int, group_stripes: int):
         """Pack (Bi, k, chunk) arrays greedily into ~group_stripes-stripe
@@ -159,7 +143,7 @@ class TorchBackend:
                 if len(group) > 1
                 else arrays[group[0]]
             )
-            pending.append(self._bitplane_dispatch(bm, self._upload(arr), w))
+            pending.append(gf_matrix_stripes(bm, self._upload(arr), w=w))
         outs: list = [None] * len(arrays)
         for group, dev_out in zip(groups, pending):
             host = self._download(dev_out)

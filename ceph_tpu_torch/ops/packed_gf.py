@@ -14,8 +14,10 @@ with its column byte replicated into the four fields.  XOR replaces the
 TPU's ADD-chain, so the popcount ≤ 255 carry bound does not bind it.  It
 reads the (B, k, chunk) stripes in place through their strides: 16 bytes
 a thread where every address is 16-byte aligned, 4 otherwise
-(``words_per_thread``).  It takes k ≤ 32 and m ≤ 32 (its shared-memory
-column table) and 4-byte-aligned rows.
+(``_build.words_per_thread``).  It takes k ≤ 32 and m ≤ 32 (its
+shared-memory column table) and 4-byte-aligned rows.  Kernel K2
+(``bitplane_gf``) runs the same arithmetic without those limits, and its
+plain version is this module's ``word_product_plain`` too.
 
 Not carried over: ``_schedule``'s pair-CSE (trace-time unrolling for
 Mosaic; per-matrix specialisation is later performance work) and the
@@ -87,14 +89,14 @@ def _check(bm, stripes: torch.Tensor) -> None:
         raise ValueError(f"packed kernel needs chunk % 4 == 0, got {chunk}")
 
 
-def packed_stripes_plain(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
-    """K1's plain version, the same arithmetic on int64 word lanes: for
-    each column c = (j, b), mask = each byte of ``x_j << (7 - b)`` set to
-    0xFF where its bit 7 is set, and out_word[i] ^= mask & rep[i, c], where
-    rep[i, c] is the byte of bits bm[8i..8i+7, c] in all four fields.
-    (B, k, chunk) uint8 → (B, m, chunk) uint8, a slice of words at a
-    time."""
-    _check(bm, stripes)
+def word_product_plain(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of both kernels (K1 here, K2 in ``bitplane_gf``) on
+    int64 word lanes: for each column c = (j, b), mask = each byte of
+    ``x_j << (7 - b)`` set to 0xFF where its bit 7 is set, and
+    out_word[i] ^= mask & rep[i, c], where rep[i, c] is the byte of bits
+    bm[8i..8i+7, c] in all four fields.  (B, k, chunk) uint8 with
+    chunk % 4 == 0 → (B, m, chunk) uint8, a slice of words at a time; any
+    k and m."""
     b, k, chunk = stripes.shape
     m = bm.shape[0] // 8
     dev = stripes.device
@@ -119,6 +121,12 @@ def packed_stripes_plain(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tenso
     return out.view(torch.uint8)
 
 
+def packed_stripes_plain(bm: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
+    """K1's plain version: ``word_product_plain`` within K1's limits."""
+    _check(bm, stripes)
+    return word_product_plain(bm, stripes)
+
+
 def packed_matrix_stripes(bm, stripes: torch.Tensor) -> torch.Tensor:
     """(m·8, k·8) 0/1 bitmatrix applied to (B, k, chunk) uint8 stripes →
     (B, m, chunk) uint8; K1 on a CUDA tensor (stripes read in place, any
@@ -140,15 +148,6 @@ def packed_matrix_stripes(bm, stripes: torch.Tensor) -> torch.Tensor:
     m = out.shape[1]
     launches += 2 if m > 8 and m % 8 else 1
     return out
-
-
-def words_per_thread(stripes: torch.Tensor, out: torch.Tensor) -> int:
-    """The variant K1 takes for these CUDA stripes and this output, as the
-    C entry decides it: 4 words a thread (16-byte loads and stores) or 1."""
-    return _build.library().gf8_packed_words(
-        stripes.data_ptr(), stripes.stride(0), stripes.stride(1),
-        out.data_ptr(), stripes.shape[2],
-    )
 
 
 def packed_bitmatrix_regions(bm, regions: torch.Tensor) -> torch.Tensor:

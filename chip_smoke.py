@@ -12,8 +12,10 @@ script exits non-zero:
 2. kernels K1 (packed) and K2 (bitplane) against their plain PyTorch
    versions on the card, exactly (``torch.equal``), for the coding and
    decoding matrices of the main path and m = 1, 9 and 32 at widths 4096,
-   4100 and 1 GiB of data, and on views read in place (rows 4 bytes off a
-   16-byte boundary, every other stripe), and against the numpy oracle;
+   4100, 4097 (K2 alone: K1 takes whole words) and 1 GiB of data, and on
+   views read in place (rows 4 bytes off a 16-byte boundary, rows 1 byte
+   off a word boundary for K2, every other stripe), and against the numpy
+   oracle; each with the words per thread the kernel took;
 3. the main path through the registry on ``device="cuda"``: jerasure and
    isa encode and decode of seeded 1 MiB and 16 KiB objects with every
    decode's content verified, a bitmatrix technique, the batched encode
@@ -21,11 +23,14 @@ script exits non-zero:
    kernels' launch counts are zeroed before and must be non-zero after;
 4. resident throughput at full size: 1024 stripes of k=8 x 128 KiB
    (1 GiB of data) encoded through K1 and through K2, 1 GiB of survivors
-   decoded, one 1 MiB object (the main path's shape, also timed from a
-   CUDA graph for the device time alone) and 1024 isa cauchy k=10 m=4
-   objects of 1 MiB, timed with CUDA events beside the bound and the
-   plain versions; then the numpy-in/numpy-out ``ec_benchmark --batch
-   1024`` rate, host transfers included;
+   decoded through each, the 1 GiB encode through K2 on rows offset by
+   1 byte (its general form), one group of K2's batched routes (256
+   stripes of 4096 bytes), one 1 MiB object (the main path's shape) and
+   1024 isa cauchy k=10 m=4 objects of 1 MiB, timed with CUDA events
+   beside the bound and the plain versions, and the two small batches
+   also from a CUDA graph for the device time alone; then the
+   numpy-in/numpy-out ``ec_benchmark --batch 1024`` rate, host transfers
+   included;
 5. one JSON line describing each kernel;
 6. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -95,19 +100,27 @@ def phase_build():
     return smi
 
 
+def _k1_takes(bm, x) -> bool:
+    from ceph_tpu_torch.ops import packed_gf
+
+    return (packed_gf.supports(bm.cpu().numpy(), 8) and x.shape[2] % 4 == 0
+            and x.data_ptr() % 4 == 0 and x.stride(0) % 4 == 0 and x.stride(1) % 4 == 0)
+
+
 def _check_kernels(errs: dict, label: str, mat, bm, x, oracle: bool) -> str:
-    """K1 (where it takes the matrix) and K2 against their plain versions
-    on stripes ``x``, exactly; against the numpy oracle on stripe 0 when
-    ``oracle``.  Returns what was checked, K1 with its words per thread."""
+    """K1 (where it takes the matrix and the rows) and K2 against their
+    plain versions on stripes ``x``, exactly; against the numpy oracle on
+    stripe 0 when ``oracle``.  Returns what was checked, each kernel with
+    its words per thread."""
     from ceph_tpu_torch import gf
-    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.ops import _build, bitplane_gf, packed_gf
 
     checked = []
     for kname, kernel, plain in (
         ("K1", packed_gf.packed_matrix_stripes, packed_gf.packed_stripes_plain),
         ("K2", bitplane_gf.gf8_bitplane_stripes, bitplane_gf.gf8_bitplane_plain),
     ):
-        if kname == "K1" and not packed_gf.supports(bm.cpu().numpy(), 8):
+        if kname == "K1" and not _k1_takes(bm, x):
             continue
         got = kernel(bm, x)
         torch.cuda.synchronize()
@@ -118,7 +131,7 @@ def _check_kernels(errs: dict, label: str, mat, bm, x, oracle: bool) -> str:
         if oracle:
             ref = gf.matrix_vector_mul_region(mat, x[0].cpu().numpy(), 8)
             check(np.array_equal(got[0].cpu().numpy(), ref), f"{kname} != numpy oracle on {label}")
-        checked.append(kname if kname == "K2" else f"K1(W={packed_gf.words_per_thread(x, got)})")
+        checked.append(f"{kname}(W={_build.words_per_thread(x, got)})")
         del got, want
     return " ".join(checked)
 
@@ -142,16 +155,18 @@ def phase_kernels(errs: dict):
     for mi, (name, mat) in enumerate(matrices.items()):
         m, k = mat.shape
         bm = matrix_to_device_bitmatrix(mat, 8, "cuda")
-        for width in (4096, 4100, (GIB // k) // 4 * 4):
+        for width in (4096, 4100, 4097, (GIB // k) // 4 * 4):
             x = random_u8((1, k, width), SEED + mi * 7 + width % 97)
             what = _check_kernels(errs, f"{name} width {width}", mat, bm, x, width == 4096)
             print(f"[2] {name} k={k} m={m} width {width}: {what} equal to plain (max_abs_err 0)")
             del x
-    # views read in place: rows 4 bytes past a 16-byte boundary, and every
-    # other stripe of a larger batch
+    # views read in place: rows 4 bytes past a 16-byte boundary, 1 byte
+    # past a word boundary (K2 alone), and every other stripe of a batch
     bm = matrix_to_device_bitmatrix(rs83, 8, "cuda")
     for label, x in (
         ("rows offset by 4 bytes", random_u8((64, 8, 65536 + 4), SEED + 3)[:, :, 4:]),
+        ("rows offset by 1 byte", random_u8((64, 8, 65536 + 1), SEED + 4)[:, :, 1:]),
+        ("rows offset by 1 byte, chunk 4097", random_u8((64, 8, 4097 + 1), SEED + 6)[:, :, 1:]),
         ("stripes [::2]", random_u8((128, 8, 65536), SEED + 5)[::2]),
     ):
         what = _check_kernels(errs, f"rs_k8_m3 {label}", rs83, bm, x, True)
@@ -244,7 +259,7 @@ def phase_resident():
     from ceph_tpu_torch import gf
     from ceph_tpu_torch.ec import ErasureCodeProfile, registry_instance
     from ceph_tpu_torch.ec.backend import get_backend
-    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.ops import _build, bitplane_gf, packed_gf
     from ceph_tpu_torch.ops.gf_matmul import gf_matrix_stripes, matrix_to_device_bitmatrix
     from ceph_tpu_torch.tools import ec_benchmark
     from ceph_tpu_torch.tools.timing import graph_ms, time_ms
@@ -259,19 +274,27 @@ def phase_resident():
     big = random_u8((1024, 8, 128 << 10), SEED + 1)  # 1 GiB
     one = random_u8((1, 8, 128 << 10), SEED + 2)  # one 1 MiB object
     wide = random_u8((1024, 10, isa_chunk), SEED + 3)  # 1024 isa objects of 1 MiB
+    off1 = random_u8((1024, 8, (128 << 10) + 1), SEED + 4)[:, :, 1:]  # 1 GiB, rows 1 byte off
+    group = random_u8((256, 8, 4096), SEED + 5)  # one group of the batched routes
 
     def k1(matrix, x):
         bm = matrix_to_device_bitmatrix(matrix, 8, "cuda")
         return (lambda: backend.matrix_stripes_device(matrix, x, 8),
                 lambda: packed_gf.packed_stripes_plain(bm, x), x, matrix.shape[0])
 
-    bm = matrix_to_device_bitmatrix(mat, 8, "cuda")
+    def k2(matrix, x):
+        bm = matrix_to_device_bitmatrix(matrix, 8, "cuda")
+        return (lambda: gf_matrix_stripes(bm, x, w=8),
+                lambda: bitplane_gf.gf8_bitplane_plain(bm, x), x, matrix.shape[0])
+
     rows = {}
     for label, (kernel_fn, plain_fn, x, mm) in (
         ("K1 encode", k1(mat, big)),
-        ("K2 encode", (lambda: gf_matrix_stripes(bm, big, w=8),
-                       lambda: bitplane_gf.gf8_bitplane_plain(bm, big), big, 3)),
+        ("K2 encode", k2(mat, big)),
         ("K1 decode", k1(dec, big)),
+        ("K2 decode", k2(dec, big)),
+        ("K2 encode, rows offset by 1 byte", k2(mat, off1)),
+        ("K2 batched group", k2(mat, group)),
         ("K1 encode 1 MiB object", k1(mat, one)),
         ("K1 isa cauchy k=10 m=4", k1(cauchy, wide)),
     ):
@@ -283,22 +306,21 @@ def phase_resident():
               f"{label} did not go through its kernel: {launched}")
         want = plain_fn()
         check(torch.equal(got, want), f"{label}: kernel != plain at full size")
-        words = packed_gf.words_per_thread(x, got) if label.startswith("K1") else None
+        words = _build.words_per_thread(x, got)
         del got, want
-        ms = time_ms(kernel_fn, iters=10 if b > 1 else 200)
+        ms = time_ms(kernel_fn, iters=10 if b * chunk >= GIB // 8 else 200)
         plain_ms = time_ms(plain_fn, iters=1, warmup=0)
         bms, by = bound_ms(k, mm, b * chunk)
+        gms = graph_ms(kernel_fn) if b <= 256 else None
         rows[label] = (ms, plain_ms, bms, by)
-        print(f"[4] {label} B={b} k={k} m={mm} chunk={chunk}"
-              f"{f' W={words}' if words else ''}: {ms:.4f} ms "
+        print(f"[4] {label} B={b} k={k} m={mm} chunk={chunk} W={words}: {ms:.4f} ms "
               f"({k * b * chunk / ms / 1e6:.1f} GB/s of input), bound {bms:.4f} ms ({by}), "
               f"plain {plain_ms:.2f} ms")
-        if b == 1:
-            gms = graph_ms(kernel_fn)
+        if gms is not None:
             print(f"[4] {label}: {gms:.4f} ms a launch on the device alone "
                   "(100 launches replayed from a CUDA graph)")
         torch.cuda.empty_cache()
-    del big, one, wide
+    del big, one, wide, off1, group
     torch.cuda.empty_cache()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

@@ -1,5 +1,6 @@
 """ceph_tpu_torch's CUDA kernels on the card: K1 and K2 against their
-plain versions and the numpy oracle, and the registry path on
+plain versions (exactly: GF arithmetic has no rounding) and the numpy
+oracle, and the registry path on
 ``device="cuda"``.  Marked ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -81,7 +82,7 @@ def test_k1_sixteen_byte_variant_matches_plain(cuda, m):
     for b in (1, 64):
         x = _stripes(cuda, (b, k, 65536), m + b)
         got = _k1_equals_plain(bm, x)
-        assert packed_gf.words_per_thread(x, got) == 4
+        assert _build.words_per_thread(x, got) == 4
 
 
 @pytest.mark.parametrize("m,kernels", [(3, 1), (8, 1), (9, 2), (16, 1), (20, 2)])
@@ -100,13 +101,13 @@ def test_k1_misaligned_and_strided_views(cuda):
     base = _stripes(cuda, (64, k, 65536 + 4), 7)
     offset = base[:, :, 4:]  # rows start 4 bytes past a 16-byte boundary
     got = _k1_equals_plain(bm, offset)
-    assert packed_gf.words_per_thread(offset, got) == 1
+    assert _build.words_per_thread(offset, got) == 1
     wide = _stripes(cuda, (128, k, 65536), 8)
     _k1_equals_plain(bm, wide[::2])
     for tail in (4, 8, 12):  # chunk % 16 != 0: one word a thread
         x = _stripes(cuda, (64, k, 65536 + tail), tail)
         got = _k1_equals_plain(bm, x)
-        assert packed_gf.words_per_thread(x, got) == 1
+        assert _build.words_per_thread(x, got) == 1
     np.testing.assert_array_equal(
         got[5].cpu().numpy(), gf.matrix_vector_mul_region(mat, x[5].cpu().numpy(), 8)
     )
@@ -140,3 +141,80 @@ def test_k1_refused_launch_raises(cuda):
             "gf8_packed_stripes", wide, _stripes(cuda, (1, 33, 64), 10),
             torch.empty((1, 1, 64), dtype=torch.uint8, device=cuda),
         )
+
+
+def _k2_equals_plain(bm, x):
+    got = bitplane_gf.gf8_bitplane_stripes(bm, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitplane_gf.gf8_bitplane_plain(bm, x))
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 32])
+@pytest.mark.parametrize("k", [4, 8, 40])
+def test_k2_matches_plain_across_shapes(cuda, k, m):
+    bm = matrix_to_device_bitmatrix(gf.reed_sol_vandermonde_coding_matrix(k, m, 8), 8, cuda)
+    for chunk in (1, 3, 4, 12, 4100, 131072):
+        x = _stripes(cuda, (2, k, chunk), k * 100 + m + chunk)
+        got = _k2_equals_plain(bm, x)
+        assert _build.words_per_thread(x, got) == (4 if chunk % 16 == 0 else 1)
+
+
+def test_k2_offset_and_strided_views(cuda):
+    k, m = 8, 3
+    mat = gf.reed_sol_vandermonde_coding_matrix(k, m, 8)
+    bm = matrix_to_device_bitmatrix(mat, 8, cuda)
+    for offset in (1, 2, 4):  # rows 1, 2 and 4 bytes past a 16-byte boundary
+        for chunk in (65536, 4097):
+            base = _stripes(cuda, (16, k, chunk + offset), offset * chunk)
+            x = base[:, :, offset:]
+            got = _k2_equals_plain(bm, x)
+            assert _build.words_per_thread(x, got) == 1
+    np.testing.assert_array_equal(
+        got[5].cpu().numpy(), gf.matrix_vector_mul_region(mat, x[5].cpu().numpy(), 8)
+    )
+    wide = _stripes(cuda, (128, k, 65536), 8)
+    got = _k2_equals_plain(bm, wide[::2])
+    assert _build.words_per_thread(wide[::2], got) == 4
+    _k2_equals_plain(bm, _stripes(cuda, (32, k, 4101), 11)[::2, :, 1:])
+
+
+def test_k2_decoding_matrix_and_widest_code(cuda):
+    enc = gf.reed_sol_vandermonde_coding_matrix(8, 3, 8)
+    dec = gf.make_decoding_matrix(enc, [1, 6], 8, 8)[0]
+    x = _stripes(cuda, (64, 8, 65536), 12)
+    got = _k2_equals_plain(matrix_to_device_bitmatrix(dec, 8, cuda), x)
+    np.testing.assert_array_equal(
+        got[7].cpu().numpy(), gf.matrix_vector_mul_region(dec, x[7].cpu().numpy(), 8)
+    )
+    # k + m = 256, as far as GF(2^8) goes
+    wide = gf.reed_sol_vandermonde_coding_matrix(128, 128, 8)
+    _k2_equals_plain(matrix_to_device_bitmatrix(wide, 8, cuda), _stripes(cuda, (2, 128, 4100), 13))
+
+
+@pytest.mark.parametrize("k,m,rows,kernels", [(8, 3, 3, 1), (8, 8, 8, 1), (8, 9, 8, 2),
+                                              (8, 32, 8, 4), (128, 128, 8, 16), (1000, 9, 7, 2)])
+def test_k2_counts_each_kernel_launch(cuda, k, m, rows, kernels):
+    # at most eight rows a launch, fewer where k*8 rep words a row crowd
+    # shared memory (k = 1000: seven rows)
+    bm = _stripes(cuda, (m * 8, k * 8), k + m) & 1
+    assert bitplane_gf.rows_per_launch(k, m) == rows
+    before = bitplane_gf.launches
+    _k2_equals_plain(bm, _stripes(cuda, (2, k, 260), m))
+    assert bitplane_gf.launches - before == kernels
+
+
+def test_k2_refused_launch_raises(cuda):
+    k = 7265  # one row's rep table, k*8 words, exceeds shared memory
+    bm = torch.zeros((8, k * 8), dtype=torch.uint8, device=cuda)
+    x = _stripes(cuda, (1, k, 8), 14)
+    assert bitplane_gf.rows_per_launch(k, 1) == 0
+    with pytest.raises(RuntimeError, match="gf8_bitplane_stripes launch failed"):
+        _build.launch_stripes(
+            "gf8_bitplane_stripes", bm, x, torch.empty((1, 1, 8), dtype=torch.uint8, device=cuda)
+        )
+    before = bitplane_gf.launches
+    with pytest.raises(ValueError):
+        bitplane_gf.gf8_bitplane_stripes(bm, x)
+    assert bitplane_gf.launches == before
+    assert bitplane_gf.rows_per_launch(7264, 3) == 1

@@ -138,6 +138,40 @@ def test_batch_methods_match_per_batch():
         backend.decode_stripes_batch(dec, [[object()] * 4], 8, 64)
 
 
+def test_batch_methods_take_ragged_batches_unpadded(monkeypatch):
+    # K2 reads any batch size in place: each group of stripes reaches the
+    # kernel's wrapper as it is, with no padding to a power of two
+    from ceph_tpu_torch.gf import make_decoding_matrix
+    from ceph_tpu_torch.ops import bitplane_gf
+
+    _jec, tec = _pair("isa", {"technique": "reed_sol_van", "k": "4", "m": "2"})
+    backend, mat = tec.backend, tec.matrix
+    seen = []
+    wrapped = bitplane_gf.gf8_bitplane_stripes
+
+    def recording(bm, stripes):
+        seen.append(stripes.shape[0])
+        return wrapped(bm, stripes)
+
+    monkeypatch.setattr(bitplane_gf, "gf8_bitplane_stripes", recording)
+    rng = np.random.default_rng(22)
+    batches = [rng.integers(0, 256, (b, 4, 36), dtype=np.uint8) for b in (1, 3, 300)]
+    outs = backend.matrix_stripes_batch(mat, batches, 8)
+    assert seen == [4, 300]  # groups of at most 256 stripes: (1 + 3), then 300
+    for s, o in zip(batches, outs):
+        np.testing.assert_array_equal(o, backend.matrix_stripes(mat, s, 8))
+    dec, survivors = make_decoding_matrix(mat, [2], 4, 8)
+    row_sets = [
+        [np.concatenate([s, o], axis=1)[:, i].reshape(-1) for i in survivors]
+        for s, o in zip(batches, outs)
+    ]
+    seen.clear()
+    rec = backend.decode_stripes_batch(dec, row_sets, 8, 36)
+    assert seen == [4, 300]
+    for s, r in zip(batches, rec):
+        np.testing.assert_array_equal(r[:, 0], s[:, 2])
+
+
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -172,6 +172,81 @@ def test_bitplane_takes_ragged_width_and_k_past_packed_limit():
     )
 
 
+@pytest.mark.parametrize("case", ["decode_k8_e1_6", "rs_k4_m2"])
+def test_bitplane_plain_matches_pallas_kernel_across_matrices(case):
+    # K2's plain version runs K1's mask/AND-XOR arithmetic; the Pallas
+    # bitplane kernel (bf16 dot of unpacked planes, & 1) is the reference
+    enc = jgf.reed_sol_vandermonde_coding_matrix(8, 3, 8)
+    if case == "decode_k8_e1_6":
+        matrix = np.asarray(jgf.make_decoding_matrix(enc, [1, 6], 8, 8)[0])
+    else:
+        matrix = jgf.reed_sol_vandermonde_coding_matrix(4, 2, 8)
+    m, k = matrix.shape
+    regions = _rng(20 + k).integers(0, 256, size=(k, TILE_N * 2), dtype=np.uint8)
+    want = np.asarray(
+        gf8_regions_pallas(
+            jgm.matrix_to_device_bitmatrix(matrix, 8, dtype=jnp.bfloat16),
+            regions,
+            m=m,
+            interpret=True,
+        )
+    )
+    bm = tgm.matrix_to_device_bitmatrix(matrix, 8, "cpu")
+    got = bitplane_gf.gf8_bitplane_plain(bm, torch.from_numpy(regions)[None])[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("width", [1, 3, 100, 4097])
+@pytest.mark.parametrize("case", ["rs_k40_m4", "rs_k32_m32", "dense_k40_popcount_320"])
+def test_bitplane_plain_matches_xla_product(case, width):
+    # past K1's k, m <= 32 and the TPU's popcount <= 255 carry bound, at
+    # widths that are not multiples of 4 (the plain version pads and cuts);
+    # held against the JAX package's XLA bitplane product, since the Pallas
+    # kernel takes minutes in interpret mode at these sizes
+    rng = _rng(30 + width)
+    if case == "dense_k40_popcount_320":
+        k = 40
+        bm_np = rng.integers(0, 2, (4 * 8, k * 8), dtype=np.uint8)
+        bm_np[0] = 1  # one output bit is the parity of all 320 input bits
+        matrix = None
+    else:
+        k, m = (40, 4) if case == "rs_k40_m4" else (32, 32)
+        matrix = jgf.reed_sol_vandermonde_coding_matrix(k, m, 8)
+        bm_np = np.array(jgm.matrix_to_device_bitmatrix(matrix, 8))
+    regions = rng.integers(0, 256, (k, width), dtype=np.uint8)
+    want = np.asarray(
+        jgm.gf_matrix_regions(jnp.asarray(bm_np), jnp.asarray(regions), w=8)
+    )
+    got = bitplane_gf.gf8_bitplane_plain(
+        torch.from_numpy(bm_np), torch.from_numpy(regions)[None]
+    )[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    if matrix is not None:
+        np.testing.assert_array_equal(
+            got.numpy(), jgf.matrix_vector_mul_region(matrix, regions, 8)
+        )
+
+
+@pytest.mark.parametrize("view", ["offset1", "offset2", "offset3", "every_other"])
+def test_bitplane_plain_reads_views_like_the_oracle(view):
+    # the kernel reads rows at any byte alignment and any batch stride in
+    # place; its plain version takes the same views
+    matrix = jgf.isa_cauchy_matrix(6, 3)
+    base = _rng(40).integers(0, 256, (6, 6, 1031), dtype=np.uint8)
+    if view == "every_other":
+        x = torch.from_numpy(base)[::2]
+    else:
+        x = torch.from_numpy(base)[:, :, int(view[-1]) :]
+    bm = tgm.matrix_to_device_bitmatrix(matrix, 8, "cpu")
+    got = bitplane_gf.gf8_bitplane_stripes(bm, x)
+    assert got.is_contiguous() and tuple(got.shape) == (x.shape[0], 3, x.shape[2])
+    for s in range(x.shape[0]):
+        np.testing.assert_array_equal(
+            got[s].numpy(),
+            jgf.matrix_vector_mul_region(matrix, np.ascontiguousarray(x[s].numpy()), 8),
+        )
+
+
 def test_layout_fold_is_the_same_on_numpy_and_torch():
     stripes = _rng(9).integers(0, 256, (4, 3, 10), dtype=np.uint8)
     t = torch.from_numpy(stripes)
