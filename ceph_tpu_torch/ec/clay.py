@@ -1,0 +1,573 @@
+"""CLAY — coupled-layer MSR code (src/erasure-code/clay/ErasureCodeClay.cc).
+
+Minimum-bandwidth single-node repair: chunks are arrays of q^t
+sub-chunks laid out on a q×t grid of nodes; an inner MDS code (mds,
+(k+nu)+m) works on "uncoupled" sub-chunks U, and a 2+2 pairwise
+transform (pft) couples sub-chunk pairs across the grid diagonal.
+Repairing one node reads only 1/q of every helper chunk
+(get_repair_subchunks / minimum_to_repair), which is the hook
+ECBackend's subchunk plumbing consumes (src/osd/ECUtil.cc:82-116).
+
+Structure mirrors the reference: encode = decode_layered(parity),
+full decode = decode_layered(erasures), single-lost-chunk repair =
+plane-ordered traversal with pairwise transforms.  numpy slice views
+play the role of bufferlist::substr_of — pairwise transforms write
+through them into the real chunk buffers.
+
+nu pads k+m to a multiple of q with zeroed virtual data nodes; node
+ids in grid space shift parity ids by nu.
+
+The profile's ``backend`` and ``device`` keys pass down to the inner
+``mds`` and ``pft`` codes, so every plane's region math runs on the
+outer code's device (one backend call per plane and pairwise transform,
+as in the JAX package).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .interface import (
+    ErasureCode,
+    ErasureCodeError,
+    ErasureCodeProfile,
+    SIMD_ALIGN,
+    sanity_check_k_m,
+    to_int,
+    to_string,
+)
+from .registry import ErasureCodePlugin, register
+
+
+def _round_up_to(n: int, d: int) -> int:
+    return ((n + d - 1) // d) * d
+
+
+class ErasureCodeClay(ErasureCode):
+    DEFAULT_K, DEFAULT_M = 4, 2
+
+    def __init__(self):
+        super().__init__()
+        self.d = 0
+        self.q = 0
+        self.t = 0
+        self.nu = 0
+        self.sub_chunk_no = 1
+        self.mds: ErasureCode | None = None
+        self.pft: ErasureCode | None = None
+
+    # -- profile -----------------------------------------------------------
+    def init(self, profile: ErasureCodeProfile) -> None:
+        from .registry import instance
+
+        mds_profile, pft_profile = self.parse(profile)
+        super().init(profile)
+        self.mds = instance().factory(mds_profile["plugin"], mds_profile)
+        self.pft = instance().factory(pft_profile["plugin"], pft_profile)
+
+    def parse(self, profile: ErasureCodeProfile):
+        super().parse(profile)
+        self.k = to_int("k", profile, self.DEFAULT_K)
+        self.m = to_int("m", profile, self.DEFAULT_M)
+        sanity_check_k_m(self.k, self.m)
+        self.d = to_int("d", profile, self.k + self.m - 1)
+
+        scalar_mds = to_string("scalar_mds", profile, "jerasure")
+        if scalar_mds not in ("jerasure", "isa", "shec"):
+            raise ErasureCodeError(
+                f"scalar_mds {scalar_mds} is not supported, use one of "
+                "'jerasure', 'isa', 'shec'"
+            )
+        technique = profile.get("technique", "")
+        if not technique:
+            technique = (
+                "reed_sol_van" if scalar_mds in ("jerasure", "isa")
+                else "single"
+            )
+        allowed = {
+            "jerasure": (
+                "reed_sol_van", "reed_sol_r6_op", "cauchy_orig",
+                "cauchy_good", "liber8tion",
+            ),
+            "isa": ("reed_sol_van", "cauchy"),
+            "shec": ("single", "multiple"),
+        }[scalar_mds]
+        if technique not in allowed:
+            raise ErasureCodeError(
+                f"technique {technique} is not supported with "
+                f"{scalar_mds}, use one of {allowed}"
+            )
+
+        if not (self.k <= self.d <= self.k + self.m - 1):
+            raise ErasureCodeError(
+                f"value of d {self.d} must be within "
+                f"[{self.k}, {self.k + self.m - 1}]"
+            )
+        self.q = self.d - self.k + 1
+        self.nu = (
+            self.q - (self.k + self.m) % self.q
+            if (self.k + self.m) % self.q
+            else 0
+        )
+        if self.k + self.m + self.nu > 254:
+            raise ErasureCodeError("k+m+nu must be <= 254")
+
+        mds_profile = ErasureCodeProfile(
+            plugin=scalar_mds,
+            technique=technique,
+            k=str(self.k + self.nu),
+            m=str(self.m),
+            w="8",
+        )
+        pft_profile = ErasureCodeProfile(
+            plugin=scalar_mds,
+            technique=technique,
+            k="2",
+            m="2",
+            w="8",
+        )
+        if scalar_mds == "shec":
+            mds_profile["c"] = "2"
+            pft_profile["c"] = "2"
+        # the inner codes run where the outer one does: both keys pass
+        # down, or a device=cpu clay would build CUDA inner codes
+        for key in ("backend", "device"):
+            value = profile.get(key)
+            if value:
+                mds_profile[key] = value
+                pft_profile[key] = value
+
+        self.t = (self.k + self.m + self.nu) // self.q
+        self.sub_chunk_no = self.q ** self.t
+        return mds_profile, pft_profile
+
+    # -- geometry ----------------------------------------------------------
+    def get_sub_chunk_count(self) -> int:
+        return self.sub_chunk_no
+
+    def get_chunk_size(self, object_size: int) -> int:
+        scalar = self.pft.get_chunk_size(1)
+        alignment = self.sub_chunk_no * self.k * scalar
+        return _round_up_to(object_size, alignment) // self.k
+
+    # -- plane helpers -----------------------------------------------------
+    def _plane_vector(self, z: int) -> list[int]:
+        v = [0] * self.t
+        for i in range(self.t):
+            v[self.t - 1 - i] = z % self.q
+            z //= self.q
+        return v
+
+    def _z_sw(self, z: int, x: int, zy: int, y: int) -> int:
+        return z + (x - zy) * self.q ** (self.t - 1 - y)
+
+    # -- encode / decode ---------------------------------------------------
+    def encode_chunks(self, want_to_encode, encoded) -> None:
+        k, m, nu = self.k, self.m, self.nu
+        chunk_size = len(encoded[0])
+        chunks = {}
+        parity = set()
+        for i in range(k + m):
+            buf = encoded[self.chunk_index(i)]
+            if i < k:
+                chunks[i] = buf
+            else:
+                chunks[i + nu] = buf
+                parity.add(i + nu)
+        for i in range(k, k + nu):
+            chunks[i] = np.zeros(chunk_size, dtype=np.uint8)
+        self._decode_layered(set(parity), chunks)
+
+    def decode_chunks(self, want_to_read, chunks, decoded) -> None:
+        k, m, nu = self.k, self.m, self.nu
+        erasures = set()
+        coded = {}
+        for i in range(k + m):
+            node = i if i < k else i + nu
+            if self.chunk_index(i) not in chunks:
+                erasures.add(node)
+            coded[node] = decoded[self.chunk_index(i)]
+        chunk_size = len(coded[0])
+        for i in range(k, k + nu):
+            coded[i] = np.zeros(chunk_size, dtype=np.uint8)
+        self._decode_layered(erasures, coded)
+
+    def decode(self, want_to_read, chunks, chunk_size=0):
+        avail = set(chunks)
+        if self.is_repair(want_to_read, avail) and chunk_size > len(
+            next(iter(chunks.values()))
+        ):
+            return self.repair(want_to_read, chunks, chunk_size)
+        return self._decode(want_to_read, chunks)
+
+    # -- repair interface --------------------------------------------------
+    def is_repair(self, want_to_read, available) -> bool:
+        """ErasureCodeClay.cc:304-323: single lost chunk, whole y-group
+        of the lost node available, at least d helpers."""
+        if set(want_to_read) <= set(available):
+            return False
+        if len(want_to_read) > 1:
+            return False
+        i = next(iter(want_to_read))
+        lost = i if i < self.k else i + self.nu
+        for x in range(self.q):
+            node = (lost // self.q) * self.q + x
+            node = node if node < self.k else node - self.nu
+            if node != i and node not in available:
+                return False
+        return len(available) >= self.d
+
+    def get_repair_subchunks(self, lost_node: int):
+        """(offset, count) runs of the lost node's x-column planes
+        (ErasureCodeClay.cc:363-377)."""
+        q, t = self.q, self.t
+        y_lost, x_lost = lost_node // q, lost_node % q
+        seq = q ** (t - 1 - y_lost)
+        out = []
+        index = x_lost * seq
+        for _ in range(q ** y_lost):
+            out.append((index, seq))
+            index += q * seq
+        return out
+
+    def minimum_to_decode(self, want_to_read, available):
+        if self.is_repair(want_to_read, available):
+            return self._minimum_to_repair(want_to_read, available)
+        return super().minimum_to_decode(want_to_read, available)
+
+    def _minimum_to_repair(self, want_to_read, available):
+        i = next(iter(want_to_read))
+        lost = i if i < self.k else i + self.nu
+        sub_ind = self.get_repair_subchunks(lost)
+        minimum: dict[int, list] = {}
+        for j in range(self.q):
+            if j != lost % self.q:
+                rep = (lost // self.q) * self.q + j
+                if rep < self.k:
+                    minimum[rep] = list(sub_ind)
+                elif rep >= self.k + self.nu:
+                    minimum[rep - self.nu] = list(sub_ind)
+        for chunk in sorted(available):
+            if len(minimum) >= self.d:
+                break
+            if chunk not in minimum:
+                minimum[chunk] = list(sub_ind)
+        assert len(minimum) == self.d
+        return minimum
+
+    def repair(self, want_to_read, chunks, chunk_size):
+        """Minimum-bandwidth repair of one chunk from d partial helper
+        reads (ErasureCodeClay.cc:395-460)."""
+        assert len(want_to_read) == 1 and len(chunks) == self.d
+        k, m, nu, q, t = self.k, self.m, self.nu, self.q, self.t
+
+        repair_sub_no = self._repair_sub_chunk_count(want_to_read)
+        repair_blocksize = len(next(iter(chunks.values())))
+        assert repair_blocksize % repair_sub_no == 0
+        sub_chunksize = repair_blocksize // repair_sub_no
+        chunksize = self.sub_chunk_no * sub_chunksize
+        assert chunksize == chunk_size
+
+        recovered = {}
+        helper = {}
+        aloof = set()
+        repaired = {}
+        lost_id = None
+        sub_ind = None
+        for i in range(k + m):
+            if i in chunks:
+                helper[i if i < k else i + nu] = np.ascontiguousarray(
+                    chunks[i], dtype=np.uint8
+                )
+            elif i != next(iter(want_to_read)):
+                aloof.add(i if i < k else i + nu)
+            else:
+                lost_id = i if i < k else i + nu
+                repaired[i] = np.zeros(chunksize, dtype=np.uint8)
+                recovered[lost_id] = repaired[i]
+                sub_ind = self.get_repair_subchunks(lost_id)
+        for i in range(k, k + nu):
+            helper[i] = np.zeros(repair_blocksize, dtype=np.uint8)
+        assert len(helper) + len(aloof) + len(recovered) == q * t
+
+        self._repair_one_lost_chunk(
+            recovered, aloof, helper, repair_blocksize, sub_ind
+        )
+        return repaired
+
+    def _repair_sub_chunk_count(self, want_to_read) -> int:
+        weight = [0] * self.t
+        for c in want_to_read:
+            node = c if c < self.k else c + self.nu
+            weight[node // self.q] += 1
+        remaining = 1
+        for y in range(self.t):
+            remaining *= self.q - weight[y]
+        return self.sub_chunk_no - remaining
+
+    def _repair_one_lost_chunk(
+        self, recovered, aloof, helper, repair_blocksize, sub_ind
+    ):
+        """ErasureCodeClay.cc:462-644, in plane-order passes."""
+        q, t = self.q, self.t
+        repair_subchunks = self.sub_chunk_no // q
+        sub = repair_blocksize // repair_subchunks
+        scratch = np.zeros(sub, dtype=np.uint8)
+
+        ordered_planes: dict[int, list[int]] = {}
+        plane_to_ind: dict[int, int] = {}
+        plane_ind = 0
+        for index, count in sub_ind:
+            for z in range(index, index + count):
+                z_vec = self._plane_vector(z)
+                order = sum(
+                    1
+                    for node in list(recovered) + sorted(aloof)
+                    if node % q == z_vec[node // q]
+                )
+                assert order > 0
+                ordered_planes.setdefault(order, []).append(z)
+                plane_to_ind[z] = plane_ind
+                plane_ind += 1
+
+        U = {
+            i: np.zeros(self.sub_chunk_no * sub, dtype=np.uint8)
+            for i in range(q * t)
+        }
+        (lost_chunk,) = recovered
+
+        erasures = {
+            lost_chunk - lost_chunk % q + i for i in range(q)
+        } | set(aloof)
+
+        def uview(node, z):
+            return U[node][z * sub : (z + 1) * sub]
+
+        def hview(node, z):
+            i = plane_to_ind[z]
+            return helper[node][i * sub : (i + 1) * sub]
+
+        order = 1
+        while order in ordered_planes:
+            for z in sorted(ordered_planes[order]):
+                z_vec = self._plane_vector(z)
+                for y in range(t):
+                    for x in range(q):
+                        node_xy = y * q + x
+                        if node_xy in erasures:
+                            continue
+                        zy = z_vec[y]
+                        z_sw = self._z_sw(z, x, zy, y)
+                        node_sw = y * q + zy
+                        i0, i1, i2, i3 = (
+                            (0, 1, 2, 3) if zy <= x else (1, 0, 3, 2)
+                        )
+                        if node_sw in aloof:
+                            known = {
+                                i0: hview(node_xy, z),
+                                i3: uview(node_sw, z_sw),
+                            }
+                            dec = {
+                                i0: known[i0],
+                                i1: scratch,
+                                i2: uview(node_xy, z),
+                                i3: known[i3],
+                            }
+                            self.pft.decode_chunks(
+                                {i2}, known, dec
+                            )
+                        elif zy != x:
+                            known = {
+                                i0: hview(node_xy, z),
+                                i1: hview(node_sw, z_sw),
+                            }
+                            dec = {
+                                i0: known[i0],
+                                i1: known[i1],
+                                i2: uview(node_xy, z),
+                                i3: scratch.copy(),
+                            }
+                            self.pft.decode_chunks(
+                                {i2}, known, dec
+                            )
+                        else:
+                            np.copyto(
+                                uview(node_xy, z), hview(node_xy, z)
+                            )
+                self._decode_uncoupled(erasures, z, sub, U)
+
+                for i in sorted(erasures):
+                    x, y = i % q, i // q
+                    zy = z_vec[y]
+                    node_sw = y * q + zy
+                    z_sw = self._z_sw(z, x, zy, y)
+                    i0, i1, i2, i3 = (
+                        (0, 1, 2, 3) if zy <= x else (1, 0, 3, 2)
+                    )
+                    if i in aloof:
+                        continue
+                    if x == zy:  # hole-dot pair (type 0)
+                        np.copyto(
+                            recovered[i][z * sub : (z + 1) * sub],
+                            uview(i, z),
+                        )
+                    else:
+                        assert y == lost_chunk // q
+                        assert node_sw == lost_chunk
+                        known = {
+                            i0: hview(i, z),
+                            i2: uview(i, z),
+                        }
+                        dec = {
+                            i0: known[i0],
+                            i1: recovered[node_sw][
+                                z_sw * sub : (z_sw + 1) * sub
+                            ],
+                            i2: known[i2],
+                            i3: scratch,
+                        }
+                        self.pft.decode_chunks({i1}, known, dec)
+            order += 1
+
+    # -- layered decode (full decode and encode) ---------------------------
+    def _decode_layered(self, erased_chunks: set, chunks: dict) -> None:
+        """ErasureCodeClay.cc:647-712."""
+        q, t, m = self.q, self.t, self.m
+        size = len(chunks[0])
+        assert size % self.sub_chunk_no == 0
+        sc = size // self.sub_chunk_no
+        assert erased_chunks
+
+        num = len(erased_chunks)
+        if num > m:
+            raise ErasureCodeError(
+                f"{num} erasures exceed m={m} (-EIO)"
+            )
+        i = self.k + self.nu
+        while num < m and i < q * t:
+            if i not in erased_chunks:
+                erased_chunks.add(i)
+                num += 1
+            i += 1
+        assert num == m
+
+        U = {
+            i: np.zeros(size, dtype=np.uint8) for i in range(q * t)
+        }
+        order = [0] * self.sub_chunk_no
+        for z in range(self.sub_chunk_no):
+            z_vec = self._plane_vector(z)
+            order[z] = sum(
+                1 for e in erased_chunks if e % q == z_vec[e // q]
+            )
+        max_iscore = len({e // q for e in erased_chunks})
+
+        for iscore in range(max_iscore + 1):
+            for z in range(self.sub_chunk_no):
+                if order[z] == iscore:
+                    self._decode_erasures(erased_chunks, z, chunks, sc, U)
+
+            for z in range(self.sub_chunk_no):
+                if order[z] != iscore:
+                    continue
+                z_vec = self._plane_vector(z)
+                for node_xy in sorted(erased_chunks):
+                    x, y = node_xy % q, node_xy // q
+                    zy = z_vec[y]
+                    node_sw = y * q + zy
+                    if zy != x:
+                        if node_sw not in erased_chunks:
+                            self._recover_type1(
+                                chunks, x, y, z, z_vec, sc, U
+                            )
+                        elif zy < x:
+                            self._coupled_from_uncoupled(
+                                chunks, x, y, z, z_vec, sc, U
+                            )
+                    else:
+                        np.copyto(
+                            chunks[node_xy][z * sc : (z + 1) * sc],
+                            U[node_xy][z * sc : (z + 1) * sc],
+                        )
+
+    def _decode_erasures(self, erased_chunks, z, chunks, sc, U):
+        q, t = self.q, self.t
+        z_vec = self._plane_vector(z)
+        for x in range(q):
+            for y in range(t):
+                node_xy = q * y + x
+                node_sw = q * y + z_vec[y]
+                if node_xy in erased_chunks:
+                    continue
+                if z_vec[y] < x:
+                    self._uncoupled_from_coupled(
+                        chunks, x, y, z, z_vec, sc, U
+                    )
+                elif z_vec[y] == x:
+                    np.copyto(
+                        U[node_xy][z * sc : (z + 1) * sc],
+                        chunks[node_xy][z * sc : (z + 1) * sc],
+                    )
+                elif node_sw in erased_chunks:
+                    self._uncoupled_from_coupled(
+                        chunks, x, y, z, z_vec, sc, U
+                    )
+        self._decode_uncoupled(erased_chunks, z, sc, U)
+
+    def _decode_uncoupled(self, erased_chunks, z, sc, U):
+        """Inner MDS decode of plane z over the U buffers
+        (ErasureCodeClay.cc:743-761)."""
+        known = {}
+        allsub = {}
+        for i in range(self.q * self.t):
+            view = U[i][z * sc : (z + 1) * sc]
+            if i not in erased_chunks:
+                known[i] = view
+            allsub[i] = view
+        self.mds.decode_chunks(set(erased_chunks), known, allsub)
+
+    def _pft_views(self, chunks, x, y, z, z_vec, sc, U):
+        q = self.q
+        node_xy = y * q + x
+        node_sw = y * q + z_vec[y]
+        z_sw = self._z_sw(z, x, z_vec[y], y)
+        cxy = chunks[node_xy][z * sc : (z + 1) * sc]
+        csw = chunks[node_sw][z_sw * sc : (z_sw + 1) * sc]
+        uxy = U[node_xy][z * sc : (z + 1) * sc]
+        usw = U[node_sw][z_sw * sc : (z_sw + 1) * sc]
+        return cxy, csw, uxy, usw
+
+    def _recover_type1(self, chunks, x, y, z, z_vec, sc, U):
+        """Erased C_xy from C_sw and U_xy (ErasureCodeClay.cc:776-812)."""
+        cxy, csw, uxy, _ = self._pft_views(chunks, x, y, z, z_vec, sc, U)
+        i0, i1, i2, i3 = (0, 1, 2, 3) if z_vec[y] <= x else (1, 0, 3, 2)
+        known = {i1: csw, i2: uxy}
+        dec = {
+            i0: cxy,
+            i1: csw,
+            i2: uxy,
+            i3: np.zeros(sc, dtype=np.uint8),
+        }
+        self.pft.decode_chunks({i0}, known, dec)
+
+    def _coupled_from_uncoupled(self, chunks, x, y, z, z_vec, sc, U):
+        """Both coupled from both uncoupled (ErasureCodeClay.cc:814-839)."""
+        cxy, csw, uxy, usw = self._pft_views(chunks, x, y, z, z_vec, sc, U)
+        assert z_vec[y] < x
+        known = {2: uxy, 3: usw}
+        dec = {0: cxy, 1: csw, 2: uxy, 3: usw}
+        self.pft.decode_chunks({0, 1}, known, dec)
+
+    def _uncoupled_from_coupled(self, chunks, x, y, z, z_vec, sc, U):
+        """Both uncoupled from both coupled (ErasureCodeClay.cc:841-871)."""
+        cxy, csw, uxy, usw = self._pft_views(chunks, x, y, z, z_vec, sc, U)
+        i0, i1, i2, i3 = (0, 1, 2, 3) if z_vec[y] <= x else (1, 0, 3, 2)
+        known = {i0: cxy, i1: csw}
+        dec = {i0: cxy, i1: csw, i2: uxy, i3: usw}
+        self.pft.decode_chunks({i2, i3}, known, dec)
+
+
+@register("clay")
+class ErasureCodePluginClay(ErasureCodePlugin):
+    def make(self, profile: ErasureCodeProfile):
+        return ErasureCodeClay()

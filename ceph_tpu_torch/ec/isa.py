@@ -67,6 +67,8 @@ _table_cache = IsaTableCache()
 class ErasureCodeIsa(ErasureCode):
     """matrixtype: reed_sol_van (default) or cauchy."""
 
+    w = 8  # isa-l codes are GF(2^8); the stripe seam reads ``w``
+
     def __init__(self, matrixtype: str = "reed_sol_van"):
         super().__init__()
         self.matrixtype = matrixtype

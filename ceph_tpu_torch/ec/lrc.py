@@ -1,0 +1,389 @@
+"""LRC — layered locally-repairable code (src/erasure-code/lrc/).
+
+A stack of layers, each an inner code over a subset of chunk positions
+(per-position roles 'D' data / 'c' coding / '_' absent).  Encode runs
+every layer bottom-up over its subset (ErasureCodeLrc.cc:encode_chunks);
+decode iterates layers in reverse, solving any layer whose erasures fit
+its coding count, reusing chunks recovered by earlier layers
+(decode_chunks); minimum_to_decode does the same reverse sweep to find
+a minimal read set, falling back to recover-everything-possible
+(_minimum_to_decode cases 1-3).  The simple k/m/l form generates the
+global + local layers exactly as parse_kml does.
+
+The inner codes are anything the registry provides — on the torch
+backend every layer's region math lands in the same GF kernels, which
+is the reuse the reference gets from stacking plugins on jerasure.  The
+profile's ``backend`` and ``device`` keys pass down to every layer that
+does not set its own.
+
+``create_rule`` (the layered CRUSH rule) needs the CRUSH types, which
+this package does not have yet; it raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+
+from .interface import (
+    ErasureCode,
+    ErasureCodeError,
+    ErasureCodeProfile,
+    to_string,
+)
+from .registry import ErasureCodePlugin, register
+
+
+class Layer:
+    def __init__(self, chunks_map: str, profile: ErasureCodeProfile):
+        self.chunks_map = chunks_map
+        self.profile = profile
+        self.data = [i for i, c in enumerate(chunks_map) if c == "D"]
+        self.coding = [i for i, c in enumerate(chunks_map) if c == "c"]
+        self.chunks = self.data + self.coding
+        self.chunks_as_set = set(self.chunks)
+        self.erasure_code: ErasureCode | None = None
+
+
+class ErasureCodeLrc(ErasureCode):
+    DEFAULT_KML = -1
+
+    def __init__(self):
+        super().__init__()
+        self.layers: list[Layer] = []
+        self.mapping = ""
+        self._inherited: dict[str, str] = {}
+        self.rule_steps: list[tuple[str, str, int]] = []
+
+    # -- profile -----------------------------------------------------------
+    def init(self, profile: ErasureCodeProfile) -> None:
+        self.parse(profile)
+        super().init(profile)
+        self._layers_init()
+
+    def parse(self, profile: ErasureCodeProfile) -> None:
+        # inner layers inherit the compute backend and device unless
+        # their own profile overrides them (clay does the same)
+        self._inherited = {
+            key: profile[key] for key in ("backend", "device") if profile.get(key)
+        }
+        self._parse_kml(profile)
+        mapping = profile.get("mapping")
+        if not mapping:
+            raise ErasureCodeError("could not find 'mapping' in profile")
+        self.mapping = mapping
+        layers_str = profile.get("layers")
+        if not layers_str:
+            raise ErasureCodeError("could not find 'layers' in profile")
+        self._layers_parse(layers_str)
+        self._sanity_checks(layers_str)
+        # base-class chunk remap from the same mapping string
+        super().parse(profile)
+        self.k = self.mapping.count("D")
+        self.m = len(self.mapping) - self.k
+        self.rule_failure_domain = to_string(
+            "crush-failure-domain", profile, "host"
+        )
+        steps = profile.get("crush-steps")
+        if steps:
+            parsed = json.loads(steps)
+            self.rule_steps = [
+                (op, str(typ), int(n)) for op, typ, n in parsed
+            ]
+        elif not self.rule_steps:
+            self.rule_steps = [
+                ("chooseleaf", self.rule_failure_domain, 0)
+            ]
+
+    def _parse_kml(self, profile: ErasureCodeProfile) -> None:
+        """Generate mapping/layers from k/m/l (parse_kml,
+        ErasureCodeLrc.cc:293-397)."""
+        D = self.DEFAULT_KML
+        try:
+            k = int(profile.get("k", D))
+            m = int(profile.get("m", D))
+            lp = int(profile.get("l", D))
+        except (TypeError, ValueError) as e:
+            raise ErasureCodeError(f"k/m/l must be integers: {e}")
+        if k == D and m == D and lp == D:
+            return
+        if D in (k, m, lp):
+            raise ErasureCodeError(
+                "all of k, m, l must be set or none of them"
+            )
+        for generated in ("mapping", "layers", "crush-steps"):
+            if generated in profile:
+                raise ErasureCodeError(
+                    f"the {generated} parameter cannot be set when "
+                    "k, m, l are set"
+                )
+        if lp == 0 or (k + m) % lp:
+            raise ErasureCodeError("k + m must be a multiple of l")
+        groups = (k + m) // lp
+        if k % groups:
+            raise ErasureCodeError("k must be a multiple of (k + m) / l")
+        if m % groups:
+            raise ErasureCodeError("m must be a multiple of (k + m) / l")
+        kg, mg = k // groups, m // groups
+        profile["mapping"] = ("D" * kg + "_" * mg + "_") * groups
+        layers = []
+        layers.append([("D" * kg + "c" * mg + "_") * groups, ""])
+        for i in range(groups):
+            row = ""
+            for j in range(groups):
+                row += ("D" * lp + "c") if i == j else "_" * (lp + 1)
+            layers.append([row, ""])
+        profile["layers"] = json.dumps(layers)
+        locality = profile.get("crush-locality", "")
+        failure_domain = profile.get("crush-failure-domain", "host")
+        if locality:
+            self.rule_steps = [
+                ("choose", locality, groups),
+                ("chooseleaf", failure_domain, lp + 1),
+            ]
+        elif failure_domain:
+            self.rule_steps = [("chooseleaf", failure_domain, 0)]
+
+    def _layers_parse(self, description: str) -> None:
+        try:
+            desc = json.loads(description)
+        except json.JSONDecodeError as e:
+            raise ErasureCodeError(
+                f"failed to parse layers='{description}': {e}"
+            )
+        if not isinstance(desc, list):
+            raise ErasureCodeError("layers must be a JSON array")
+        for position, entry in enumerate(desc):
+            if not isinstance(entry, list) or not entry:
+                raise ErasureCodeError(
+                    f"layers[{position}] must be a non-empty JSON array"
+                )
+            chunks_map = entry[0]
+            if not isinstance(chunks_map, str):
+                raise ErasureCodeError(
+                    f"layers[{position}][0] must be a string"
+                )
+            prof = ErasureCodeProfile()
+            if len(entry) > 1:
+                spec = entry[1]
+                if isinstance(spec, dict):
+                    prof.update({k: str(v) for k, v in spec.items()})
+                elif isinstance(spec, str):
+                    if spec.strip():
+                        obj = json.loads(spec)
+                        prof.update({k: str(v) for k, v in obj.items()})
+                else:
+                    raise ErasureCodeError(
+                        f"layers[{position}][1] must be a string or object"
+                    )
+            self.layers.append(Layer(chunks_map, prof))
+
+    def _sanity_checks(self, description: str) -> None:
+        if not self.layers:
+            raise ErasureCodeError("layers parameter needs at least one layer")
+        n = len(self.mapping)
+        for layer in self.layers:
+            if len(layer.chunks_map) != n:
+                raise ErasureCodeError(
+                    f"layer '{layer.chunks_map}' must be {n} characters "
+                    f"long like the mapping"
+                )
+
+    def _layers_init(self) -> None:
+        from .registry import instance
+
+        for layer in self.layers:
+            prof = layer.profile
+            prof.setdefault("k", str(len(layer.data)))
+            prof.setdefault("m", str(len(layer.coding)))
+            prof.setdefault("plugin", "jerasure")
+            prof.setdefault("technique", "reed_sol_van")
+            for key, value in self._inherited.items():
+                prof.setdefault(key, value)
+            layer.erasure_code = instance().factory(prof["plugin"], prof)
+
+    # -- geometry ----------------------------------------------------------
+    def get_chunk_size(self, object_size: int) -> int:
+        return self.layers[0].erasure_code.get_chunk_size(object_size)
+
+    # -- encode ------------------------------------------------------------
+    def encode_chunks(self, want_to_encode, encoded) -> None:
+        top = len(self.layers)
+        for layer in reversed(self.layers):
+            top -= 1
+            if set(want_to_encode) <= layer.chunks_as_set:
+                break
+        for layer in self.layers[top:]:
+            layer_encoded = {
+                j: encoded[c] for j, c in enumerate(layer.chunks)
+            }
+            layer_want = {
+                j
+                for j, c in enumerate(layer.chunks)
+                if c in want_to_encode
+            }
+            layer.erasure_code.encode_chunks(layer_want, layer_encoded)
+            for j, c in enumerate(layer.chunks):
+                encoded[c] = layer_encoded[j]
+
+    # -- decode ------------------------------------------------------------
+    def decode_chunks(self, want_to_read, chunks, decoded) -> None:
+        n = self.get_chunk_count()
+        erasures = {i for i in range(n) if i not in chunks}
+        want_err = set(want_to_read) & erasures
+        for layer in reversed(self.layers):
+            layer_erasures = layer.chunks_as_set & erasures
+            coding_count = layer.erasure_code.get_coding_chunk_count()
+            if not layer_erasures or len(layer_erasures) > coding_count:
+                continue
+            layer_chunks = {}
+            layer_decoded = {}
+            layer_want = set()
+            for j, c in enumerate(layer.chunks):
+                if c not in erasures:
+                    layer_chunks[j] = decoded[c]
+                if c in want_to_read:
+                    layer_want.add(j)
+                layer_decoded[j] = decoded[c]
+            layer.erasure_code.decode_chunks(
+                layer_want, layer_chunks, layer_decoded
+            )
+            for j, c in enumerate(layer.chunks):
+                decoded[c] = layer_decoded[j]
+                erasures.discard(c)
+            want_err = erasures & set(want_to_read)
+            if not want_err:
+                break
+        if want_err:
+            raise ErasureCodeError(
+                f"unable to read chunks {sorted(want_err)} (-EIO)"
+            )
+
+    # -- minimum -----------------------------------------------------------
+    def _minimum_to_decode(self, want_to_read, available):
+        n = self.get_chunk_count()
+        erasures_total = {i for i in range(n) if i not in available}
+        erasures_not_recovered = set(erasures_total)
+        erasures_want = erasures_total & set(want_to_read)
+
+        if not erasures_want:
+            return set(want_to_read)
+
+        minimum: set[int] = set()
+        for layer in reversed(self.layers):
+            layer_want = set(want_to_read) & layer.chunks_as_set
+            if not layer_want:
+                continue
+            layer_erasures = layer_want & erasures_want
+            if not layer_erasures:
+                layer_minimum = layer_want
+            else:
+                erasures = layer.chunks_as_set & erasures_not_recovered
+                if (
+                    len(erasures)
+                    > layer.erasure_code.get_coding_chunk_count()
+                ):
+                    continue  # hope an upper layer does better
+                layer_minimum = (
+                    layer.chunks_as_set - erasures_not_recovered
+                )
+                erasures_not_recovered -= erasures
+                erasures_want -= erasures
+            minimum |= layer_minimum
+        if not erasures_want:
+            minimum |= set(want_to_read)
+            minimum -= erasures_total
+            return minimum
+
+        # case 3: recover everything possible to help upper layers
+        erasures_total = {i for i in range(n) if i not in available}
+        for layer in reversed(self.layers):
+            layer_erasures = layer.chunks_as_set & erasures_total
+            if not layer_erasures:
+                continue
+            if (
+                len(layer_erasures)
+                <= layer.erasure_code.get_coding_chunk_count()
+            ):
+                erasures_total -= layer_erasures
+        if not erasures_total:
+            return set(available)
+        raise ErasureCodeError(
+            f"not enough chunks in {sorted(available)} to read "
+            f"{sorted(want_to_read)} (-EIO)"
+        )
+
+    # -- batched repair ----------------------------------------------------
+    def decode_matrix(self, want_to_read, available):
+        """The batched-repair plan (ec/stripe.decode_reconstruction
+        hook): when ONE layer's local group covers every wanted chunk
+        and its erasures fit that layer's coding count, the repair is
+        the inner matrix code's solve over k_local ≪ k survivors —
+        LRC's locality carried onto the coalesced device dispatch.
+        Returns (rows, survivors, w, backend) in GLOBAL positions;
+        raises ErasureCodeError when no single matrix layer solves it
+        (the caller falls back to the layered per-object decode)."""
+        from .stripe import _matrix_fast_path, reconstruction_rows
+
+        want = set(want_to_read)
+        available = set(available)
+        for layer in reversed(self.layers):
+            if not want <= layer.chunks_as_set:
+                continue
+            inner = layer.erasure_code
+            avail_local = {
+                j
+                for j, c in enumerate(layer.chunks)
+                if c in available
+            }
+            if len(layer.chunks) - len(avail_local) > (
+                inner.get_coding_chunk_count()
+            ):
+                continue
+            matrix, backend, ok = _matrix_fast_path(
+                inner, "decode_stripes_batch"
+            )
+            if not ok:
+                continue
+            k_l, w = inner.get_data_chunk_count(), inner.w
+            # the SAME row composition the flat families use
+            # (stripe.reconstruction_rows), just run in layer-local
+            # indices — then the rows re-order to the GLOBAL sorted
+            # want (layer.chunks need not be globally monotonic) and
+            # the survivors translate back to global positions
+            want_local = {layer.chunks.index(p) for p in want}
+            rows_local, surv_local = reconstruction_rows(
+                matrix, want_local, avail_local, k_l, w
+            )
+            order = sorted(want_local)
+            rows = [
+                rows_local[order.index(layer.chunks.index(p))]
+                for p in sorted(want)
+            ]
+            return (
+                np.array(rows, dtype=np.int64).reshape(
+                    len(rows), k_l
+                ),
+                [layer.chunks[s] for s in surv_local],
+                w,
+                backend,
+            )
+        raise ErasureCodeError(
+            f"no single layer rebuilds {sorted(want)} from "
+            f"{sorted(available)} as matrix math"
+        )
+
+    # -- crush -------------------------------------------------------------
+    def create_rule(self, name: str, crush, ss=None) -> int:
+        """The layered rule from ``rule_steps`` (ErasureCodeLrc.cc
+        create_rule) needs the CRUSH types, which are not ported yet."""
+        raise NotImplementedError(
+            "lrc create_rule needs the CRUSH port (crush.types)"
+        )
+
+
+@register("lrc")
+class ErasureCodePluginLrc(ErasureCodePlugin):
+    def make(self, profile: ErasureCodeProfile):
+        return ErasureCodeLrc()

@@ -1,0 +1,470 @@
+"""Stripe layer — the batching seam (src/osd/ECUtil.{h,cc}).
+
+``StripeInfo`` is the stripe_width/chunk_size offset algebra
+(ECUtil.h:27-100).  ``encode``/``decode`` replace the reference's
+per-stripe plugin-call loop (ECUtil.cc:123-162, :12-48) with ONE
+batched device call across all stripes for matrix code families — the
+hoisted seam SURVEY.md §3.1 identifies — falling back to the per-stripe
+loop for layered codes.  ``HashInfo`` keeps the cumulative per-shard
+crc32c persisted as the hinfo xattr (ECUtil.cc:164-248).
+
+Differences from the JAX package's ``ec/stripe.py``:
+
+- no kernel_stats / dispatch-profiler / residency counting yet: each
+  place the JAX module counts is marked "counting not ported";
+- ``decode_batch`` degrades a group to the per-object decode only where
+  the plan raises ErasureCodeError or the shards are not equal-length
+  whole chunks, never on an exception of the batched call: a failed
+  kernel launch or a CUDA error propagates;
+- decoded payloads are numpy arrays (no ``DeviceBuf`` yet);
+- the per-object decode takes a clay shard stripe by stripe (the JAX
+  one decodes a shard of several stripes as one chunk, which for clay's
+  sub-chunk layout gives wrong bytes).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..native import ceph_crc32c
+from .interface import ErasureCodeError
+
+
+class StripeInfo:
+    """stripe_width = k * chunk_size; logical↔chunk offset algebra."""
+
+    def __init__(self, k: int, stripe_width: int):
+        if stripe_width % k:
+            raise ErasureCodeError(
+                f"stripe_width {stripe_width} not divisible by k={k}"
+            )
+        self.stripe_width = stripe_width
+        self.chunk_size = stripe_width // k
+
+    def logical_aligned(self, offset: int) -> bool:
+        return offset % self.stripe_width == 0
+
+    def logical_to_prev_chunk_offset(self, offset: int) -> int:
+        return (offset // self.stripe_width) * self.chunk_size
+
+    def logical_to_next_chunk_offset(self, offset: int) -> int:
+        return (
+            (offset + self.stripe_width - 1) // self.stripe_width
+        ) * self.chunk_size
+
+    def logical_to_prev_stripe_offset(self, offset: int) -> int:
+        return offset - (offset % self.stripe_width)
+
+    def logical_to_next_stripe_offset(self, offset: int) -> int:
+        rem = offset % self.stripe_width
+        return offset + (self.stripe_width - rem) if rem else offset
+
+    def aligned_logical_offset_to_chunk_offset(self, offset: int) -> int:
+        assert offset % self.stripe_width == 0
+        return (offset // self.stripe_width) * self.chunk_size
+
+    def aligned_chunk_offset_to_logical_offset(self, offset: int) -> int:
+        assert offset % self.chunk_size == 0
+        return (offset // self.chunk_size) * self.stripe_width
+
+    def offset_len_to_stripe_bounds(
+        self, offset: int, length: int
+    ) -> tuple[int, int]:
+        start = self.logical_to_prev_stripe_offset(offset)
+        end = self.logical_to_next_stripe_offset(offset + length)
+        return start, end - start
+
+
+def _matrix_fast_path(ec, needs: str):
+    """The ONE eligibility gate for the batched matrix device path
+    (shared by encode and encode_batch so the two can never drift):
+    returns (matrix, backend, ok) where ok means the code family's
+    whole-word matrix math is safe to batch AND the backend has the
+    ``needs`` entry point.  Bitmatrix techniques
+    (cauchy/liberation/blaum_roth) carry a .matrix too, but encode
+    through XOR schedules over packet planes — the word-wise matrix
+    path would corrupt them; chunk remapping likewise bails."""
+    matrix = getattr(ec, "matrix", None)
+    backend = getattr(ec, "backend", None)
+    ok = (
+        matrix is not None
+        and getattr(ec, "bitmatrix", None) is None
+        and backend is not None
+        and hasattr(backend, needs)
+        and not ec.get_chunk_mapping()
+    )
+    return matrix, backend, ok
+
+
+def _assemble_shards(
+    stripes: np.ndarray, coding: np.ndarray, k: int, n: int, want=None
+) -> dict[int, np.ndarray]:
+    """(B, k, chunk) data stripes + (B, m, chunk) coding → the
+    per-shard concatenated-chunk dict — the ONE layout assembly both
+    encode and encode_batch share (byte identity between the two
+    rests on there being a single copy of this)."""
+    out: dict[int, np.ndarray] = {}
+    for i in range(k):
+        if want is None or i in want:
+            out[i] = np.ascontiguousarray(stripes[:, i, :]).reshape(-1)
+    for j in range(n - k):
+        if want is None or k + j in want:
+            out[k + j] = np.ascontiguousarray(coding[:, j, :]).reshape(-1)
+    return out
+
+
+def _as_buffer(data) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(bytes(data), dtype=np.uint8)
+    return np.ascontiguousarray(data, dtype=np.uint8).ravel()
+
+
+def encode(
+    sinfo: StripeInfo, ec, data: bytes | np.ndarray, want=None
+) -> dict[int, np.ndarray]:
+    """All stripes of ``data`` → per-shard concatenated chunks.
+
+    Matrix code families take the batched path: (B, k, chunk) in one
+    device call; others run the reference's per-stripe loop."""
+    buf = _as_buffer(data)
+    if len(buf) % sinfo.stripe_width:
+        raise ErasureCodeError(
+            f"logical size {len(buf)} not stripe aligned"
+        )
+    n = ec.get_chunk_count()
+    k = ec.get_data_chunk_count()
+    if want is None:
+        want = set(range(n))
+    nstripes = len(buf) // sinfo.stripe_width
+    if nstripes == 0:
+        return {}
+    # counting not ported: the kernel_stats "ec_encode" timer and the
+    # dispatch profiler's host-path entry
+    matrix, backend, ok = _matrix_fast_path(ec, "matrix_stripes")
+    if ok:
+        stripes = buf.reshape(nstripes, k, sinfo.chunk_size)
+        coding = backend.matrix_stripes(matrix, stripes, ec.w)
+        return _assemble_shards(stripes, coding, k, n, want)
+    parts = {i: [] for i in range(n)}
+    for s in range(nstripes):
+        stripe = buf[s * sinfo.stripe_width : (s + 1) * sinfo.stripe_width]
+        encoded = ec.encode(set(range(n)), stripe)
+        for i, chunk in encoded.items():
+            parts[i].append(chunk)
+    return {i: np.concatenate(p) for i, p in parts.items() if i in want}
+
+
+def encode_batch(
+    sinfo: StripeInfo, ec, buffers
+) -> list[dict[int, np.ndarray]]:
+    """Coalesced multi-object encode: every buffer's stripes ride ONE
+    pipelined device pass (``matrix_stripes_batch`` — stream-ordered
+    uploads, one sync at the end) instead of one dispatch per object.
+    Byte-identical to per-buffer :func:`encode` by construction (same
+    per-stripe math).  Falls back to the per-buffer loop for
+    layered/bitmatrix codes or single-object batches."""
+    bufs = [_as_buffer(b) for b in buffers]
+    for buf in bufs:
+        if len(buf) % sinfo.stripe_width:
+            raise ErasureCodeError(
+                f"logical size {len(buf)} not stripe aligned"
+            )
+    n = ec.get_chunk_count()
+    k = ec.get_data_chunk_count()
+    matrix, backend, ok = _matrix_fast_path(ec, "matrix_stripes_batch")
+    if not ok or len(bufs) < 2:
+        return [encode(sinfo, ec, buf) for buf in bufs]
+
+    stripe_arrays = [
+        buf.reshape(len(buf) // sinfo.stripe_width, k, sinfo.chunk_size)
+        for buf in bufs
+    ]
+    # counting not ported: the kernel_stats "ec_encode" timer and the
+    # l_tpu_batch_encode_{dispatches,ops_per_dispatch} counters
+    codings = backend.matrix_stripes_batch(matrix, stripe_arrays, ec.w)
+    out: list[dict[int, np.ndarray]] = []
+    for stripes, coding in zip(stripe_arrays, codings):
+        if stripes.shape[0] == 0:
+            out.append({})
+            continue
+        out.append(_assemble_shards(stripes, coding, k, n))
+    return out
+
+
+def _as_row(x) -> np.ndarray:
+    """1-D uint8 view of a survivor payload: the ONE coercion helper
+    (ec/backend._host_row) shared by the stripe seam and the torch
+    backend — bytes-likes go through frombuffer."""
+    from .backend import _host_row
+
+    return _host_row(x)
+
+
+def survivor_basis(
+    matrix: np.ndarray, erasures, k: int, w: int
+) -> tuple[np.ndarray, list[int]]:
+    """The survivor basis B⁻¹ (k × k over GF(2^w)) and the k survivor
+    ids it spans: B⁻¹ @ survivor_chunks = data_chunks.  A thin
+    error-translating wrapper over :func:`gf.survivor_basis` — the
+    SAME implementation the per-op decode's make_decoding_matrix
+    builds on, so the batched and per-op paths can never pick
+    different systems."""
+    from .. import gf
+
+    try:
+        return gf.survivor_basis(matrix, erasures, k, w)
+    except (ValueError, np.linalg.LinAlgError) as e:
+        raise ErasureCodeError(f"{e} (-EIO)")
+
+
+def reconstruction_rows(
+    matrix: np.ndarray, want, available, k: int, w: int
+) -> tuple[np.ndarray, list[int]]:
+    """ONE GF(2^w) matrix that rebuilds every wanted chunk (data or
+    coding) straight from the k chosen survivors — the whole-PG repair
+    collapses to a single matrix × survivor-regions dispatch.  Wanted
+    data chunks take their B⁻¹ row; wanted coding chunks compose the
+    generator row with B⁻¹ (exact field algebra, so the result is
+    byte-identical to decode-data-then-re-encode).  Returns
+    (rows[len(want), k], survivors)."""
+    from .. import gf
+
+    n = k + matrix.shape[0]
+    erasures = sorted(set(range(n)) - set(available))
+    binv, survivors = survivor_basis(matrix, erasures, k, w)
+    rows = []
+    for p in sorted(want):
+        if p < k:
+            rows.append(binv[p])
+        else:
+            rows.append(
+                gf.matrix_multiply(matrix[p - k : p - k + 1], binv, w)[0]
+            )
+    return np.array(rows, dtype=np.int64).reshape(len(rows), k), survivors
+
+
+def decode_reconstruction(ec, want, available):
+    """The decode analog of :func:`_matrix_fast_path`: a
+    (rows, survivors, w, backend) plan that rebuilds ``want`` from
+    ``available`` in one batched device dispatch, or None when the
+    code family cannot express its repair as whole-word matrix math
+    (bitmatrix/layered codes without a ``decode_matrix`` hook, chunk
+    remapping, unsolvable systems)."""
+    hook = getattr(ec, "decode_matrix", None)
+    if hook is not None:
+        try:
+            return hook(set(want), set(available))
+        except ErasureCodeError:
+            return None
+    matrix, backend, ok = _matrix_fast_path(ec, "decode_stripes_batch")
+    if not ok:
+        return None
+    try:
+        rows, survivors = reconstruction_rows(
+            matrix, want, available, ec.get_data_chunk_count(), ec.w
+        )
+    except ErasureCodeError:
+        return None
+    return rows, survivors, ec.w, backend
+
+
+def _decode_one(ec, shards: dict, want, chunk_size: int) -> dict:
+    """Per-object decode-from-survivors — the reference per-op repair
+    path (ErasureCode::_decode) and the oracle the batched dispatch
+    must match byte for byte.  Codes with sub-chunks (clay) lay each
+    chunk out on its own, so a shard of several stripes decodes stripe
+    by stripe, as ECUtil::decode does; for the others a shard decodes
+    as one chunk, which gives the same bytes."""
+    chunks = {i: _as_row(v) for i, v in shards.items()}
+    length = len(next(iter(chunks.values()), ()))
+    if ec.get_sub_chunk_count() > 1 and length > chunk_size:
+        if length % chunk_size:
+            raise ErasureCodeError("shard length not chunk aligned")
+        parts = [
+            _decode_one(
+                ec,
+                {i: c[s : s + chunk_size] for i, c in chunks.items()},
+                want,
+                chunk_size,
+            )
+            for s in range(0, length, chunk_size)
+        ]
+        return {p: np.concatenate([part[p] for part in parts]) for p in sorted(want)}
+    decoded = ec._decode(set(want), chunks)
+    return {
+        p: np.ascontiguousarray(decoded[p], dtype=np.uint8)
+        for p in sorted(want)
+    }
+
+
+def _survivor_rows(shard_sets, idxs, survivors, cs: int) -> list[list] | None:
+    """Each object's survivor payloads in plan order, or None where they
+    are not equal-length whole chunks (the batched route cannot take
+    them)."""
+    row_sets = []
+    for i in idxs:
+        rows_i = [shard_sets[i][s] for s in survivors]
+        lengths = {len(r) for r in rows_i}
+        if len(lengths) != 1:
+            return None
+        (length,) = lengths
+        if length % cs or length == 0:
+            return None
+        row_sets.append(rows_i)
+    return row_sets
+
+
+def decode_batch(
+    sinfo: StripeInfo, ec, shard_sets, want
+) -> list[dict]:
+    """Coalesced decode-from-survivors: rebuild the SAME missing
+    positions (``want`` — the dead OSD's shards) for MANY objects in
+    one pipelined device pass, the repair-side twin of
+    :func:`encode_batch`.
+
+    ``shard_sets`` is one dict per object of survivor shard payloads
+    ({position: bytes | ndarray}); objects that share a survivor set
+    and number two or more ride one ``decode_stripes_batch`` call.
+    Returns one {position: reconstructed numpy array} dict per object.
+    Byte-identical to the per-object ``ec._decode`` repair by
+    construction.  A group degrades to that repair when the batched
+    route has no plan for it (the plan raised ErasureCodeError) or its
+    shards are not equal-length whole chunks; any failure of the
+    batched call itself, a kernel's included, propagates."""
+    want = sorted(set(want))
+    out: list[dict | None] = [None] * len(shard_sets)
+    groups: dict[frozenset, list[int]] = {}
+    for i, shards in enumerate(shard_sets):
+        groups.setdefault(frozenset(shards), []).append(i)
+    cs = sinfo.chunk_size
+    for key, idxs in groups.items():
+        plan = (
+            decode_reconstruction(ec, want, key)
+            if len(idxs) >= 2 and not (set(want) & key)
+            else None
+        )
+        row_sets = (
+            _survivor_rows(shard_sets, idxs, plan[1], cs) if plan is not None else None
+        )
+        if row_sets is not None:
+            rows, _survivors, w, backend = plan
+            # counting not ported: the kernel_stats "ec_decode" timer
+            # and the l_tpu_batch_decode_{dispatches,ops_per_dispatch}
+            # counters
+            outs = backend.decode_stripes_batch(rows, row_sets, w, cs)
+            for i, rec in zip(idxs, outs):
+                out[i] = _wrap_decoded(rec, want)
+            continue
+        # per-object repair (counting not ported: the dispatch
+        # profiler's host-path entry and the "ec_decode" timer)
+        for i in idxs:
+            out[i] = _decode_one(ec, shard_sets[i], want, cs)
+    return out
+
+
+def _wrap_decoded(rec: np.ndarray, want) -> dict:
+    """One object's (nstripes, len(want), chunk) reconstruction →
+    {position: payload}, numpy (``DeviceBuf`` is not ported yet)."""
+    return {
+        p: np.ascontiguousarray(rec[:, j, :]).reshape(-1)
+        for j, p in enumerate(want)
+    }
+
+
+def decode_concat(
+    sinfo: StripeInfo, ec, shards: dict[int, np.ndarray]
+) -> np.ndarray:
+    """Concat-decode every stripe back to logical bytes
+    (ECUtil.cc:12-48)."""
+    lengths = {len(v) for v in shards.values()}
+    if len(lengths) != 1:
+        raise ErasureCodeError("shards must be equal length")
+    (shard_len,) = lengths
+    if shard_len % sinfo.chunk_size:
+        raise ErasureCodeError("shard length not chunk aligned")
+    nstripes = shard_len // sinfo.chunk_size
+    views = {i: _as_buffer(v) for i, v in shards.items()}
+    # counting not ported: the kernel_stats "ec_decode" timer
+    out = []
+    for s in range(nstripes):
+        chunks = {
+            i: v[s * sinfo.chunk_size : (s + 1) * sinfo.chunk_size]
+            for i, v in views.items()
+        }
+        out.append(ec.decode_concat(chunks))
+    return np.concatenate(out)
+
+
+class HashInfo:
+    """Cumulative per-shard crc32c, persisted as the hinfo_key xattr
+    (ECUtil.cc:164-248); seeds start at -1 like the reference."""
+
+    def __init__(self, num_chunks: int):
+        self.cumulative_shard_hashes = [0xFFFFFFFF] * num_chunks
+        self.total_chunk_size = 0
+
+    def append(self, old_size: int, to_append: dict[int, np.ndarray]):
+        assert old_size == self.total_chunk_size
+        size = len(next(iter(to_append.values())))
+        for i, chunk in to_append.items():
+            assert len(chunk) == size
+            self.cumulative_shard_hashes[i] = ceph_crc32c(
+                self.cumulative_shard_hashes[i], chunk
+            )
+        self.total_chunk_size += size
+
+    def get_chunk_hash(self, shard: int) -> int:
+        return self.cumulative_shard_hashes[shard]
+
+    def clear(self):
+        self.total_chunk_size = 0
+        self.cumulative_shard_hashes = [
+            0xFFFFFFFF for _ in self.cumulative_shard_hashes
+        ]
+
+
+def rmw_range(
+    sinfo: StripeInfo, offset: int, length: int, old_size: int
+) -> tuple[int, int, set[int]]:
+    """The WritePlan head/tail analysis (ECBackend.cc:1858 start_rmw):
+    for a partial overwrite of [offset, offset+length), returns
+    (first_stripe, end_stripe, stripes_to_read) — only the partially
+    covered head/tail stripes that hold pre-existing bytes need
+    reading; fully-covered and beyond-EOF stripes encode fresh."""
+    sw = sinfo.stripe_width
+    start, span = sinfo.offset_len_to_stripe_bounds(offset, length)
+    first, end = start // sw, (start + span) // sw
+    old_stripes = sinfo.logical_to_next_stripe_offset(old_size) // sw
+    need: set[int] = set()
+    if offset % sw and first < old_stripes:
+        need.add(first)
+    if (offset + length) % sw and end - 1 < old_stripes:
+        need.add(end - 1)
+    return first, end, need
+
+
+def rmw_encode(
+    sinfo: StripeInfo,
+    ec,
+    offset: int,
+    data: bytes,
+    old_size: int,
+    read_stripes,
+) -> tuple[int, int, np.ndarray, dict[int, np.ndarray]]:
+    """Stripe-granular RMW assembly: read the needed stripes through
+    the caller's ``read_stripes(sorted_stripe_list) -> {stripe:
+    bytes}``, overlay the new bytes, and re-encode just the covered
+    range.  Returns (first_stripe, end_stripe, range_buffer, shards)."""
+    data = bytes(data)
+    sw = sinfo.stripe_width
+    first, end, need = rmw_range(sinfo, offset, len(data), old_size)
+    existing = read_stripes(sorted(need))
+    buf = np.zeros((end - first) * sw, dtype=np.uint8)
+    for s, stripe in existing.items():
+        buf[(s - first) * sw : (s - first + 1) * sw] = np.frombuffer(
+            bytes(stripe), dtype=np.uint8
+        )
+    lo = offset - first * sw
+    buf[lo : lo + len(data)] = np.frombuffer(data, dtype=np.uint8)
+    shards = encode(sinfo, ec, buf)
+    return first, end, buf, shards

@@ -5,7 +5,8 @@ with ``nvcc`` for Hopper (``sm_90a``), into a shared library with a plain
 C interface under ``build/ceph_tpu_torch/`` at the repository root, and
 loaded with ``ctypes``.  The library name carries a digest of the source
 and flags, so an edited source is rebuilt.  There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+missing ``nvcc`` or a failed build raises.  Host C sources (``csrc/*.c``:
+the crc32c of ``native``) build the same way with ``cc``.
 
 Every C entry launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; ``launch_stripes`` raises when that is
@@ -33,6 +34,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# host C sources (``csrc/*.c``, e.g. crc32c.c): cc, no ISA flags, so the
+# library runs on any x86-64 or arm64 host that shares the build tree
+CC_FLAGS = ("-O3", "-shared", "-fPIC")
 SOURCE = "gf8_kernels.cu"
 # (in, in_sb, in_sk, out, B, k, m, chunk, bm, stream)
 _STRIPES_ARGS = [
@@ -63,13 +67,22 @@ def nvcc() -> str:
     return path
 
 
+def cc() -> str:
+    path = shutil.which("cc")
+    if path is None:
+        raise RuntimeError("cc not found: the host C library cannot be built")
+    return path
+
+
 def build(source: str = SOURCE) -> pathlib.Path:
     """Compile ``csrc/<source>`` unless a library of the same digest
-    exists.  What ptxas printed is kept beside the library and in
-    ``build_log[source]``."""
+    exists: a ``.cu`` with nvcc, a ``.c`` with the host ``cc``.  What
+    the compiler printed (ptxas's report for a ``.cu``) is kept beside
+    the library and in ``build_log[source]``."""
     src = CSRC / source
+    compiler, flags = (nvcc, NVCC_FLAGS) if src.suffix == ".cu" else (cc, CC_FLAGS)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:12]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     log = out.with_suffix(".ptxas.txt")
@@ -81,12 +94,12 @@ def build(source: str = SOURCE) -> pathlib.Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [compiler(), *flags, "-o", str(tmp), str(src)],
         capture_output=True,
         text=True,
     )
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        raise RuntimeError(f"{compiler()} failed on {src}:\n{proc.stderr}")
     log.write_text(proc.stderr)
     os.replace(tmp, out)
     build_seconds[source] = time.perf_counter() - t0

@@ -1,0 +1,92 @@
+"""The OSD's per-pool erasure codec — the codec half of the backend that
+build_pg_backend's ERASURE branch mounts (src/osd/PGBackend.cc:571-607,
+src/osd/ECBackend.cc).
+
+``ECCodec`` is the JAX package's ``osd/ec_pg.ECCodec``: one pool
+profile's code and stripe geometry, with the whole-object encode and the
+batched encode and decode-from-survivors that the write-coalescing and
+recovery paths call.  Its batch methods run over ``ec.stripe``'s
+``encode_batch`` / ``decode_batch``, hence over the torch backend's
+grouped routes (kernel K2).  The store seams of that module
+(``UnreachableStore``, ``rmw_write_txns``, ``shard_write_txn``) need the
+object stores, which are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..ec import ErasureCodeProfile, registry_instance
+from ..ec.stripe import HashInfo, StripeInfo, decode_batch, encode_batch
+
+DEFAULT_STRIPE_UNIT = 4096  # osd_pool_erasure_code_stripe_unit role
+
+
+class ECCodec:
+    """One pool profile's codec + stripe geometry, cached per profile
+    by the daemon (the ErasureCodePluginRegistry::factory product the
+    reference hangs off the pool, PGBackend.cc:588).  The profile's
+    ``device`` key (default ``cuda``) says where the region math runs."""
+
+    def __init__(self, profile: dict[str, str]):
+        plugin = profile.get("plugin", "jerasure")
+        prof = ErasureCodeProfile(
+            {k: v for k, v in profile.items() if k != "plugin"}
+        )
+        self.ec = registry_instance().factory(plugin, prof)
+        self.k = self.ec.get_data_chunk_count()
+        self.n = self.ec.get_chunk_count()
+        chunk = self.ec.get_chunk_size(self.k * DEFAULT_STRIPE_UNIT)
+        self.sinfo = StripeInfo(self.k, self.k * chunk)
+
+    def encode_object(
+        self, data: bytes
+    ) -> tuple[dict[int, bytes], dict]:
+        """Full-object encode: pad to stripe multiples, run the stripe
+        seam, compute per-shard HashInfo.  Returns ({pos: shard_bytes},
+        meta) with meta in the shard-xattr JSON shape ECStore reads.
+        ONE implementation serves both paths: this is the
+        single-element case of the batch (encode_batch runs a
+        1-element batch through the same per-buffer encode)."""
+        return self.encode_object_batch([data])[0]
+
+    def encode_object_batch(
+        self, datas
+    ) -> list[tuple[dict[int, bytes], dict]]:
+        """Batched :meth:`encode_object`: every queued payload's
+        stripes ride ONE pipelined device pass (the write-coalescing
+        seam — ec/stripe.encode_batch), byte-identical to per-object
+        encodes.  Returns one ({pos: shard_bytes}, meta) per payload,
+        in order."""
+        padded = []
+        for data in datas:
+            logical = len(data)
+            plen = self.sinfo.logical_to_next_stripe_offset(logical)
+            padded.append(bytes(data) + b"\0" * (plen - logical))
+        shard_sets = encode_batch(self.sinfo, self.ec, padded)
+        out: list[tuple[dict[int, bytes], dict]] = []
+        for data, shards in zip(datas, shard_sets):
+            if not shards:  # zero-length object: n empty shards
+                shards = {
+                    i: np.zeros(0, dtype=np.uint8) for i in range(self.n)
+                }
+            hinfo = HashInfo(self.n)
+            hinfo.append(0, shards)
+            meta = {
+                "size": len(data),
+                "hashes": hinfo.cumulative_shard_hashes,
+            }
+            out.append(
+                ({i: bytes(shards[i]) for i in range(self.n)}, meta)
+            )
+        return out
+
+    def decode_object_batch(self, shard_sets, want) -> list[dict]:
+        """Batched decode-from-survivors (the repair-side twin of
+        :meth:`encode_object_batch`): rebuild the SAME missing
+        positions for many objects in one coalesced device dispatch.
+        ``shard_sets`` holds one survivor dict per object ({position:
+        bytes | ndarray}); returns one {position: numpy payload} per
+        object, byte-identical to per-object decode
+        (ec/stripe.decode_batch)."""
+        return decode_batch(self.sinfo, self.ec, shard_sets, want)

@@ -1,0 +1,157 @@
+"""Byte-exactness corpus tool
+(src/test/erasure-code/ceph_erasure_code_non_regression.cc:113,304-324
+and the ceph-erasure-code-corpus layout).
+
+--create archives the encoded chunks of a deterministic payload for a
+plugin/profile; --check re-encodes and compares byte-for-byte, and
+verifies every single-erasure decode against the archived chunks.  The
+reference's corpus submodule is empty in the mount, so this corpus is
+self-generated — it pins today's outputs as the contract for every
+future backend/kernel change (the role SURVEY.md §4.4 assigns it).
+
+``--device`` (default ``cuda``) says where the port's region math runs;
+``cpu`` runs the kernels' plain versions.  The corpus files are the JAX
+package's, unchanged: the profile keys ``backend`` and ``device`` are
+never archived and never enter an entry's name.
+
+    python -m ceph_tpu_torch.tools.ec_non_regression --check \\
+        --directory corpus --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import hashlib
+import json
+import pathlib
+import sys
+
+import numpy as np
+
+from ..ec import ErasureCodeProfile, registry_instance
+
+
+# where the math runs, not what it computes: kept out of the corpus
+_RUNTIME_KEYS = ("backend", "device")
+
+
+def default_payload(size: int) -> bytes:
+    """Deterministic, content-addressable payload (the reference uses
+    SP(seed) strings; any fixed generator works as long as it never
+    changes)."""
+    out = bytearray()
+    counter = 0
+    while len(out) < size:
+        out += hashlib.sha256(f"ceph-tpu-corpus-{counter}".encode()).digest()
+        counter += 1
+    return bytes(out[:size])
+
+
+def profile_from_args(params: list[str]) -> ErasureCodeProfile:
+    profile = ErasureCodeProfile()
+    for kv in params:
+        key, _, value = kv.partition("=")
+        profile[key] = value
+    return profile
+
+
+def corpus_name(plugin: str, profile: ErasureCodeProfile, size: int) -> str:
+    """Readable prefix + digest of the full (factory-completed) profile."""
+    canon = json.dumps(
+        {k: v for k, v in sorted(profile.items()) if k not in _RUNTIME_KEYS},
+        sort_keys=True,
+    )
+    digest = hashlib.sha256(canon.encode()).hexdigest()[:10]
+    brief = "_".join(
+        f"{key}{profile[key]}"
+        for key in ("technique", "k", "m", "l", "c", "d", "w")
+        if key in profile
+    )
+    return f"{plugin}_{brief}_s{size}_{digest}"
+
+
+def create(args) -> int:
+    profile = profile_from_args(args.parameter)
+    # snapshot before factory(): init fills generated keys (lrc's
+    # mapping/layers, defaults) that must not be re-fed to parse
+    original = {k: v for k, v in profile.items() if k not in _RUNTIME_KEYS}
+    profile["device"] = args.device
+    ec = registry_instance().factory(args.plugin, profile)
+    data = default_payload(args.size)
+    encoded = ec.encode(set(range(ec.get_chunk_count())), data)
+    entry = {
+        "plugin": args.plugin,
+        "profile": original,
+        "size": args.size,
+        "chunks": {
+            str(i): base64.b64encode(bytes(c)).decode()
+            for i, c in sorted(encoded.items())
+        },
+    }
+    directory = pathlib.Path(args.directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / (corpus_name(args.plugin, original, args.size) + ".json")
+    path.write_text(json.dumps(entry, indent=1))
+    print(f"created {path}")
+    return 0
+
+
+def check(args) -> int:
+    directory = pathlib.Path(args.directory)
+    failures = 0
+    entries = sorted(directory.glob("*.json"))
+    if not entries:
+        print(f"no corpus entries under {directory}", file=sys.stderr)
+        return 1
+    for path in entries:
+        entry = json.loads(path.read_text())
+        profile = ErasureCodeProfile(entry["profile"])
+        profile["device"] = args.device
+        ec = registry_instance().factory(entry["plugin"], profile)
+        data = default_payload(entry["size"])
+        n = ec.get_chunk_count()
+        encoded = ec.encode(set(range(n)), data)
+        archived = {
+            int(i): np.frombuffer(
+                base64.b64decode(c), dtype=np.uint8
+            )
+            for i, c in entry["chunks"].items()
+        }
+        ok = True
+        for i in range(n):
+            if not np.array_equal(encoded[i], archived[i]):
+                print(f"{path.name}: chunk {i} DIFFERS", file=sys.stderr)
+                ok = False
+        # single-erasure decodes must reproduce the archived chunk
+        for lost in range(n):
+            avail = {i: c for i, c in archived.items() if i != lost}
+            decoded = ec._decode({lost}, avail)
+            if not np.array_equal(decoded[lost], archived[lost]):
+                print(
+                    f"{path.name}: decode of chunk {lost} DIFFERS",
+                    file=sys.stderr,
+                )
+                ok = False
+        print(f"{path.name}: {'ok' if ok else 'FAILED'}")
+        failures += not ok
+    return 1 if failures else 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="ec_non_regression", description=__doc__)
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--create", action="store_true")
+    mode.add_argument("--check", action="store_true")
+    p.add_argument("--directory", default="corpus")
+    p.add_argument("--plugin", default="jerasure")
+    p.add_argument("-P", "--parameter", action="append", default=[])
+    p.add_argument("--size", type=int, default=65536)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the backend (cuda or cpu)")
+    args = p.parse_args(argv)
+    return create(args) if args.create else check(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,20 @@ script exits non-zero:
    decode's content verified, a bitmatrix technique, the batched encode
    and decode routes, and the ``ec_benchmark`` exhaustive decode; the
    kernels' launch counts are zeroed before and must be non-zero after;
+3b. the layered plugins, the stripe seam and the OSD codec on
+   ``device="cuda"``, with the launch counts zeroed before and both
+   non-zero after: ``tools.ec_non_regression --check`` of all 11
+   ``corpus/`` entries; lrc k=8 m=4 l=6, shec k=8 m=4 c=2 and clay k=8
+   m=4 d=11 on a seeded 1 MiB object, each encode equal to the
+   ``device="cpu"`` one, every single erasure and a seeded sample of
+   double (and for shec and lrc triple) erasures decoded and verified or
+   refused on both devices alike, clay's 12 minimum-bandwidth repairs
+   from partial reads; ``ECCodec`` over 64 objects of 4 MiB (isa k=8
+   m=3): the batch encode equal to the per-object one, HashInfo equal to
+   the plain crc32c of every shard, the batched decode of {1, 9}, K2
+   launched once per group of 256 stripes; an lrc codec's batched
+   repair of one chunk through its local layer; clay through ``ECCodec``
+   on a 4-stripe object; each timed, beside the card's name and limit;
 4. resident throughput at full size: 1024 stripes of k=8 x 128 KiB
    (1 GiB of data) encoded through K1 and through K2, 1 GiB of survivors
    decoded through each, the 1 GiB encode through K2 on rows offset by
@@ -255,6 +269,291 @@ def phase_main_path():
     return counts
 
 
+def _decoded_or_refused(ec, erased, avail):
+    from ceph_tpu_torch.ec import ErasureCodeError
+
+    try:
+        return ec._decode(set(erased), dict(avail))
+    except ErasureCodeError:
+        return None
+
+
+def _layered_family(rng, plugin, prof, extra: int) -> dict:
+    """One BASELINE family at 1 MiB on the card, held against the CPU:
+    returns its timings."""
+    from ceph_tpu_torch.ec import ErasureCodeProfile, registry_instance
+
+    reg = registry_instance()
+    card = reg.factory(plugin, ErasureCodeProfile(prof, device="cuda"))
+    cpu = reg.factory(plugin, ErasureCodeProfile(prof, device="cpu"))
+    n = card.get_chunk_count()
+    payload = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    enc = card.encode(set(range(n)), payload)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ref = cpu.encode(set(range(n)), payload)
+    for i in range(n):
+        check(np.array_equal(enc[i], ref[i]), f"{plugin}: chunk {i} on the card != cpu")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        card.encode(set(range(n)), payload)
+    enc_ms = (time.perf_counter() - t0) * 1e3 / 3
+    dec_ms = []
+    for lost in range(n):
+        avail = {i: c for i, c in enc.items() if i != lost}
+        t0 = time.perf_counter()
+        dec = card._decode({lost}, avail)
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(dec[lost], enc[lost]), f"{plugin}: single decode of {lost}")
+    check(card.decode_concat(enc)[: len(payload)].tobytes() == payload, f"{plugin}: concat")
+    pairs = list(itertools.combinations(range(n), 2))
+    if plugin == "clay":
+        patterns = [pairs[j] for j in rng.choice(len(pairs), extra, replace=False)]
+    else:
+        triples = list(itertools.combinations(range(n), 3))
+        patterns = pairs + [triples[j] for j in rng.choice(len(triples), extra, replace=False)]
+    refused = 0
+    for erased in patterns:
+        avail = {i: c for i, c in enc.items() if i not in erased}
+        got = _decoded_or_refused(card, erased, avail)
+        want = _decoded_or_refused(cpu, erased, avail)
+        check((got is None) == (want is None), f"{plugin} {erased}: cuda and cpu disagree on refusal")
+        if got is None:
+            refused += 1
+            continue
+        for i in erased:
+            check(np.array_equal(got[i], enc[i]), f"{plugin} {erased}: chunk {i} differs")
+    print(f"[3b] {plugin} {prof}: 1 MiB encode equal to device=cpu; {n} single and "
+          f"{len(patterns)} multiple erasure patterns decoded and verified or refused on both "
+          f"devices alike ({refused} refused)")
+    return {"first_encode_ms": first_ms, "encode_ms": enc_ms,
+            "decode_ms": sum(dec_ms) / len(dec_ms), "enc": enc, "ec": card, "payload": payload}
+
+
+def _device_busy(fam: dict) -> str:
+    """The card's busy time (kernels and copies, from torch.profiler's
+    device events) during one encode, against the host clock's time for
+    it under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ec, payload = fam["ec"], fam["payload"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ec.encode(set(range(ec.get_chunk_count())), payload)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = copies = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        if "memcpy" in ev.key.lower():
+            copies += ev.self_device_time_total / 1e3
+        else:
+            kernels += ev.self_device_time_total / 1e3
+    if kernels == 0.0:
+        return f"device time not measured (the profiler saw no kernel), wall {wall_ms:.3f} ms"
+    busy = kernels + copies
+    return (f"device busy {busy:.3f} ms (kernels {kernels:.3f} ms, copies {copies:.3f} ms) "
+            f"of {wall_ms:.3f} ms on the host clock: idle {100 * (1 - busy / wall_ms):.1f} %")
+
+
+def _clay_repairs(fam: dict) -> tuple[float, int, int]:
+    """All single-chunk minimum-bandwidth repairs from the partial reads
+    ``minimum_to_decode`` names; returns (ms per repair, bytes read by
+    one repair, bytes a full decode reads)."""
+    ec, enc = fam["ec"], fam["enc"]
+    n = ec.get_chunk_count()
+    chunk = len(enc[0])
+    sc = chunk // ec.get_sub_chunk_count()
+    total = 0.0
+    for lost in range(n):
+        minimum = ec.minimum_to_decode({lost}, set(range(n)) - {lost})
+        check(len(minimum) == ec.d, f"clay repair of {lost} reads {len(minimum)} helpers")
+        partial = {
+            h: np.concatenate([enc[h][o * sc : (o + c) * sc] for o, c in runs])
+            for h, runs in minimum.items()
+        }
+        t0 = time.perf_counter()
+        got = ec.decode({lost}, partial, chunk)
+        total += time.perf_counter() - t0
+        check(np.array_equal(got[lost], enc[lost]), f"clay repair of chunk {lost}")
+        read = sum(len(p) for p in partial.values())
+    return total * 1e3 / n, read, ec.k * chunk
+
+
+def _eccodec_isa(rng) -> dict:
+    """64 objects of 4 MiB through ECCodec's batch routes (K2)."""
+    from ceph_tpu_torch.ec.stripe import HashInfo, encode_batch
+    from ceph_tpu_torch.native import crc32c_plain_rows
+    from ceph_tpu_torch.ops import bitplane_gf
+    from ceph_tpu_torch.osd.ec_pg import ECCodec
+
+    codec = ECCodec({"plugin": "isa", "k": "8", "m": "3", "device": "cuda"})
+    sw, k, m = codec.sinfo.stripe_width, codec.k, codec.n - codec.k
+    objects, size, group = 64, 4 << 20, 256
+    stripes = size // sw
+    groups = -(-objects // (group // stripes))  # whole objects, up to 256 stripes a group
+    expect = groups * -(-m // bitplane_gf.rows_per_launch(k, m))
+    block = rng.integers(0, 256, (objects, size), dtype=np.uint8)
+    datas = [row.tobytes() for row in block]
+    del block
+    before = bitplane_gf.launches
+    t0 = time.perf_counter()
+    got = codec.encode_object_batch(datas)
+    enc_s = time.perf_counter() - t0
+    launched = bitplane_gf.launches - before
+    check(launched == expect, f"ECCodec encode: K2 launched {launched} times, expected {expect}")
+    for data, g in zip(datas, got):
+        check(g == codec.encode_object(data), "ECCodec batch encode != per-object encode")
+    rows = np.stack([np.frombuffer(shards[i], dtype=np.uint8)
+                     for shards, _ in got for i in range(codec.n)])
+    plain = crc32c_plain_rows(0xFFFFFFFF, rows)
+    del rows
+    check([int(h) for h in plain] == [h for _, meta in got for h in meta["hashes"]],
+          "HashInfo != plain crc32c of the shards")
+    # where the encode's time goes: a second (warm) batch, and its parts
+    t0 = time.perf_counter()
+    codec.encode_object_batch(datas)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard_sets = encode_batch(codec.sinfo, codec.ec, datas)
+    seam_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for shards in shard_sets:
+        HashInfo(codec.n).append(0, shards)
+    hash_s = time.perf_counter() - t0
+    del shard_sets
+    want = {1, 9}
+    survivors = [{p: s for p, s in shards.items() if p not in want} for shards, _ in got]
+    before = bitplane_gf.launches
+    t0 = time.perf_counter()
+    rec = codec.decode_object_batch(survivors, want)
+    dec_s = time.perf_counter() - t0
+    launched = bitplane_gf.launches - before
+    check(launched == expect, f"ECCodec decode: K2 launched {launched} times, expected {expect}")
+    for r, (shards, _) in zip(rec, got):
+        check(all(r[p].tobytes() == shards[p] for p in want), "ECCodec batched decode of {1, 9}")
+    print(f"[3b] ECCodec isa k=8 m=3: {objects} objects of {size} B ({stripes} stripes of "
+          f"{sw} B each), batch encode equal to per-object encode, HashInfo equal to the plain "
+          f"crc32c of all {objects * codec.n} shards, batched decode of {{1, 9}} verified; "
+          f"K2 launched {expect} times for each ({groups} groups of <= {group} stripes)")
+    nbytes = objects * size
+    return {"encode_GBps": nbytes / enc_s / 1e9, "decode_GBps": nbytes / dec_s / 1e9,
+            "encode_s": enc_s, "decode_s": dec_s, "shape": f"{objects} x {size} B",
+            "warm_GBps": nbytes / warm_s / 1e9, "warm_s": warm_s, "seam_s": seam_s,
+            "hash_s": hash_s}
+
+
+def _eccodec_lrc(rng) -> None:
+    """lrc's batched repair of one chunk through its local layer."""
+    from ceph_tpu_torch.ops import bitplane_gf
+    from ceph_tpu_torch.osd.ec_pg import ECCodec
+
+    codec = ECCodec({"plugin": "lrc", "k": "8", "m": "4", "l": "6", "device": "cuda"})
+    ec = codec.ec
+    datas = [rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes() for _ in range(4)]
+    got = codec.encode_object_batch(datas)
+    lost = 1
+    layer = next(lay for lay in reversed(ec.layers) if lost in lay.chunks_as_set)
+    k_local = layer.erasure_code.get_data_chunk_count()
+    survivors = [{p: s for p, s in shards.items() if p != lost} for shards, _ in got]
+    backend = layer.erasure_code.backend
+    seen = []
+    real = backend.decode_stripes_batch
+
+    def recording(rows, row_sets, w, cs):
+        seen.append((tuple(rows.shape), [sum(len(r) for r in rs) for rs in row_sets]))
+        return real(rows, row_sets, w, cs)
+
+    backend.decode_stripes_batch = recording
+    try:
+        before = bitplane_gf.launches
+        rec = codec.decode_object_batch(survivors, {lost})
+        launched = bitplane_gf.launches - before
+    finally:
+        del backend.decode_stripes_batch
+    for r, (shards, _) in zip(rec, got):
+        check(r[lost].tobytes() == shards[lost], "lrc batched repair differs")
+    shard = len(got[0][0][0])
+    check(seen == [((1, k_local), [k_local * shard] * len(datas))],
+          f"lrc repair did not take the local plan over {k_local} survivors: {seen}")
+    check(launched == 1, f"lrc batched repair launched K2 {launched} times, expected 1")
+    print(f"[3b] ECCodec lrc k=8 m=4 l=6: chunk {lost} of {len(datas)} objects of 1 MiB rebuilt "
+          f"in one K2 launch from its local layer's {k_local} survivors "
+          f"({k_local * shard} B an object read, {ec.get_data_chunk_count() * shard} B "
+          f"for k={ec.get_data_chunk_count()})")
+
+
+def _eccodec_clay(rng) -> float:
+    """Clay through ECCodec on one 4-stripe object: the per-stripe loop."""
+    from ceph_tpu_torch.osd.ec_pg import ECCodec
+
+    profile = {"plugin": "clay", "k": "8", "m": "4", "d": "11"}
+    codec = ECCodec({**profile, "device": "cuda"})
+    data = rng.integers(0, 256, 4 * codec.sinfo.stripe_width, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    (shards, _meta), = codec.encode_object_batch([data])
+    ms = (time.perf_counter() - t0) * 1e3 / 4
+    (want, _), = ECCodec({**profile, "device": "cpu"}).encode_object_batch([data])
+    check(shards == want, "clay ECCodec encode on the card != cpu")
+    (rec,) = codec.decode_object_batch([{p: s for p, s in shards.items() if p != 3}], {3})
+    check(rec[3].tobytes() == shards[3], "clay ECCodec decode of chunk 3")
+    print(f"[3b] ECCodec clay k=8 m=4 d=11: a 4-stripe object ({codec.sinfo.chunk_size} B "
+          "chunks) encoded equal to device=cpu and chunk 3 decoded, stripe by stripe")
+    return ms
+
+
+def phase_layered(smi: str):
+    import pathlib
+
+    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.tools import ec_non_regression
+
+    rng = np.random.default_rng(SEED + 7)
+    packed_gf.launches = 0
+    bitplane_gf.launches = 0
+    t0 = time.perf_counter()
+    corpus = pathlib.Path(__file__).resolve().parent / "corpus"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ec_non_regression.main(["--check", "--directory", str(corpus), "--device", "cuda"])
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 11 and all(line.endswith(": ok") for line in lines),
+          f"corpus check: rc {rc}, {lines}")
+    print(f"[3b] ec_non_regression --check --device cuda: {len(lines)} corpus entries ok "
+          f"({time.perf_counter() - t0:.1f} s)")
+    fams = {}
+    for plugin, prof, extra in (
+        ("lrc", {"k": "8", "m": "4", "l": "6"}, 8),
+        ("shec", {"k": "8", "m": "4", "c": "2"}, 8),
+        ("clay", {"k": "8", "m": "4", "d": "11", "scalar_mds": "jerasure"}, 6),
+    ):
+        fams[plugin] = _layered_family(rng, plugin, prof, extra)
+    repair_ms, read, full = _clay_repairs(fams["clay"])
+    print(f"[3b] clay: 12 minimum-bandwidth repairs equal the lost chunks; one reads {read} B "
+          f"from {fams['clay']['ec'].d} helpers against {full} B for a full decode")
+    isa = _eccodec_isa(rng)
+    _eccodec_lrc(rng)
+    clay_stripe_ms = _eccodec_clay(rng)
+    counts = {"K1": packed_gf.launches, "K2": bitplane_gf.launches}
+    print(f"[3b] layered phase took {time.perf_counter() - t0:.1f} s; launches {counts}")
+    check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
+    print(f"[3b] times on {smi.splitlines()[0]} (host clock, numpy in and out):")
+    for plugin, fam in fams.items():
+        print(f"[3b]   {plugin}: 1 MiB encode {fam['encode_ms']:.3f} ms (first "
+              f"{fam['first_encode_ms']:.3f} ms), single-chunk decode {fam['decode_ms']:.3f} ms")
+    print(f"[3b]   clay: minimum-bandwidth repair {repair_ms:.3f} ms; through ECCodec "
+          f"{clay_stripe_ms:.3f} ms a stripe")
+    print(f"[3b]   ECCodec isa k=8 m=3, {isa['shape']}: batch encode {isa['encode_GBps']:.3f} GB/s "
+          f"({isa['encode_s']:.3f} s, HashInfo included), batched decode of {{1, 9}} "
+          f"{isa['decode_GBps']:.3f} GB/s ({isa['decode_s']:.3f} s)")
+    print(f"[3b]   ECCodec encode again: {isa['warm_GBps']:.3f} GB/s ({isa['warm_s']:.3f} s); "
+          f"of such a batch, stripe.encode_batch alone takes {isa['seam_s']:.3f} s and "
+          f"HashInfo (crc32c of every shard) {isa['hash_s']:.3f} s")
+    print(f"[3b]   clay 1 MiB encode under torch.profiler: {_device_busy(fams['clay'])}")
+    return counts
+
+
 def phase_resident():
     from ceph_tpu_torch import gf
     from ceph_tpu_torch.ec import ErasureCodeProfile, registry_instance
@@ -339,10 +638,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    phase_build()
+    smi = phase_build()
     errs = {"K1": 0, "K2": 0}
     phase_kernels(errs)
     counts = phase_main_path()
+    phase_layered(smi)
     rows = phase_resident()
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []

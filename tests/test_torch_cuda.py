@@ -1,7 +1,10 @@
 """ceph_tpu_torch's CUDA kernels on the card: K1 and K2 against their
 plain versions (exactly: GF arithmetic has no rounding) and the numpy
 oracle, and the registry path on
-``device="cuda"``.  Marked ``cuda``: skips where there is no GPU.  On a
+``device="cuda"``: jerasure and isa, the layered plugins (equal to
+``device="cpu"``), ``ec_benchmark`` over them, and ECCodec's batch
+routes with their K2 launch counts.  Marked ``cuda``: skips where there
+is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
@@ -218,3 +221,85 @@ def test_k2_refused_launch_raises(cuda):
         bitplane_gf.gf8_bitplane_stripes(bm, x)
     assert bitplane_gf.launches == before
     assert bitplane_gf.rows_per_launch(7264, 3) == 1
+
+
+LAYERED = [
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("shec", {"k": "4", "m": "3", "c": "2"}),
+    ("clay", {"k": "4", "m": "2", "d": "5"}),
+    ("clay", {"k": "4", "m": "2", "d": "5", "scalar_mds": "isa"}),
+]
+
+
+@pytest.mark.parametrize("plugin,prof", LAYERED, ids=["lrc", "shec", "clay", "clay-isa"])
+def test_layered_plugins_on_the_card_equal_the_cpu(cuda, plugin, prof):
+    import itertools
+
+    from ceph_tpu_torch.ec import ErasureCodeError
+
+    on_card = registry_instance().factory(plugin, ErasureCodeProfile(prof, device="cuda"))
+    on_cpu = registry_instance().factory(plugin, ErasureCodeProfile(prof, device="cpu"))
+    n = on_card.get_chunk_count()
+    data = np.random.default_rng(n).integers(0, 256, 3 * on_cpu.get_chunk_size(1) * on_cpu.k,
+                                             dtype=np.uint8).tobytes()
+    before = packed_gf.launches + bitplane_gf.launches
+    got = on_card.encode(set(range(n)), data)
+    assert packed_gf.launches + bitplane_gf.launches > before
+    want = on_cpu.encode(set(range(n)), data)
+    for i in range(n):
+        np.testing.assert_array_equal(got[i], want[i])
+    for e in (1, 2):
+        for erased in itertools.combinations(range(n), e):
+            avail = {i: c for i, c in want.items() if i not in erased}
+            try:
+                ref = on_cpu._decode(set(erased), dict(avail))
+            except ErasureCodeError:
+                with pytest.raises(ErasureCodeError):
+                    on_card._decode(set(erased), dict(avail))
+                continue
+            dec = on_card._decode(set(erased), dict(avail))
+            for i in erased:
+                np.testing.assert_array_equal(dec[i], ref[i])
+                np.testing.assert_array_equal(dec[i], want[i])
+
+
+def test_eccodec_batch_routes_launch_k2_per_group(cuda):
+    from ceph_tpu_torch.osd.ec_pg import ECCodec
+
+    codec = ECCodec({"plugin": "isa", "k": "8", "m": "3", "device": "cuda"})
+    assert codec.sinfo.chunk_size == 4096
+    rng = np.random.default_rng(5)
+    datas = [rng.integers(0, 256, n * codec.sinfo.stripe_width, dtype=np.uint8).tobytes()
+             for n in (100, 200, 300)]
+    before = bitplane_gf.launches
+    got = codec.encode_object_batch(datas)
+    # greedy groups of at most 256 stripes, an object never split: 100,
+    # then 200, then 300; one K2 launch each (m=3 rows fit one launch)
+    assert bitplane_gf.launches - before == 3
+    for d, g in zip(datas, got):
+        assert g == codec.encode_object(d)
+    survivors = [{p: s for p, s in shards.items() if p not in (1, 9)} for shards, _ in got]
+    before = bitplane_gf.launches
+    rec = codec.decode_object_batch(survivors, {1, 9})
+    assert bitplane_gf.launches - before == 3
+    for r, (shards, _) in zip(rec, got):
+        assert r[1].tobytes() == shards[1] and r[9].tobytes() == shards[9]
+
+
+@pytest.mark.parametrize("plugin,params", [
+    ("lrc", ["k=8", "m=4", "l=6"]),
+    ("shec", ["k=8", "m=4", "c=2"]),
+    ("clay", ["k=8", "m=4", "d=11"]),
+])
+def test_ec_benchmark_runs_the_layered_plugins_on_the_card(cuda, plugin, params, capsys):
+    from ceph_tpu_torch.tools import ec_benchmark
+
+    args = ["-p", plugin, "-s", str(1 << 16), "--device", "cuda"]
+    for p in params:
+        args += ["-P", p]
+    before = packed_gf.launches + bitplane_gf.launches
+    assert ec_benchmark.main(args + ["-w", "encode", "-i", "2"]) == 0
+    assert ec_benchmark.main(args + ["-w", "decode", "-E", "exhaustive", "-e", "1"]) == 0
+    assert packed_gf.launches + bitplane_gf.launches > before
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [line.split("\t")[1] for line in lines] == ["128", "64"]

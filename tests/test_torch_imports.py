@@ -50,6 +50,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import ceph_tpu_torch, ceph_tpu_torch.ec, ceph_tpu_torch.ops\n"
         "import ceph_tpu_torch.tools.ec_benchmark\n"
+        "import ceph_tpu_torch.ec.lrc, ceph_tpu_torch.ec.shec, ceph_tpu_torch.ec.clay\n"
+        "import ceph_tpu_torch.ec.example, ceph_tpu_torch.ec.stripe, ceph_tpu_torch.native\n"
+        "import ceph_tpu_torch.osd.ec_pg, ceph_tpu_torch.tools.ec_non_regression\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
