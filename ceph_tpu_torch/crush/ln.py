@@ -1,0 +1,145 @@
+"""crush_ln — fixed-point 2^44*log2(x+1) (src/crush/mapper.c:248-290).
+
+straw2 turns a 16-bit uniform hash draw u into -Exp(weight) via
+ln(u)/weight in 48.16-style fixed point; exactness of every table entry
+is what keeps placements byte-identical across implementations.
+
+Three tables (src/crush/crush_ln_table.h):
+
+- RH[k] = ceil(2^55/(128+k)), k=0..128 — reciprocal for range reduction
+  (the header writes it as 2^48/(1.0+k/128)); exact, generated here.
+- LH[k] = floor(2^48*log2(1+k/128)), k=0..127 — coarse log; exact,
+  generated here (verified entry-for-entry against the reference
+  table).  LH[128] is the out-of-range sentinel the C table carries
+  (0xffff00000000, not the mathematical 2^48) — reached only for
+  u=0xffff; reproduced verbatim for bit-parity.
+- LL[k] ~ 2^48*log2(1+k/2^15), k=0..255 — fine log.  The published
+  table does NOT match its own formula (entries deviate by up to
+  ~2e-5*2^48 with no closed-form rule; empirically generated upstream),
+  so it is embedded as data rather than regenerated.
+"""
+
+from __future__ import annotations
+
+import base64
+import decimal
+import functools
+
+import numpy as np
+
+_LL_B85 = (
+    "000000000001Bq!0ssI2#ZI;i2LJ#7XU<UX2><{9{fOn!3;+NCoPKn)4*&oFUa$R@5&!@ISQ~+P6"
+    "#xJLp~C)K7ytkOQl)l28vp<RfWzn@9smFULmgEEApigXva-A7BLDyZ<bxc@CIA2c@Q`<^DF6Tf?b"
+    "*zXEC2ui@?IQoF8}}l7a(R)G5`PoaUH5NH2?qr8dvBQH~;_uCe0xDIsgCwu76Y7Jpcdz$ZmkVKmY"
+    "&$jGCvOLjV8(5Ch48MgRZ+Y^da7NdN!<wu<^hOaK4?2C51tPXGV_at0L%QUCw|6QCLEQ~&?~{dO4"
+    "5R{#J2N{bP%S^xk558VWjT>t<8WNh+sU;qFBU^&`UV*mgE8brJ{W&i*HsEn8xX#fBKA`@@=YXATM"
+    "pVvR!ZU6uPHQEZkaR2}S{Tk4pbN~PV44RLDcK`qYdRIwfdH?_bUQ_)<eE<Le&W)=kfB*mh;|5d+g"
+    "8%>kvcC4|g#Z8mQni!IhyVZp-0CW=ivR!sWna9GjsO4v1rtbckpKVy(*@2^lmGw#<u^_<mjD0&Q>"
+    "n-lng9R*Gg>|NoB#j-ol30Np8x;=STujIq5uE@YU+5Jr2qf``<d2zr~m)}aEUHms{jB1<G6r6t^f"
+    "c4X(-Jfu>b%77}yg5v;Y7A3dmIAwg3PCQ}~a=xc~qF3~9xryZ`_IN*eWrzW@LLCJY~E!T<mOwmw5"
+    "h#Q*>R5wc+^$N&HUO=fxu%K!iXf?JL2%>V!Z$dQ`N&;S4cGYO)t(*OVf-NB=d)&Kwi+q<7{*#H0l"
+    "ME8|Y+yDRoFm#47-v9srwK8!M;s5{u>M~aI<NyEw=5#gG=Kufz!T1if>Hq)$kiO!T?EnA(Y{sy5@"
+    "Bjb+Y7lu>^8f$<qMSQ8_5c6?Dr@){`2YX_8ho$$`v3p{h|gf!{r~^~jAabF0RaF2JU+6U1OWg5uU"
+    "S%j2LS*8{I~2}3IPBBI$41|4FLcEe?1T$5CH%H<Ybxt5&-}Je$O1=6#)PMWPO^y7y$qPt!@&a8vy"
+    "_SaifHQ9svLV#vAcqAprmY!`D|qBmn>bf7iGnCjkHe5E~Q%Dggihj-qMeECB!j4{o`_F984ms(k~"
+    "aG64VpchN_KH30wsjA@2rH~|0v|3$w;I{^Ry>1OgHJ^=s#Ud$f^K>+{&cy>qRLjeE)OJ!-qMgaf-"
+    "@R)_9NdW)=d=Z?4OaTA@2+yo!PXPb`snNGYQUL$}b{V}SRRI71ho-y)SOEY4@_4r7S^)q6&XB6aT"
+    ">$_9G47b8U;zLCG?9UXV*vmF?0IBlW&r>IaHv5<X#oHL*BlunYykiOy&1~(Z2<rPs@JyTaRC4TL>"
+    "_&^bO8VW9IHK}cL4wZNq+c(dI10c;+L&reE|Rf{`Xu$fB^siSTujIf&l;k8H}m{h5-NoM!-nnhye"
+    "fqQaj<miva)tQvGwFjsXAwT?PSwkpTbzi&ltVlmP$$^6d#fmjM6(s?3ERngIX+$nyLBoB;p;V_<C"
+    "Ep8)^>lNHyzq5%K^ZW274r2zl{3s;+ar~v=~faCO9s{sH2<+n&Wt^oi5P}G(gu>k-8**M?$vjG4A"
+    "mE|GWwgCVDo7!Htxd8wG0~nT;ya50J<DJKKzX1RMQEc;6!T|sPWrG<s#Q^{SHsd)H$N>NV*^5;2$"
+    "^ifXXMJhW%>e)a^|yGi&;bAdnmdAz(*XbgZ3u>L)&T$jh8~1X*#Q6m`F(sW+yMXp-zIMh-vIysP8"
+    "nS4;Q;^uT~$NL<N*KxBikgX=K%l!wW<Jz>Hz=%E5z1i?EwG)ohPS6@Bsh-AJuUq^8o+=%FH$b_5l"
+    "C@vkvy)_yGU_^O~=}`vCv|o^fNI{s900%#sm(0RjL3l>WI}1Ofm64Ygc42Lb>95@K$^2?78BY66k"
+    ">3<3ZEe3>HF4*~!HSTujI5&{4K*r+s<6#@VNP$9K(7y<wQ7v(Qd8v+0TkEe5L9RdIV?oJd9Ap!sZ"
+    "EcJcsBLV;b6X)T{CISEeyCguUDFOfhPMc>VECK)ksDtZdF9HAn8>KiyG6DbqsS<!8H39$tY0Sa@H"
+    "v#|vqz*eQIsyOyTY&BpJpup#A0p{BKmq^&C9jWoLjnK*HRrTeMgjl;{%d6IM*;u<m_6<iOacG^8e"
+    "9VLP67Y`na2>%Q33z}Wldy~R0041?u8tSR{{V4@Yoq?S^@w7TY&BpT>=0A7H0z`U;+RDf;dH%Vgd"
+    "jFQ!CcsWdZ;I^8vTMXaWELUM7;9YXSfOshIaNZ2|xQ>sU8faRLAUJ7)nlbOHbXu*1a@cLD$aUv7l"
+    ")c>(|cVP`$hd;$Of%dUWBegXghvqYYXf&u^lGATxAg#rKoRZ_pbhXMcqO5TJcivj=uTY&BpjRF7w"
+    "A0p{BkOBYzf;dH%k^%q#Vf($AmI43(t9qjXnF0U+$z-@xoB{v<gAl#yodN&=wF{gNq5=Q_VO?Oyq"
+    "yhi{RZ_pbrvd-~{MuGvsR951?-Z{+tO5W4%ANrmuL1x7f;dH%vH}1A57;8mwE_SDvm8hIxB>tG6X"
+    "z0;x&i<I%mGPly#fFL_H21dzybgOrYNK*!vX*ROpjg~#sUBU_L1n}$N~TW!aoAP%K`uZZax;A&H?"
+    "}c6OJT#(E<Pf#x5;Z)B*qioggqX*8%_luwyL{+5!Lo6!;|V+yVdq"
+)
+
+
+@functools.lru_cache(maxsize=1)
+def _tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(RH, LH, LL) as int64 arrays (values < 2^49 fit comfortably)."""
+    rh = np.array(
+        [-((-(1 << 55)) // (128 + k)) for k in range(129)], dtype=np.int64
+    )
+    with decimal.localcontext() as ctx:
+        ctx.prec = 60
+        ln2 = decimal.Decimal(2).ln()
+        lh = np.array(
+            [
+                int(
+                    (decimal.Decimal(128 + k).ln()
+                     - decimal.Decimal(128).ln())
+                    / ln2 * (1 << 48)
+                )
+                for k in range(128)
+            ]
+            + [0xFFFF00000000],
+            dtype=np.int64,
+        )
+    ll = np.frombuffer(base64.b85decode(_LL_B85), dtype="<u8").astype(
+        np.int64
+    )
+    return rh, lh, ll
+
+
+@functools.lru_cache(maxsize=1)
+def _int_tables() -> tuple[list, list, list]:
+    return tuple(t.tolist() for t in _tables())
+
+
+def _crush_ln_int(x: int) -> int:
+    """crush_ln of one python int, in python ints (the oracle's path)."""
+    rh_tbl, lh_tbl, ll_tbl = _int_tables()
+    x += 1
+    iexpon = 15
+    if not x & 0x18000:
+        bits = 16 - (x & 0x1FFFF).bit_length()
+        x <<= bits
+        iexpon = 15 - bits
+    k = (x >> 8) - 128
+    # the C's x * RH wraps in 64 bits; bits 48-55 survive either way
+    index2 = ((x * rh_tbl[k]) >> 48) & 0xFF
+    return (iexpon << 44) + ((lh_tbl[k] + ll_tbl[index2]) >> 4)
+
+
+def crush_ln(xin):
+    """2^44*log2(x+1) for x in [0, 0xffff]; scalar int or uint32 array."""
+    if type(xin) is int:
+        return _crush_ln_int(xin)
+    rh_tbl, lh_tbl, ll_tbl = _tables()
+    x = np.asarray(xin).astype(np.int64) + 1
+    scalar = x.ndim == 0
+
+    # normalize into [0x8000, 0x1ffff]: shift left until bit 15/16 set
+    masked = x & 0x1FFFF
+    nbits = np.zeros_like(x)
+    for shift in (16, 8, 4, 2, 1):  # bit_length via binary search, vectorized
+        step = (masked >> shift) != 0
+        nbits = nbits + np.where(step, shift, 0)
+        masked = np.where(step, masked >> shift, masked)
+    bitlen = nbits + (masked != 0)  # 0 for x==0 (cannot happen: x>=1)
+    shift_amt = np.where((x & 0x18000) == 0, 16 - bitlen, 0)
+    x = x << shift_amt
+    iexpon = 15 - shift_amt
+
+    index1 = (x >> 8) << 1
+    rh = rh_tbl[(index1 - 256) >> 1]
+    lh = lh_tbl[(index1 - 256) >> 1]
+    # x*RH can reach 2^63 (x=0x8000, RH=2^48); like the C code, only the
+    # low bits survive into index2, and int64 wraparound preserves them.
+    with np.errstate(over="ignore"):
+        xl64 = (x * rh) >> 48
+    index2 = xl64 & 0xFF
+    lh = lh + ll_tbl[index2]
+    result = (iexpon << 44) + (lh >> 4)
+    return int(result) if scalar else result

@@ -15,9 +15,6 @@ backend every layer's region math lands in the same GF kernels, which
 is the reuse the reference gets from stacking plugins on jerasure.  The
 profile's ``backend`` and ``device`` keys pass down to every layer that
 does not set its own.
-
-``create_rule`` (the layered CRUSH rule) needs the CRUSH types, which
-this package does not have yet; it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -376,11 +373,40 @@ class ErasureCodeLrc(ErasureCode):
 
     # -- crush -------------------------------------------------------------
     def create_rule(self, name: str, crush, ss=None) -> int:
-        """The layered rule from ``rule_steps`` (ErasureCodeLrc.cc
-        create_rule) needs the CRUSH types, which are not ported yet."""
-        raise NotImplementedError(
-            "lrc create_rule needs the CRUSH port (crush.types)"
+        """Custom layered rule from rule_steps (ErasureCodeLrc.cc
+        create_rule: take root, then one choose step per entry)."""
+        from ..crush.types import (
+            CRUSH_RULE_CHOOSELEAF_INDEP,
+            CRUSH_RULE_CHOOSE_INDEP,
+            CRUSH_RULE_EMIT,
+            CRUSH_RULE_SET_CHOOSELEAF_TRIES,
+            CRUSH_RULE_SET_CHOOSE_TRIES,
+            CRUSH_RULE_TAKE,
+            Rule,
+            RuleStep,
         )
+
+        root = crush._name_to_item(self.rule_root)
+        steps = [
+            RuleStep(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 5),
+            RuleStep(CRUSH_RULE_SET_CHOOSE_TRIES, 100),
+            RuleStep(CRUSH_RULE_TAKE, root),
+        ]
+        for op, typ, n in self.rule_steps:
+            type_id = crush._type_id(typ) if typ else 0
+            steps.append(
+                RuleStep(
+                    CRUSH_RULE_CHOOSE_INDEP
+                    if op == "choose"
+                    else CRUSH_RULE_CHOOSELEAF_INDEP,
+                    n,
+                    type_id,
+                )
+            )
+        steps.append(RuleStep(CRUSH_RULE_EMIT))
+        ruleno = crush.add_rule(Rule(steps=steps, type=3))
+        crush.rule_names[ruleno] = name
+        return ruleno
 
 
 @register("lrc")

@@ -45,8 +45,18 @@ script exits non-zero:
    also from a CUDA graph for the device time alone; then the
    numpy-in/numpy-out ``ec_benchmark --batch 1024`` rate, host transfers
    included;
-5. one JSON line describing each kernel;
-6. the last line, ``{"ok": true, "device": {...}}``.
+5. CRUSH placement on the card (BASELINE config 5): the 10 000-OSD
+   straw2 hierarchy (40 OSDs a host, 25 hosts a rack) compiled to device
+   tables; rule 0 (replicated, chooseleaf firstn, 3 replicas) and rule 1
+   (EC, chooseleaf indep, 11 positions) over 2^20 PGs in 2^19-lane
+   chunks through ``batch_do_rule_range`` and the oracle fallback, held
+   against the oracle on 2048 spread PGs and every fallback lane (in a
+   pool of worker processes), the raw output of the first 2^16 lanes
+   against ``device="cpu"``; end-to-end and device-resident mappings/s,
+   a ``torch.profiler`` split of one chunk, crushtool's statistics; the
+   straw2 golden vectors of the reference C; one ``{"crush": ...}`` line;
+6. one JSON line describing each kernel;
+7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -54,6 +64,7 @@ nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import itertools
@@ -634,6 +645,261 @@ def phase_resident():
     return rows
 
 
+CRUSH_PGS = 1 << 20
+CRUSH_CHUNK = 1 << 19
+CRUSH_LABELS = ("crush.hash", "crush.ln", "crush.draw", "crush.replay", "crush.choose",
+                "crush.emit")
+
+
+def _oracle_rows(job):
+    """Pool worker: the oracle's mapping of each x (pickled map)."""
+    cmap, rule, rmax, xs = job
+    return [cmap.do_rule(rule, int(x), rmax) for x in xs]
+
+
+def _hold_against_oracle(pool, cmap, rule, rmax, xs, res, counts) -> None:
+    jobs = [(cmap, rule, rmax, part) for part in np.array_split(xs, 32)]
+    want = [row for rows in pool.map(_oracle_rows, jobs, timeout=600) for row in rows]
+    for x, w in zip(xs, want):
+        got = res[x, : counts[x]].tolist()
+        check(got == w, f"rule {rule} x={x}: {got} != oracle {w}")
+
+
+def _profile_split(fn) -> dict:
+    """Device time of one call under torch.profiler, split by the
+    mapper's ``record_function`` labels (exclusive of nested labels),
+    with kernels and copies summed and the idle share of the host
+    clock's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def labelled_below(ev) -> float:
+        tot = 0.0
+        for ch in ev.cpu_children:
+            tot += ch.device_time_total if ch.name in CRUSH_LABELS else labelled_below(ch)
+        return tot
+
+    split = dict.fromkeys(CRUSH_LABELS, 0.0)
+    kernels = copies = 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in CRUSH_LABELS:
+            split[ev.name] += (ev.device_time_total - labelled_below(ev)) / 1e3
+        for k in ev.kernels:
+            if "memcpy" in k.name.lower():
+                copies += k.duration / 1e3
+            else:
+                kernels += k.duration / 1e3
+    out = {"wall_ms": wall_ms, "kernels_ms": kernels, "copies_ms": copies}
+    if kernels == 0.0:
+        out["note"] = "device time not measured (the profiler saw no kernel)"
+        return out
+    out["split_ms"] = {k.split(".")[1]: v for k, v in split.items()}
+    out["split_ms"]["unlabelled"] = kernels + copies - sum(split.values())
+    out["idle_share"] = 1 - (kernels + copies) / wall_ms
+    return out
+
+
+def _crush_rule(pool, smi: str, pm, cm, rule: int, rmax: int, n: int) -> dict:
+    """One rule over n PGs on the card, checked and timed."""
+    from ceph_tpu_torch.crush import torchmap as tm
+    from ceph_tpu_torch.tools import crushtool
+
+    weights = np.full(pm.max_devices, 0x10000, np.int64)
+
+    def one_pass():
+        pending = [(lo, tm.batch_do_rule_range(cm, rule, lo, min(CRUSH_CHUNK, n - lo), rmax,
+                                               packed=True))
+                   for lo in range(0, n, CRUSH_CHUNK)]
+        oks, parts = [], []
+        for lo, (r, c, k) in pending:
+            oks.append(k.cpu().numpy())
+            parts.append(tm.apply_oracle_fallback(cm, rule, np.arange(lo, lo + len(oks[-1])),
+                                                  r, c, k, rmax, weights))
+        return (np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]),
+                np.concatenate(oks))
+
+    tm.fallback_lanes = 0
+    t0 = time.perf_counter()
+    res, counts, ok = one_pass()
+    first_s = time.perf_counter() - t0
+    fallback = tm.fallback_lanes
+    check(res.shape == (n, rmax) and counts.shape == (n,), f"rule {rule}: shapes {res.shape}")
+    check(bool((counts == rmax).all()), f"rule {rule}: short mappings {int((counts < rmax).sum())}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = one_pass()
+        times.append(time.perf_counter() - t0)
+        check(np.array_equal(again[0], res), f"rule {rule}: a second pass differs")
+    e2e_s = sorted(times)[1]
+    xs = np.unique(np.concatenate([np.linspace(0, n - 1, 2048).astype(np.int64),
+                                   np.nonzero(~ok)[0]]))
+    t0 = time.perf_counter()
+    _hold_against_oracle(pool, pm, rule, rmax, xs, res, counts)
+    oracle_s = time.perf_counter() - t0
+    print(f"[5] rule {rule} ({rmax} positions) over {n} PGs: {fallback} oracle fallback lanes; "
+          f"{len(xs)} PGs ({2048} spread + the fallback lanes) equal to the oracle "
+          f"({oracle_s:.1f} s in a pool)")
+    # raw output of the first 2^16 lanes on the card against the CPU
+    cpu = tm.compile_map(pm, device="cpu")
+    lanes = np.arange(1 << 16)
+    raw_card = [v.cpu() for v in tm.batch_do_rule_raw(cm, rule, lanes, rmax)]
+    t0 = time.perf_counter()
+    raw_cpu = tm.batch_do_rule_raw(cpu, rule, lanes, rmax)
+    cpu_s = time.perf_counter() - t0
+    for a, b, what in zip(raw_card, raw_cpu, ("res", "counts", "ok")):
+        check(torch.equal(a, b), f"rule {rule}: raw {what} on cuda != cpu")
+    print(f"[5] rule {rule}: raw (res, counts, ok) of 2^16 lanes on cuda equal to device=cpu "
+          f"(the CPU took {cpu_s:.2f} s)")
+    run = tm.make_chained_runner(cm, rule, rmax, CRUSH_CHUNK, iters=4)
+    run(0)
+    chained = sorted(run(1 + t)[1] for t in range(3))[1]
+    prof = _profile_split(lambda: tm.batch_do_rule_range(cm, rule, 0, CRUSH_CHUNK, rmax,
+                                                         packed=True))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = crushtool.main(["--build", "10000:40:25", "--test", "--max-x", str(n),
+                             "--rule", str(rule), "--num-rep", str(rmax), "--show-statistics",
+                             "--show-bad-mappings"])
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and "[torch]" in lines[0], f"crushtool: rc {rc}, {lines}")
+    stats = {"bad": int(lines[2].split(":")[1]), "chi2": float(lines[3].split()[2])}
+    check(stats["bad"] == 0, f"crushtool: bad mappings {lines}")
+    row = {
+        "pgs": n, "positions": rmax, "fallback_lanes": fallback,
+        "first_pass_s": first_s, "e2e_s": e2e_s, "e2e_mappings_per_s": n / e2e_s,
+        "chained_ms": chained, "chained_mappings_per_s": 4 * CRUSH_CHUNK / chained * 1e3,
+        "profile": prof, "crushtool": lines[0], "chi2": stats["chi2"],
+        "bad_mappings": stats["bad"], "oracle_checked": int(len(xs)),
+    }
+    print(f"[5] rule {rule} on {smi}: end to end (numpy out, fallback included, median of 3) "
+          f"{n / e2e_s:.0f} mappings/s ({e2e_s:.4f} s, first pass {first_s:.3f} s); "
+          f"device-resident (4 x 2^19 chained, CUDA events) "
+          f"{row['chained_mappings_per_s']:.0f} mappings/s ({chained:.3f} ms)")
+    print(f"[5] rule {rule}: one 2^19 chunk under torch.profiler: {json.dumps(prof)}")
+    print(f"[5] rule {rule}: crushtool {lines[0]!r}; chi-squared {stats['chi2']}, "
+          f"bad mappings {stats['bad']}")
+    return row
+
+
+def _golden_maps() -> dict:
+    """Scenarios 0, 1 and 4 of tests/data/crush_do_rule_golden.txt.gz
+    (the straw2 ones), built as the reference C built them."""
+    from ceph_tpu_torch.crush.builder import CrushMap
+    from ceph_tpu_torch.crush.types import (
+        CRUSH_BUCKET_STRAW2, CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSE_INDEP,
+        CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP, CRUSH_RULE_EMIT,
+        CRUSH_RULE_SET_CHOOSE_TRIES, CRUSH_RULE_SET_CHOOSELEAF_TRIES, CRUSH_RULE_TAKE,
+        Rule, RuleStep, Tunables,
+    )
+
+    def two_rules(m, root, domain):
+        m.add_rule(Rule(steps=[
+            RuleStep(CRUSH_RULE_TAKE, root),
+            RuleStep(CRUSH_RULE_CHOOSELEAF_FIRSTN if domain else CRUSH_RULE_CHOOSE_FIRSTN,
+                     0, domain),
+            RuleStep(CRUSH_RULE_EMIT)], type=1), 0)
+        m.add_rule(Rule(steps=[
+            RuleStep(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 5),
+            RuleStep(CRUSH_RULE_SET_CHOOSE_TRIES, 100),
+            RuleStep(CRUSH_RULE_TAKE, root),
+            RuleStep(CRUSH_RULE_CHOOSELEAF_INDEP if domain else CRUSH_RULE_CHOOSE_INDEP,
+                     0, domain),
+            RuleStep(CRUSH_RULE_EMIT)], type=3), 1)
+
+    def two_level(tun, nhosts, per_host, wfun):
+        m = CrushMap(tunables=tun)
+        hosts = [m.add_bucket(CRUSH_BUCKET_STRAW2, 1,
+                              [h * per_host + i for i in range(per_host)],
+                              [wfun(h, i) for i in range(per_host)])
+                 for h in range(nhosts)]
+        root = m.add_bucket(CRUSH_BUCKET_STRAW2, 3, hosts, [m.buckets[b].weight for b in hosts])
+        two_rules(m, root, 1)
+        return m
+
+    jewel, firefly = Tunables(0, 0, 50, 1, 1, 1, 0), Tunables(0, 0, 50, 1, 1, 0, 0)
+    m0 = CrushMap(tunables=jewel)
+    root = m0.add_bucket(CRUSH_BUCKET_STRAW2, 3, list(range(10)),
+                         [(i + 1) * 0x10000 // 2 for i in range(10)])
+    two_rules(m0, root, 0)
+    return {
+        0: m0,
+        1: two_level(jewel, 5, 4, lambda h, i: 0x10000 + i * 0x4000),
+        4: two_level(firefly, 4, 5, lambda h, i: 0x8000 * (1 + (i % 4))),
+    }
+
+
+def _golden_weights(n: int) -> list[int]:
+    return [0 if i % 11 == 5 else 0x8000 if i % 7 == 3 else 0x10000 for i in range(n)]
+
+
+def _crush_golden() -> int:
+    import gzip
+    import pathlib
+
+    from ceph_tpu_torch.crush import torchmap as tm
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "crush_do_rule_golden.txt.gz"
+    maps = _golden_maps()
+    want = collections.defaultdict(dict)
+    for line in gzip.open(path, "rt").read().splitlines():
+        head, _, tail = line.partition(" ->")
+        scen, rule, x, rmax = head.split()
+        key = (int(scen[1:]), int(rule[1:]), int(rmax.split("=")[1]))
+        if key[0] in maps:
+            want[key][int(x.split("=")[1])] = [int(v) for v in tail.split()]
+    checked = 0
+    for (scen, rule, rmax), rows in sorted(want.items()):
+        m = maps[scen]
+        xs = np.array(sorted(rows))
+        res, counts = tm.batch_do_rule(tm.compile_map(m), rule, xs, rmax,
+                                       _golden_weights(m.max_devices))
+        for i, x in enumerate(xs):
+            check(res[i, : counts[i]].tolist() == rows[x], f"golden S{scen} R{rule} x={x}")
+            checked += 1
+    return checked
+
+
+def phase_crush(smi: str) -> dict:
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from ceph_tpu_torch.crush import torchmap as tm
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    t0 = time.perf_counter()
+    pm = build_hierarchy(10000, 40, 25)
+    cm = tm.compile_map(pm)
+    tables = {k: v for k, v in vars(cm).items() if isinstance(v, torch.Tensor)}
+    check(all(v.device.type == "cuda" for v in tables.values()),
+          f"compile_map left tables off the card: {[k for k, v in tables.items() if v.is_cpu]}")
+    table_bytes = sum(v.numel() * v.element_size() for v in tables.values())
+    racks = sum(1 for b in pm.buckets.values() if b.type == 2)
+    hosts = sum(1 for b in pm.buckets.values() if b.type == 1)
+    print(f"[5] build_hierarchy(10000, 40, 25): {pm.max_devices} OSDs, {hosts} hosts, {racks} "
+          f"racks, {cm.nb} straw2 buckets; {len(tables)} device tables on cuda, "
+          f"{table_bytes} bytes")
+    rows = {}
+    # a worker that dies breaks the pool (BrokenProcessPool), it does not hang
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        rows["rule0"] = _crush_rule(pool, smi, pm, cm, 0, 3, CRUSH_PGS)
+        rows["rule1"] = _crush_rule(pool, smi, pm, cm, 1, 11, CRUSH_PGS)
+    golden = _crush_golden()
+    print(f"[5] golden vectors of the reference C, scenarios 0, 1 and 4: {golden} mappings "
+          f"on cuda equal to the file")
+    print(f"[5] CRUSH phase took {time.perf_counter() - t0:.1f} s")
+    return {"card": smi.splitlines()[0],
+            "map": {"osds": pm.max_devices, "hosts": hosts, "racks": racks, "buckets": cm.nb,
+                    "table_bytes": table_bytes},
+            **rows, "golden_checked": golden}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -644,6 +910,7 @@ def main() -> int:
     counts = phase_main_path()
     phase_layered(smi)
     rows = phase_resident()
+    crush = phase_crush(smi)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
     for key, name, replaces, label in (
@@ -659,6 +926,7 @@ def main() -> int:
             "library_ms": None, "library_note": note,
             "shape": "B=1024 k=8 m=3 chunk=131072 (1 GiB in)",
         })
+    print(json.dumps({"crush": crush}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@ plain versions (exactly: GF arithmetic has no rounding) and the numpy
 oracle, and the registry path on
 ``device="cuda"``: jerasure and isa, the layered plugins (equal to
 ``device="cpu"``), ``ec_benchmark`` over them, and ECCodec's batch
-routes with their K2 launch counts.  Marked ``cuda``: skips where there
-is no GPU.  On a
+routes with their K2 launch counts; the CRUSH mapper's hash,
+``crush_ln`` and raw output on ``cuda`` against ``cpu``.  Marked
+``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
@@ -303,3 +304,81 @@ def test_ec_benchmark_runs_the_layered_plugins_on_the_card(cuda, plugin, params,
     assert packed_gf.launches + bitplane_gf.launches > before
     lines = capsys.readouterr().out.strip().splitlines()
     assert [line.split("\t")[1] for line in lines] == ["128", "64"]
+
+
+# -- CRUSH: the batched mapper on the card against the CPU ----------------
+
+
+def _crush_maps():
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    return {
+        "flat": build_hierarchy(12, 12),
+        "hosts": build_hierarchy(64, 4),
+        "racks": build_hierarchy(600, 10, 6),
+    }
+
+
+def _mixed_weights(n, seed):
+    rng = np.random.default_rng(seed)
+    w = np.full(n, 0x10000, dtype=np.int64)
+    w[rng.choice(n, max(1, n // 6), replace=False)] = 0
+    w[rng.choice(n, max(1, n // 5), replace=False)] = 0x8000
+    return w
+
+
+def test_crush_hash_and_ln_on_the_card(cuda):
+    from ceph_tpu_torch.crush import hashing, ln, torchmap
+
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.integers(0, 1 << 32, 4096, dtype=np.uint64) for _ in range(3))
+    t = [torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(cuda) for v in (a, b, c)]
+    got3 = torchmap.hash3(*t).cpu().numpy().view(np.uint32)
+    got2 = torchmap.hash2(t[0], t[1]).cpu().numpy().view(np.uint32)
+    np.testing.assert_array_equal(got3, hashing.crush_hash32_3(a, b, c))
+    np.testing.assert_array_equal(got2, hashing.crush_hash32_2(a, b))
+    rh, lh, ll = (torch.from_numpy(v).to(cuda) for v in ln._tables())
+    us = torch.arange(0x10000, device=cuda)
+    got = torchmap.crush_ln(us, rh, lh, ll).cpu().numpy()
+    np.testing.assert_array_equal(got, ln.crush_ln(np.arange(0x10000, dtype=np.uint32)))
+
+
+@pytest.mark.parametrize("name", ["flat", "hosts", "racks"])
+@pytest.mark.parametrize("rule,rmax", [(0, 3), (0, 5), (1, 4), (1, 6)])
+@pytest.mark.parametrize("mixed", [False, True], ids=["full", "mixed"])
+def test_crush_raw_output_on_the_card_equals_cpu(cuda, name, rule, rmax, mixed):
+    from ceph_tpu_torch.crush import torchmap
+
+    m = _crush_maps()[name]
+    w = _mixed_weights(m.max_devices, 3) if mixed else None
+    card = torchmap.compile_map(m)
+    assert all(
+        v.device.type == "cuda" for v in vars(card).values() if isinstance(v, torch.Tensor)
+    )
+    cpu = torchmap.compile_map(m, device="cpu")
+    xs = np.arange(2048)
+    got = torchmap.batch_do_rule_raw(card, rule, xs, rmax, w)
+    want = torchmap.batch_do_rule_raw(cpu, rule, xs, rmax, w)
+    for g, v in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), v)
+
+
+@pytest.mark.parametrize("rule,rmax", [(0, 3), (1, 6)])
+def test_crush_packed_range_equals_unpacked(cuda, rule, rmax):
+    from ceph_tpu_torch.crush import torchmap
+
+    m = _crush_maps()["racks"]
+    w = _mixed_weights(m.max_devices, 8)
+    cm = torchmap.compile_map(m)
+    lo, n = 1000, 4096
+    xs = np.arange(lo, lo + n)
+    packed = torchmap.batch_do_rule_range(cm, rule, lo, n, rmax, w, packed=True)
+    plain = torchmap.batch_do_rule_range(cm, rule, lo, n, rmax, w)
+    assert packed[0].dtype == torch.int16 and packed[1].dtype == torch.uint8
+    a = torchmap.apply_oracle_fallback(cm, rule, xs, *packed, rmax, w)
+    b = torchmap.apply_oracle_fallback(cm, rule, xs, *plain, rmax, w)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    for i in range(0, n, 97):
+        assert a[0][i, : a[1][i]].tolist() == m.do_rule(rule, int(xs[i]), rmax, list(w))

@@ -53,6 +53,8 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.ec.lrc, ceph_tpu_torch.ec.shec, ceph_tpu_torch.ec.clay\n"
         "import ceph_tpu_torch.ec.example, ceph_tpu_torch.ec.stripe, ceph_tpu_torch.native\n"
         "import ceph_tpu_torch.osd.ec_pg, ceph_tpu_torch.tools.ec_non_regression\n"
+        "import ceph_tpu_torch.crush, ceph_tpu_torch.crush.torchmap\n"
+        "import ceph_tpu_torch.tools.crushtool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

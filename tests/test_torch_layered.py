@@ -200,8 +200,13 @@ def test_lrc_layers_keep_their_own_device():
     data = bytes(range(256)) * 4
     encoded = ec.encode(set(range(8)), data)
     assert ec.decode_concat(encoded)[: len(data)].tobytes() == data
-    with pytest.raises(NotImplementedError):
-        ec.create_rule("rule", crush=None)
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    crush = build_hierarchy(64, 4)
+    ruleno = ec.create_rule("rule", crush)
+    assert crush.rule_names[ruleno] == "rule"
+    placed = crush.do_rule(ruleno, 7, 8)
+    assert len(set(placed)) == 8
 
 
 LAYERED_CORPUS = sorted(
