@@ -21,8 +21,11 @@ import numpy as np
 
 
 def _host_row(r) -> np.ndarray:
-    """1-D uint8 view of a survivor payload (bytes-likes go through
-    frombuffer: ascontiguousarray would parse bytes as a scalar)."""
+    """1-D uint8 view of a survivor payload: DeviceBuf tokens fetch
+    host-side, bytes-likes go through frombuffer (ascontiguousarray
+    would parse bytes as a scalar)."""
+    if hasattr(r, "host"):
+        r = r.host()
     if isinstance(r, (bytes, bytearray, memoryview)):
         return np.frombuffer(bytes(r), dtype=np.uint8)
     return np.ascontiguousarray(r, dtype=np.uint8).ravel()

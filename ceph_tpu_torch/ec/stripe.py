@@ -8,15 +8,18 @@ hoisted seam SURVEY.md §3.1 identifies — falling back to the per-stripe
 loop for layered codes.  ``HashInfo`` keeps the cumulative per-shard
 crc32c persisted as the hinfo xattr (ECUtil.cc:164-248).
 
+Every call lands in the ``l_tpu_ec_{encode,decode}_*`` kernel counters
+(``ops.kernel_stats``), each coalesced pass in
+``l_tpu_batch_{encode,decode}_{dispatches,ops_per_dispatch}``, and each
+per-stripe or per-object host loop in the dispatch flight recorder
+(``ops.profiler``), as in the JAX package.
+
 Differences from the JAX package's ``ec/stripe.py``:
 
-- no kernel_stats / dispatch-profiler / residency counting yet: each
-  place the JAX module counts is marked "counting not ported";
 - ``decode_batch`` degrades a group to the per-object decode only where
   the plan raises ErasureCodeError or the shards are not equal-length
   whole chunks, never on an exception of the batched call: a failed
   kernel launch or a CUDA error propagates;
-- decoded payloads are numpy arrays (no ``DeviceBuf`` yet);
 - the per-object decode takes a clay shard stripe by stripe (the JAX
   one decodes a shard of several stripes as one chunk, which for clay's
   sub-chunk layout gives wrong bytes).
@@ -28,6 +31,27 @@ import numpy as np
 
 from ..native import ceph_crc32c
 from .interface import ErasureCodeError
+
+
+def _kstats():
+    """Lazy: ceph_tpu_torch.ops registers the torch backend through
+    ceph_tpu_torch.ec — importing it at module scope here would be
+    circular."""
+    from ..ops.kernel_stats import kernel_stats
+
+    return kernel_stats()
+
+
+def _host_loop(kind: str, ec, ops: int):
+    """The flight-recorder entry of a host loop (the per-stripe encode
+    of layered/bitmatrix codes, the per-object repair): one record for
+    the loop, since the inner plugin calls record nothing themselves."""
+    from ..ops.profiler import dispatch_profiler
+
+    bname = getattr(getattr(ec, "backend", None), "name", None) or "cpu"
+    dp = dispatch_profiler().dispatch(kind, backend=bname)
+    dp.set_ops(ops)
+    return dp
 
 
 class StripeInfo:
@@ -125,7 +149,9 @@ def encode(
     """All stripes of ``data`` → per-shard concatenated chunks.
 
     Matrix code families take the batched path: (B, k, chunk) in one
-    device call; others run the reference's per-stripe loop."""
+    device call; others run the reference's per-stripe loop.  Either
+    way the call lands in the ``l_tpu_ec_encode_*`` kernel counters
+    (calls, bytes in/out, sync-bounded latency)."""
     buf = _as_buffer(data)
     if len(buf) % sinfo.stripe_width:
         raise ErasureCodeError(
@@ -138,20 +164,25 @@ def encode(
     nstripes = len(buf) // sinfo.stripe_width
     if nstripes == 0:
         return {}
-    # counting not ported: the kernel_stats "ec_encode" timer and the
-    # dispatch profiler's host-path entry
-    matrix, backend, ok = _matrix_fast_path(ec, "matrix_stripes")
-    if ok:
-        stripes = buf.reshape(nstripes, k, sinfo.chunk_size)
-        coding = backend.matrix_stripes(matrix, stripes, ec.w)
-        return _assemble_shards(stripes, coding, k, n, want)
-    parts = {i: [] for i in range(n)}
-    for s in range(nstripes):
-        stripe = buf[s * sinfo.stripe_width : (s + 1) * sinfo.stripe_width]
-        encoded = ec.encode(set(range(n)), stripe)
-        for i, chunk in encoded.items():
-            parts[i].append(chunk)
-    return {i: np.concatenate(p) for i, p in parts.items() if i in want}
+    with _kstats().timed("ec_encode", bytes_in=buf.nbytes) as kt:
+        matrix, backend, ok = _matrix_fast_path(ec, "matrix_stripes")
+        if ok:
+            stripes = buf.reshape(nstripes, k, sinfo.chunk_size)
+            coding = backend.matrix_stripes(matrix, stripes, ec.w)
+            out = _assemble_shards(stripes, coding, k, n, want)
+        else:
+            with _host_loop("ec_encode", ec, 1) as dp:
+                dp.set_stripes(nstripes)
+                dp.add_bytes_in(buf.nbytes)
+                parts = {i: [] for i in range(n)}
+                for s in range(nstripes):
+                    stripe = buf[s * sinfo.stripe_width : (s + 1) * sinfo.stripe_width]
+                    encoded = ec.encode(set(range(n)), stripe)
+                    for i, chunk in encoded.items():
+                        parts[i].append(chunk)
+                out = {i: np.concatenate(p) for i, p in parts.items() if i in want}
+        kt.bytes_out = sum(v.nbytes for v in out.values())
+        return out
 
 
 def encode_batch(
@@ -162,7 +193,10 @@ def encode_batch(
     uploads, one sync at the end) instead of one dispatch per object.
     Byte-identical to per-buffer :func:`encode` by construction (same
     per-stripe math).  Falls back to the per-buffer loop for
-    layered/bitmatrix codes or single-object batches."""
+    layered/bitmatrix codes or single-object batches.
+
+    Each coalesced dispatch counts in
+    ``l_tpu_batch_encode_{dispatches,ops_per_dispatch}``."""
     bufs = [_as_buffer(b) for b in buffers]
     for buf in bufs:
         if len(buf) % sinfo.stripe_width:
@@ -179,22 +213,30 @@ def encode_batch(
         buf.reshape(len(buf) // sinfo.stripe_width, k, sinfo.chunk_size)
         for buf in bufs
     ]
-    # counting not ported: the kernel_stats "ec_encode" timer and the
-    # l_tpu_batch_encode_{dispatches,ops_per_dispatch} counters
-    codings = backend.matrix_stripes_batch(matrix, stripe_arrays, ec.w)
-    out: list[dict[int, np.ndarray]] = []
-    for stripes, coding in zip(stripe_arrays, codings):
-        if stripes.shape[0] == 0:
-            out.append({})
-            continue
-        out.append(_assemble_shards(stripes, coding, k, n))
+    ks = _kstats()
+    from ..ops.residency import ensure_counters
+
+    ensure_counters(ks)
+    total = sum(buf.nbytes for buf in bufs)
+    with ks.timed("ec_encode", bytes_in=total) as kt:
+        codings = backend.matrix_stripes_batch(matrix, stripe_arrays, ec.w)
+        ks.perf.inc("l_tpu_batch_encode_dispatches")
+        ks.perf.inc("l_tpu_batch_encode_ops_per_dispatch", len(bufs))
+        out: list[dict[int, np.ndarray]] = []
+        for stripes, coding in zip(stripe_arrays, codings):
+            if stripes.shape[0] == 0:
+                out.append({})
+                continue
+            out.append(_assemble_shards(stripes, coding, k, n))
+        kt.bytes_out = sum(v.nbytes for shards in out for v in shards.values())
     return out
 
 
 def _as_row(x) -> np.ndarray:
     """1-D uint8 view of a survivor payload: the ONE coercion helper
     (ec/backend._host_row) shared by the stripe seam and the torch
-    backend — bytes-likes go through frombuffer."""
+    backend — DeviceBuf tokens fetch host-side, bytes-likes go through
+    frombuffer."""
     from .backend import _host_row
 
     return _host_row(x)
@@ -323,19 +365,29 @@ def decode_batch(
     :func:`encode_batch`.
 
     ``shard_sets`` is one dict per object of survivor shard payloads
-    ({position: bytes | ndarray}); objects that share a survivor set
-    and number two or more ride one ``decode_stripes_batch`` call.
-    Returns one {position: reconstructed numpy array} dict per object.
-    Byte-identical to the per-object ``ec._decode`` repair by
-    construction.  A group degrades to that repair when the batched
-    route has no plan for it (the plan raised ErasureCodeError) or its
-    shards are not equal-length whole chunks; any failure of the
-    batched call itself, a kernel's included, propagates."""
+    ({position: bytes | ndarray | DeviceBuf}); objects that share a
+    survivor set and number two or more ride one
+    ``decode_stripes_batch`` call, resident DeviceBufs without a second
+    upload.  Returns one {position: reconstructed} dict per object —
+    device-born DeviceBufs where the batched route ran (zero extra
+    transfer to register them resident), numpy arrays from the
+    per-object repair.  Byte-identical to the per-object ``ec._decode``
+    repair by construction.  A group degrades to that repair when the
+    batched route has no plan for it (the plan raised ErasureCodeError)
+    or its shards are not equal-length whole chunks; any failure of the
+    batched call itself, a kernel's included, propagates.
+
+    Each coalesced dispatch counts in
+    ``l_tpu_batch_decode_{dispatches,ops_per_dispatch}``."""
     want = sorted(set(want))
     out: list[dict | None] = [None] * len(shard_sets)
     groups: dict[frozenset, list[int]] = {}
     for i, shards in enumerate(shard_sets):
         groups.setdefault(frozenset(shards), []).append(i)
+    ks = _kstats()
+    from ..ops.residency import ensure_counters
+
+    ensure_counters(ks)
     cs = sinfo.chunk_size
     for key, idxs in groups.items():
         plan = (
@@ -348,25 +400,39 @@ def decode_batch(
         )
         if row_sets is not None:
             rows, _survivors, w, backend = plan
-            # counting not ported: the kernel_stats "ec_decode" timer
-            # and the l_tpu_batch_decode_{dispatches,ops_per_dispatch}
-            # counters
-            outs = backend.decode_stripes_batch(rows, row_sets, w, cs)
+            total = sum(len(r) for rs in row_sets for r in rs)
+            with ks.timed("ec_decode", bytes_in=total) as kt:
+                outs = backend.decode_stripes_batch(rows, row_sets, w, cs)
+                kt.bytes_out = sum(int(np.prod(o.shape)) for o in outs)
+            ks.perf.inc("l_tpu_batch_decode_dispatches")
+            ks.perf.inc("l_tpu_batch_decode_ops_per_dispatch", len(idxs))
             for i, rec in zip(idxs, outs):
                 out[i] = _wrap_decoded(rec, want)
             continue
-        # per-object repair (counting not ported: the dispatch
-        # profiler's host-path entry and the "ec_decode" timer)
-        for i in idxs:
-            out[i] = _decode_one(ec, shard_sets[i], want, cs)
+        with _host_loop("ec_decode", ec, len(idxs)) as dp:
+            for i in idxs:
+                nbytes = sum(len(v) for v in shard_sets[i].values())
+                dp.add_bytes_in(nbytes)
+                with ks.timed("ec_decode", bytes_in=nbytes) as kt:
+                    out[i] = _decode_one(ec, shard_sets[i], want, cs)
+                    kt.bytes_out = sum(len(v) for v in out[i].values())
     return out
 
 
-def _wrap_decoded(rec: np.ndarray, want) -> dict:
+def _wrap_decoded(rec, want) -> dict:
     """One object's (nstripes, len(want), chunk) reconstruction →
-    {position: payload}, numpy (``DeviceBuf`` is not ported yet)."""
+    {position: payload}.  Tensors wrap as device-born DeviceBufs (the
+    push/write path fetches host bytes at most once; registering them
+    resident costs zero extra transfer); numpy results stay numpy."""
+    if isinstance(rec, np.ndarray):
+        return {
+            p: np.ascontiguousarray(rec[:, j, :]).reshape(-1)
+            for j, p in enumerate(want)
+        }
+    from ..ops.residency import DeviceBuf
+
     return {
-        p: np.ascontiguousarray(rec[:, j, :]).reshape(-1)
+        p: DeviceBuf(dev=rec[:, j, :].reshape(-1))
         for j, p in enumerate(want)
     }
 
@@ -384,15 +450,19 @@ def decode_concat(
         raise ErasureCodeError("shard length not chunk aligned")
     nstripes = shard_len // sinfo.chunk_size
     views = {i: _as_buffer(v) for i, v in shards.items()}
-    # counting not ported: the kernel_stats "ec_decode" timer
-    out = []
-    for s in range(nstripes):
-        chunks = {
-            i: v[s * sinfo.chunk_size : (s + 1) * sinfo.chunk_size]
-            for i, v in views.items()
-        }
-        out.append(ec.decode_concat(chunks))
-    return np.concatenate(out)
+    with _kstats().timed(
+        "ec_decode", bytes_in=sum(v.nbytes for v in views.values())
+    ) as kt:
+        out = []
+        for s in range(nstripes):
+            chunks = {
+                i: v[s * sinfo.chunk_size : (s + 1) * sinfo.chunk_size]
+                for i, v in views.items()
+            }
+            out.append(ec.decode_concat(chunks))
+        res = np.concatenate(out)
+        kt.bytes_out = res.nbytes
+        return res
 
 
 class HashInfo:

@@ -1,0 +1,505 @@
+"""Device-dispatch flight recorder — transfer/compute/sync attribution
+for the device data plane (the blkin-tracepoint + OpTracker-history
+idiom applied to device dispatches instead of client ops).
+
+The ``l_tpu_*`` kernel counters say *how many* dispatches ran; nothing
+said *where each dispatch's wall time went*.  This module is that
+instrument: every device dispatch — the torch backend's encode and
+decode routes (``matrix_stripes``, ``matrix_stripes_batch``,
+``decode_stripes_batch``), the scrub crc/compare functions
+(``batch_crc32c``/``batch_compare``) — opens a :class:`DispatchProfiler`
+record (``backend="torch"``; the numpy host paths record ``"cpu"``)
+and brackets its stages:
+
+- ``upload``  — host→device copies (pinned staging and the
+  stream-ordered ``.to(device)``), counted in ``transfer_s``
+- ``compute`` — kernel and torch-op launches, counted in ``compute_s``
+- ``sync``    — the commit-point materialization (the download or
+  ``torch.cuda.synchronize()``), counted in ``sync_s``
+
+Stage walls are SYNC-BOUNDED, not device-timeline truth: CUDA copies
+from pinned memory and launches are asynchronous, so ``upload``/
+``compute`` measure issue time and everything left drains inside the
+final ``sync`` — the split says where the HOST thread waited, which is
+exactly the host↔device round-trip cost the residency work needs
+attributed.
+
+Each record carries batch occupancy (ops and stripes folded into the
+dispatch), logical byte attribution (bytes uploaded this dispatch vs
+bytes served already-resident via the ResidencyCache path — the two
+always sum to the input bytes), pad waste (the zero bytes a dispatch
+stacks in to make rows one width), and the cache events the dispatch
+produced.  Records land in a bounded drop-oldest ring
+(``CEPH_TPU_DISPATCH_RING`` entries, default 1024), plus unbounded
+per-kind totals behind ``summary()`` and the breakdown.
+
+Three surfaces ride one instrumentation:
+
+- tracing — every stage opens a ``dev_upload``/``dev_compute``/
+  ``dev_sync`` child span of the ambient op span (a no-op without a
+  tracer);
+- telemetry — ``l_tpu_dispatch_*`` counters + LogHistogram variants
+  on the process-global kernel set;
+- measurement — :func:`breakdown` diffs two ``totals()`` snapshots
+  into the keys ``transfer_ms``/``compute_ms``/``sync_ms``/
+  ``occupancy``/``pad_waste_ratio``/``resident_byte_ratio``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+from ..common import tracing
+from ..common.perf_counters import (
+    PERFCOUNTER_HISTOGRAM,
+    PERFCOUNTER_TIME,
+)
+from .kernel_stats import _LAT_HIST_BOUNDS, kernel_stats
+
+# default ring capacity (entries); CEPH_TPU_DISPATCH_RING overrides
+DEFAULT_RING = 1024
+
+# stage name -> (record field, tracing child-span name)
+_STAGES = {
+    "upload": ("transfer_s", "dev_upload"),
+    "compute": ("compute_s", "dev_compute"),
+    "sync": ("sync_s", "dev_sync"),
+}
+
+_TOTAL_FIELDS = (
+    "dispatches", "ops", "stripes", "bytes_in", "bytes_uploaded",
+    "bytes_resident", "bytes_padded", "compile_hits",
+    "compile_misses", "transfer_s", "compute_s", "sync_s", "wall_s",
+)
+
+_active = threading.local()  # .stack: list[_Dispatch]
+
+
+def _stack() -> list:
+    s = getattr(_active, "stack", None)
+    if s is None:
+        s = _active.stack = []
+    return s
+
+
+def current_dispatch():
+    """The innermost active dispatch record on this thread (or
+    None) — the hook deep sites (``_gather_rows``, ``note_shape``)
+    attach attribution through without threading a record parameter
+    down every signature."""
+    s = _stack()
+    return s[-1] if s else None
+
+
+def record_upload(nbytes: int) -> None:
+    """Attribute logical payload bytes that crossed the link this
+    dispatch (no-op outside a dispatch)."""
+    d = current_dispatch()
+    if d is not None and nbytes:
+        d.bytes_uploaded += int(nbytes)
+
+
+def record_resident(nbytes: int) -> None:
+    """Attribute logical payload bytes served where they already
+    lived (the ResidencyCache hit path — zero link cost)."""
+    d = current_dispatch()
+    if d is not None and nbytes:
+        d.bytes_resident += int(nbytes)
+
+
+def record_compile(hit: bool) -> None:
+    """Attach one compile-cache event to the active dispatch record
+    (the global counters are ``note_shape``'s job)."""
+    d = current_dispatch()
+    if d is not None:
+        if hit:
+            d.compile_hits += 1
+        else:
+            d.compile_misses += 1
+
+
+class _Stage:
+    """One stage bracket: accumulates wall time into the record field
+    and opens the matching device-stage tracing child span (a no-op
+    without an ambient tracer)."""
+
+    __slots__ = ("_disp", "_field", "_span", "_t0")
+
+    def __init__(self, disp: "_Dispatch", name: str):
+        self._disp = disp
+        self._field, span_name = _STAGES[name]
+        self._span = tracing.span(
+            span_name, tags={"kind": disp.kind, "backend": disp.backend}
+        )
+
+    def __enter__(self) -> "_Stage":
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        dt = time.perf_counter() - self._t0
+        setattr(
+            self._disp,
+            self._field,
+            getattr(self._disp, self._field) + dt,
+        )
+        self._span.__exit__(exc_type, *exc)
+        return False
+
+
+class _Dispatch:
+    """One device dispatch in flight; commits a ring entry on clean
+    exit (an exception means the dispatch fell back — the fallback
+    path records its own host entry instead)."""
+
+    __slots__ = (
+        "_prof", "kind", "backend", "ops", "stripes", "bytes_in",
+        "bytes_uploaded", "bytes_resident", "bytes_padded",
+        "compile_hits", "compile_misses", "transfer_s", "compute_s",
+        "sync_s", "wall_s", "_t0",
+    )
+
+    def __init__(self, prof: "DispatchProfiler", kind: str, backend: str):
+        self._prof = prof
+        self.kind = kind
+        self.backend = backend
+        self.ops = 0
+        self.stripes = 0
+        self.bytes_in = 0
+        self.bytes_uploaded = 0
+        self.bytes_resident = 0
+        self.bytes_padded = 0
+        self.compile_hits = 0
+        self.compile_misses = 0
+        self.transfer_s = 0.0
+        self.compute_s = 0.0
+        self.sync_s = 0.0
+        self.wall_s = 0.0
+
+    # -- attribution -------------------------------------------------------
+    def set_ops(self, n: int) -> None:
+        self.ops = int(n)
+
+    def set_stripes(self, n: int) -> None:
+        self.stripes = int(n)
+
+    def add_bytes_in(self, nbytes: int) -> None:
+        self.bytes_in += int(nbytes)
+
+    def add_upload(self, nbytes: int) -> None:
+        self.bytes_uploaded += int(nbytes)
+
+    def add_resident(self, nbytes: int) -> None:
+        self.bytes_resident += int(nbytes)
+
+    def add_pad(self, nbytes: int) -> None:
+        """Pad bytes for this dispatch; also lands in the global
+        ``l_tpu_pad_bytes_wasted`` counter."""
+        if nbytes:
+            self.bytes_padded += int(nbytes)
+            self._prof._ks.record_pad(nbytes)
+
+    def stage(self, name: str) -> _Stage:
+        """Bracket one ``upload``/``compute``/``sync`` stage; stages
+        may open repeatedly (double-buffer loops accumulate)."""
+        return _Stage(self, name)
+
+    # -- lifecycle ---------------------------------------------------------
+    def __enter__(self) -> "_Dispatch":
+        _stack().append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        self.wall_s = time.perf_counter() - self._t0
+        s = _stack()
+        for i in range(len(s) - 1, -1, -1):
+            if s[i] is self:
+                del s[i]
+                break
+        if exc_type is None:
+            # a stage-less record is a host-path dispatch: the whole
+            # wall is compute, keeping Σstages <= wall an identity
+            if not (self.transfer_s or self.compute_s or self.sync_s):
+                self.compute_s = self.wall_s
+            self._prof._commit(self)
+        return False
+
+
+class DispatchProfiler:
+    """Process-wide flight recorder: a bounded drop-oldest ring of
+    per-dispatch records plus unbounded per-kind totals, feeding the
+    ``l_tpu_dispatch_*`` counters on commit."""
+
+    def __init__(self, capacity: int | None = None, ks=None):
+        if capacity is None:
+            try:
+                capacity = int(
+                    os.environ.get("CEPH_TPU_DISPATCH_RING", "")
+                    or DEFAULT_RING
+                )
+            except ValueError:
+                capacity = DEFAULT_RING
+        self.capacity = max(int(capacity), 1)
+        self._lock = threading.Lock()
+        self._ring: list[dict] = []
+        self._seq = 0
+        self.dropped = 0
+        self._totals: dict[str, dict] = {}
+        self._ks = ks or kernel_stats()
+        ensure_dispatch_counters(self._ks)
+
+    def dispatch(self, kind: str, backend: str = "torch") -> _Dispatch:
+        """Context manager recording one device dispatch of ``kind``
+        (``ec_encode``/``ec_decode``/``crc32c``/``compare``)."""
+        return _Dispatch(self, kind, backend)
+
+    # -- commit ------------------------------------------------------------
+    def _commit(self, d: _Dispatch) -> None:
+        entry = {
+            "ts": time.time(),
+            "kind": d.kind,
+            "backend": d.backend,
+            "ops": d.ops,
+            "stripes": d.stripes,
+            "bytes_in": d.bytes_in,
+            "bytes_uploaded": d.bytes_uploaded,
+            "bytes_resident": d.bytes_resident,
+            "bytes_padded": d.bytes_padded,
+            "compile_hits": d.compile_hits,
+            "compile_misses": d.compile_misses,
+            "transfer_s": round(d.transfer_s, 9),
+            "compute_s": round(d.compute_s, 9),
+            "sync_s": round(d.sync_s, 9),
+            "wall_s": round(d.wall_s, 9),
+        }
+        dropped = False
+        with self._lock:
+            self._seq += 1
+            entry["seq"] = self._seq
+            if len(self._ring) >= self.capacity:
+                self._ring.pop(0)
+                self.dropped += 1
+                dropped = True
+            self._ring.append(entry)
+            tot = self._totals.setdefault(
+                d.kind, {f: 0 for f in _TOTAL_FIELDS}
+            )
+            tot["dispatches"] += 1
+            tot["ops"] += d.ops
+            tot["stripes"] += d.stripes
+            tot["bytes_in"] += d.bytes_in
+            tot["bytes_uploaded"] += d.bytes_uploaded
+            tot["bytes_resident"] += d.bytes_resident
+            tot["bytes_padded"] += d.bytes_padded
+            tot["compile_hits"] += d.compile_hits
+            tot["compile_misses"] += d.compile_misses
+            tot["transfer_s"] += d.transfer_s
+            tot["compute_s"] += d.compute_s
+            tot["sync_s"] += d.sync_s
+            tot["wall_s"] += d.wall_s
+        perf = self._ks.perf
+        perf.inc("l_tpu_dispatch_count")
+        if d.ops:
+            perf.inc("l_tpu_dispatch_ops", d.ops)
+        if d.stripes:
+            perf.inc("l_tpu_dispatch_stripes", d.stripes)
+        if d.bytes_uploaded:
+            perf.inc("l_tpu_dispatch_bytes_uploaded", d.bytes_uploaded)
+        if d.bytes_resident:
+            perf.inc("l_tpu_dispatch_bytes_resident", d.bytes_resident)
+        if dropped:
+            perf.inc("l_tpu_dispatch_ring_dropped")
+        for stage, secs in (
+            ("transfer", d.transfer_s),
+            ("compute", d.compute_s),
+            ("sync", d.sync_s),
+        ):
+            perf.tinc(f"l_tpu_dispatch_{stage}_lat", secs)
+            perf.hinc(f"l_tpu_dispatch_{stage}_lat_hist", secs)
+
+    # -- consumers ---------------------------------------------------------
+    def history(self, kind: str | None = None, limit: int = 0) -> dict:
+        """The raw ring, newest last (the ``dispatch history``
+        tell/admin-socket surface); ``kind`` filters, ``limit`` keeps
+        the newest N."""
+        with self._lock:
+            entries = list(self._ring)
+            dropped = self.dropped
+        if kind:
+            entries = [e for e in entries if e["kind"] == kind]
+        if limit and limit > 0:
+            entries = entries[-limit:]
+        return {
+            "capacity": self.capacity,
+            "dropped": dropped,
+            "num_entries": len(entries),
+            "entries": entries,
+        }
+
+    def totals(self) -> dict:
+        """Cumulative per-kind raw sums since process start (survives
+        ring wrap — :func:`breakdown` diffs two of these)."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._totals.items()}
+
+    def summary(self, kind: str | None = None) -> dict:
+        """Per-kind rollup with the derived ratios (the ``dispatch
+        summary`` tell surface)."""
+        totals = self.totals()
+        if kind:
+            totals = {k: v for k, v in totals.items() if k == kind}
+        with self._lock:
+            ring = {
+                "capacity": self.capacity,
+                "entries": len(self._ring),
+                "dropped": self.dropped,
+            }
+        return {
+            "ring": ring,
+            "kinds": {
+                k: _derive(v) for k, v in sorted(totals.items())
+            },
+        }
+
+    def clear(self) -> None:
+        """Drop the ring and totals (test isolation; the
+        perf counters are monotonic and stay)."""
+        with self._lock:
+            self._ring.clear()
+            self._totals.clear()
+            self.dropped = 0
+
+
+def _derive(t: dict) -> dict:
+    """Raw per-kind sums → the rollup shape."""
+    nd = max(t.get("dispatches", 0), 1)
+    bytes_in = t.get("bytes_in", 0)
+    padded = t.get("bytes_padded", 0)
+    return {
+        "dispatches": t.get("dispatches", 0),
+        "ops": t.get("ops", 0),
+        "stripes": t.get("stripes", 0),
+        "occupancy": round(t.get("ops", 0) / nd, 2),
+        "stripes_per_dispatch": round(t.get("stripes", 0) / nd, 2),
+        "bytes_in": bytes_in,
+        "bytes_uploaded": t.get("bytes_uploaded", 0),
+        "bytes_resident": t.get("bytes_resident", 0),
+        "bytes_padded": padded,
+        "compile_hits": t.get("compile_hits", 0),
+        "compile_misses": t.get("compile_misses", 0),
+        "transfer_ms": round(t.get("transfer_s", 0.0) * 1000, 3),
+        "compute_ms": round(t.get("compute_s", 0.0) * 1000, 3),
+        "sync_ms": round(t.get("sync_s", 0.0) * 1000, 3),
+        "wall_ms": round(t.get("wall_s", 0.0) * 1000, 3),
+        "pad_waste_ratio": (
+            round(padded / (bytes_in + padded), 4)
+            if (bytes_in + padded)
+            else 0.0
+        ),
+        "resident_byte_ratio": (
+            round(t.get("bytes_resident", 0) / bytes_in, 4)
+            if bytes_in
+            else 0.0
+        ),
+    }
+
+
+def breakdown(
+    before: dict, after: dict, backend: str = "torch"
+) -> dict:
+    """Diff two :meth:`DispatchProfiler.totals` snapshots into the
+    dispatch-breakdown keys.  ALWAYS carries the six contract keys
+    (``transfer_ms``/``compute_ms``/``sync_ms``/``occupancy``/
+    ``pad_waste_ratio``/``resident_byte_ratio``) plus the ``backend``
+    marker — on an idle window or a CPU path the values are the
+    host-entry walls (or zero), never missing keys."""
+    agg = {f: 0 for f in _TOTAL_FIELDS}
+    kinds: dict[str, dict] = {}
+    for kind, a in sorted(after.items()):
+        b = before.get(kind, {})
+        d = {f: a.get(f, 0) - b.get(f, 0) for f in _TOTAL_FIELDS}
+        if d["dispatches"] <= 0:
+            continue
+        kinds[kind] = _derive(d)
+        for f in _TOTAL_FIELDS:
+            agg[f] += d[f]
+    rolled = _derive(agg)
+    return {
+        "backend": backend,
+        "dispatches": rolled["dispatches"],
+        "transfer_ms": rolled["transfer_ms"],
+        "compute_ms": rolled["compute_ms"],
+        "sync_ms": rolled["sync_ms"],
+        "occupancy": rolled["occupancy"],
+        "pad_waste_ratio": rolled["pad_waste_ratio"],
+        "resident_byte_ratio": rolled["resident_byte_ratio"],
+        "kinds": kinds,
+    }
+
+
+def ensure_dispatch_counters(ks) -> None:
+    """Force-register the ``l_tpu_dispatch_*`` family on a kernel set
+    (check_metrics.py lints exactly these names; the profiler bumps
+    them on every commit)."""
+    ks.counter(
+        "dispatch", "count",
+        desc="device dispatches the flight recorder committed",
+    )
+    ks.counter(
+        "dispatch", "ops",
+        desc="client ops folded into recorded dispatches "
+        "(cumulative; divide by count for mean occupancy)",
+    )
+    ks.counter(
+        "dispatch", "stripes",
+        desc="stripes/rows folded into recorded dispatches",
+    )
+    ks.counter(
+        "dispatch", "bytes_uploaded",
+        desc="logical payload bytes that crossed the host->device "
+        "link in recorded dispatches",
+    )
+    ks.counter(
+        "dispatch", "bytes_resident",
+        desc="logical payload bytes served already-resident (the "
+        "ResidencyCache hit path) in recorded dispatches",
+    )
+    ks.counter(
+        "dispatch", "ring_dropped",
+        desc="flight-recorder ring entries overwritten (drop-oldest)",
+    )
+    for stage, what in (
+        ("transfer", "host->device upload issue"),
+        ("compute", "kernel dispatch issue"),
+        ("sync", "commit-point materialization"),
+    ):
+        ks.counter(
+            "dispatch", f"{stage}_lat", kind=PERFCOUNTER_TIME,
+            desc=f"per-dispatch {what} wall time (sync-bounded)",
+        )
+        ks.counter(
+            "dispatch", f"{stage}_lat_hist",
+            kind=PERFCOUNTER_HISTOGRAM,
+            desc=f"per-dispatch {what} wall distribution "
+            "(log2 buckets)",
+            bounds=_LAT_HIST_BOUNDS,
+        )
+
+
+_instance: DispatchProfiler | None = None
+_instance_lock = threading.Lock()
+
+
+def dispatch_profiler() -> DispatchProfiler:
+    """The process-global recorder (like the one CUDA context whose
+    dispatches it records)."""
+    global _instance
+    if _instance is None:
+        with _instance_lock:
+            if _instance is None:
+                _instance = DispatchProfiler()
+    return _instance

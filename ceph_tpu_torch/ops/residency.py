@@ -1,0 +1,397 @@
+"""Device-resident payload plane — upload once, reuse across stages.
+
+Every stage of the store data plane — EC encode, deep-scrub crc32c,
+EC decode-from-survivors — would otherwise do its own host→device
+copy, compute, sync and fetch.  The reference amortizes the analogous
+cost (per-call SIMD table setup) by keeping the plugin boundary coarse
+(``ErasureCodeInterface.h:170-462``); the device analog must amortize
+the *link*.
+
+Three pieces live here:
+
+- ``DeviceBuf`` — the token the kernel entry points accept in place
+  of host ``bytes``: logical length host-side, payload either a
+  ``(length,)`` uint8 tensor on the store's device (already resident:
+  a batched-decode output slice) or host bytes uploaded lazily on
+  FIRST device use and kept.  Either way the link is paid at most
+  once per generation.
+- ``ResidencyCache`` — bounded LRU of DeviceBufs keyed by
+  ``(store, cid, oid)``.  Validity is generation-checked against
+  ``store.objectstore.residency_gens``: every ``queue_transaction``
+  bumps the named objects' generations BEFORE applying, so a stale
+  resident buffer can never serve a scrub digest — any mutation
+  (client write, recovery push, injected bit rot) makes the next
+  lookup miss and re-read the store.  Counters:
+  ``l_tpu_residency_{hits,misses,evictions,bytes_resident}``.
+- ``bucket_pow2`` / ``note_shape`` — the JAX package's shape-bucketing
+  helpers, kept with their ``l_tpu_compile_cache_{hit,miss}``
+  counting.  No port route pads a shape to a power of two (torch
+  compiles nothing per shape); ``note_shape`` records a shape's first
+  dispatch in the process as a miss and later ones as hits.
+
+The JAX package's ``configure_compile_cache`` (JAX's persistent
+compilation cache) has no torch counterpart and is left out.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ..store.objectstore import residency_gens
+from .kernel_stats import kernel_stats
+
+# default capacity of the process-global cache (bytes of logical
+# payload); CEPH_TPU_RESIDENCY_BYTES overrides
+DEFAULT_CAPACITY = 256 << 20
+
+
+def upload(raw, device: torch.device) -> torch.Tensor:
+    """A host payload (bytes-like or uint8 array) as a 1-D uint8
+    tensor on ``device``: through pinned staging and a stream-ordered
+    copy on CUDA, a private copy on the CPU."""
+    arr = (
+        np.frombuffer(raw, dtype=np.uint8)
+        if isinstance(raw, (bytes, bytearray, memoryview))
+        else np.ascontiguousarray(raw, dtype=np.uint8)
+    )
+    if device.type == "cuda":
+        staging = torch.empty(arr.shape, dtype=torch.uint8, pin_memory=True)
+        staging.numpy()[...] = arr
+        return staging.to(device, non_blocking=True)
+    return torch.from_numpy(arr.copy())
+
+
+class DeviceBuf:
+    """One payload's device residency token.
+
+    ``device()`` returns the uint8 tensor on the buf's device
+    (uploading once if the buf was registered from host bytes);
+    ``host()`` returns the host bytes (fetching once if the buf was
+    registered from a tensor).  ``len()`` is always the logical byte
+    length, host-side — callers pad/stack without touching the device.
+    A DeviceBuf also reads as a uint8 numpy array (``np.asarray``) and
+    has ``tobytes()``, so the ``{position: payload}`` dicts of the
+    decode seam serve numpy consumers unchanged.
+    """
+
+    __slots__ = ("length", "gen", "torch_device", "_host", "_dev", "_lock")
+
+    def __init__(self, data=None, dev=None, gen=(0, 0), device="cuda"):
+        if data is None and dev is None:
+            raise ValueError("DeviceBuf needs host bytes or a device tensor")
+        self._host = None if data is None else bytes(data)
+        self._dev = dev
+        self.length = (
+            len(self._host) if self._host is not None else int(dev.shape[0])
+        )
+        self.torch_device = dev.device if dev is not None else torch.device(device)
+        self.gen = gen
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return self.length
+
+    @property
+    def resident(self) -> bool:
+        """True once the payload is on the device (upload already paid)."""
+        return self._dev is not None
+
+    def device(self) -> torch.Tensor:
+        """The (length,) uint8 tensor; uploads at most once.  The host
+        copy is DROPPED after the upload — keeping both would make real
+        memory 2x what the cache accounts (and the device side is the
+        one every consumer wants; a later ``host()`` pays one fetch)."""
+        if self._dev is None:
+            with self._lock:
+                if self._dev is None:
+                    self._dev = upload(self._host, self.torch_device)
+                    self._host = None
+        return self._dev
+
+    def host(self) -> bytes:
+        """Host bytes; fetches at most once for device-born bufs."""
+        if self._host is None:
+            with self._lock:
+                if self._host is None:
+                    self._host = self._dev.cpu().numpy().tobytes()
+        return self._host
+
+    def tobytes(self) -> bytes:
+        return self.host()
+
+    def __array__(self, dtype=None, copy=None):
+        arr = np.frombuffer(self.host(), dtype=np.uint8)
+        return arr if dtype is None else arr.astype(dtype)
+
+
+def is_device_buf(x) -> bool:
+    return isinstance(x, DeviceBuf)
+
+
+def scrub_trusted(store) -> bool:
+    """True when DEEP SCRUB may digest a resident copy for this
+    store: the store must both observe all its own mutations
+    (``residency_local``) and be unable to diverge from the resident
+    copy out-of-band (``residency_scrub_safe`` — in-memory stores).
+    Persistent media returns False: bit rot never runs a transaction,
+    and auditing it is what deep scrub is FOR."""
+    return getattr(store, "residency_local", False) and getattr(
+        store, "residency_scrub_safe", False
+    )
+
+
+def as_host_bytes(x) -> bytes:
+    """bytes for either a DeviceBuf or a bytes-like (the oracle /
+    numpy seam of the kernel entry points)."""
+    return x.host() if isinstance(x, DeviceBuf) else bytes(x)
+
+
+class ResidencyCache:
+    """Bounded LRU of DeviceBufs keyed by (store, cid, oid), with
+    generation-checked lookups (see module docstring)."""
+
+    def __init__(self, capacity_bytes: int | None = None, ks=None):
+        if capacity_bytes is None:
+            try:
+                capacity_bytes = int(
+                    os.environ.get("CEPH_TPU_RESIDENCY_BYTES", "")
+                    or DEFAULT_CAPACITY
+                )
+            except ValueError:
+                capacity_bytes = DEFAULT_CAPACITY
+        self.capacity_bytes = max(int(capacity_bytes), 0)
+        self._lock = threading.Lock()
+        self._entries: OrderedDict[tuple, DeviceBuf] = OrderedDict()
+        self._bytes = 0
+        self._ks = ks or kernel_stats()
+        ensure_counters(self._ks)
+
+    # -- keying ------------------------------------------------------------
+    @staticmethod
+    def _key(store, cid: str, oid: str) -> tuple:
+        return (residency_gens.store_token(store), cid, oid)
+
+    # -- writes ------------------------------------------------------------
+    def put_committed(
+        self, store, cid: str, oid: str, data=None, dev=None, device="cuda"
+    ):
+        """Register bytes a transaction THIS THREAD just committed.
+
+        The generation captured is the one that txn itself assigned
+        (``residency_gens.txn_gen``), NOT the current one — so a
+        concurrent writer's txn landing in the commit-to-register
+        window assigns a higher generation and the entry registered
+        here simply misses, instead of absorbing the other writer's
+        bytes.  This is the registration every product write path
+        uses; returns None (no registration) when no own-thread txn
+        is on record."""
+        gen = residency_gens.txn_gen(store, cid, oid)
+        if gen is None:
+            return None
+        return self.put(store, cid, oid, data=data, dev=dev, gen=gen, device=device)
+
+    def put(
+        self, store, cid: str, oid: str, data=None, dev=None, gen=None,
+        device="cuda",
+    ):
+        """Register a payload as resident for (store, cid, oid).
+
+        Call AFTER the transaction that landed these bytes applied (the
+        txn bumped the generation; registering first would record the
+        pre-bump generation and self-invalidate).  ``data`` registers
+        host bytes with a lazy upload to ``device``; ``dev`` registers
+        an already-resident tensor (a batched-decode output slice —
+        zero additional transfer).  Stores that cannot observe their
+        own mutations are refused.  ``gen`` pins the registered
+        generation (see put_committed); default is the object's
+        CURRENT generation, which is only race-free when the caller
+        serializes writers itself.  Returns the DeviceBuf, or None when
+        registration is not applicable.
+        """
+        if not scrub_trusted(store):
+            # every current consumer is scrub-side and gates on
+            # scrub_trusted: registering for a store no reader will
+            # ever consult would just pin payload copies and churn
+            # the LRU
+            return None
+        if self.capacity_bytes <= 0:
+            return None
+        if gen is None:
+            gen = residency_gens.gen_of(store, cid, oid)
+        buf = DeviceBuf(data=data, dev=dev, gen=gen, device=device)
+        if buf.length > self.capacity_bytes:
+            return None  # larger than the whole cache: never resident
+        key = self._key(store, cid, oid)
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old.length
+            self._entries[key] = buf
+            self._bytes += buf.length
+            while self._bytes > self.capacity_bytes and self._entries:
+                _k, evicted = self._entries.popitem(last=False)
+                self._bytes -= evicted.length
+                self._ks.perf.inc("l_tpu_residency_evictions")
+            self._ks.perf.set("l_tpu_residency_bytes_resident", self._bytes)
+        return buf
+
+    def invalidate(self, store, cid: str, oid: str) -> None:
+        """Explicit drop (mutation paths that want eager reclamation;
+        generation checking already guarantees correctness)."""
+        key = self._key(store, cid, oid)
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old.length
+                self._ks.perf.set(
+                    "l_tpu_residency_bytes_resident", self._bytes
+                )
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+            self._ks.perf.set("l_tpu_residency_bytes_resident", 0)
+
+    # -- reads -------------------------------------------------------------
+    def get(
+        self, store, cid: str, oid: str, expect_len: int | None = None
+    ) -> DeviceBuf | None:
+        """Generation-checked lookup: returns the DeviceBuf only when
+        no transaction has named the object since registration AND the
+        length matches the caller's expectation; anything else is a
+        miss (and a stale entry is dropped on sight)."""
+        key = self._key(store, cid, oid)
+        with self._lock:
+            buf = self._entries.get(key)
+            if buf is not None:
+                if (
+                    buf.gen != residency_gens.gen_of(store, cid, oid)
+                    or (expect_len is not None and buf.length != expect_len)
+                ):
+                    self._entries.pop(key, None)
+                    self._bytes -= buf.length
+                    self._ks.perf.set(
+                        "l_tpu_residency_bytes_resident", self._bytes
+                    )
+                    buf = None
+                else:
+                    self._entries.move_to_end(key)
+            if buf is None:
+                self._ks.perf.inc("l_tpu_residency_misses")
+                return None
+            self._ks.perf.inc("l_tpu_residency_hits")
+            return buf
+
+    # -- observability -----------------------------------------------------
+    def stats(self) -> dict:
+        dump = self._ks.dump()
+        hits = int(dump.get("l_tpu_residency_hits", 0))
+        misses = int(dump.get("l_tpu_residency_misses", 0))
+        lookups = hits + misses
+        with self._lock:
+            nbytes, entries = self._bytes, len(self._entries)
+        return {
+            "hits": hits,
+            "misses": misses,
+            "evictions": int(dump.get("l_tpu_residency_evictions", 0)),
+            "bytes_resident": nbytes,
+            "entries": entries,
+            "reuse_ratio": (
+                round(hits / lookups, 4) if lookups else None
+            ),
+        }
+
+
+def ensure_counters(ks) -> None:
+    """Force-register the residency + batched-encode/decode counter
+    families (the same names as the JAX package's)."""
+    ks.counter("residency", "hits", desc="resident payload reuses")
+    ks.counter(
+        "residency", "misses",
+        desc="payload lookups that re-read the store",
+    )
+    ks.counter(
+        "residency", "evictions", desc="LRU evictions under pressure"
+    )
+    from ..common.perf_counters import PERFCOUNTER_GAUGE
+
+    ks.counter(
+        "residency", "bytes_resident", kind=PERFCOUNTER_GAUGE,
+        desc="logical bytes currently registered resident",
+    )
+    ks.counter(
+        "batch_encode", "dispatches",
+        desc="coalesced encode passes (one encode_batch call each; "
+        "the backend may pipeline a pass as several device groups)",
+    )
+    ks.counter(
+        "batch_encode", "ops_per_dispatch",
+        desc="client writes folded into coalesced passes "
+        "(cumulative; divide by dispatches for the mean writes "
+        "folded per pass)",
+    )
+    ks.counter(
+        "batch_decode", "dispatches",
+        desc="coalesced decode-from-survivors passes (one "
+        "decode_batch group each; the backend may pipeline a pass "
+        "as several device groups)",
+    )
+    ks.counter(
+        "batch_decode", "ops_per_dispatch",
+        desc="objects rebuilt through coalesced decode passes "
+        "(cumulative; divide by dispatches for the mean objects "
+        "folded per pass)",
+    )
+
+
+_instance: ResidencyCache | None = None
+_instance_lock = threading.Lock()
+
+
+def residency_cache() -> ResidencyCache:
+    """The process-global cache (like the one CUDA context the
+    resident buffers live in)."""
+    global _instance
+    if _instance is None:
+        with _instance_lock:
+            if _instance is None:
+                _instance = ResidencyCache()
+    return _instance
+
+
+# -- shape bookkeeping -------------------------------------------------------
+
+def bucket_pow2(n: int, floor: int = 1) -> int:
+    """Next power of two >= max(n, floor) — the JAX package's
+    pad-and-slice bucket (kept for its callers' arithmetic; no port
+    route pads to it)."""
+    n = max(int(n), int(floor), 1)
+    return 1 << (n - 1).bit_length()
+
+
+_seen_shapes: set = set()
+_shapes_lock = threading.Lock()
+
+
+def note_shape(site: str, *shape) -> bool:
+    """Record one dispatch shape against the compile-cache counters: a
+    shape this process already dispatched at ``site`` is a hit, a fresh
+    one a miss.  Returns True on hit."""
+    key = (site, shape)
+    with _shapes_lock:
+        hit = key in _seen_shapes
+        if not hit:
+            _seen_shapes.add(key)
+    kernel_stats().record_cache(int(hit), int(not hit))
+    # attach the event to the active flight-recorder dispatch (the
+    # global counters above are the source of truth)
+    from .profiler import record_compile
+
+    record_compile(hit)
+    return hit

@@ -1,0 +1,891 @@
+"""ECStore — the erasure-coded data plane over per-shard object stores
+(the simplified ECBackend, src/osd/ECBackend.cc).
+
+One ObjectStore per shard plays the k+m OSDs.  ``put`` is the
+full-object write: pad to stripe multiples, batch-encode through the
+stripe seam, land each shard + its cumulative HashInfo crc in ONE
+transaction per shard (ECTransaction::encode_and_write's shape: shard
+writes and hinfo travel together).  ``write`` is the partial-overwrite
+RMW pipeline (ECBackend.cc:1858 start_rmw): a WritePlan decides which
+stripes need read-modify-write, reads come from the in-flight
+ExtentCache before the shards, writes per object are FIFO-ordered
+(the waiting_state/waiting_reads/waiting_commit lists collapsed to a
+per-object ticket queue), and only the affected stripe range is
+re-encoded and range-written.  Following the reference's ec_overwrites
+semantics, a partial overwrite invalidates the cumulative HashInfo
+(the reference stops maintaining hinfo on overwrite-enabled pools);
+scrub then verifies by re-encoding instead of per-shard crc.
+
+Reads fetch the k data shards, crc-verify where hinfo is valid, and
+widen to reconstruction when a shard is missing or corrupt
+(objects_read_and_reconstruct).  ``recover_shard`` rebuilds one shard
+from its minimum read set with REAL ranged reads — for CLAY profiles
+those are fractional-chunk reads (the ECUtil::decode sub-chunk
+plumbing) — and falls back to a crc-verified full decode if a helper
+was silently corrupt.  ``scrub`` is the per-shard crc audit of a PG
+deep scrub; ``scrub_batch`` digests every shard of many objects in one
+device call (``ops.scrub_kernels.batch_crc32c``), serving shards the
+residency cache holds without a second upload; ``recover_objects_batch``
+rebuilds one dead position for many objects in one batched decode.
+
+The codec's device is the profile's ``device`` key (default ``cuda``,
+as in ``osd.ec_pg.ECCodec``); the residency registrations and the
+scrub's crc run on the same device.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import threading
+
+import numpy as np
+import torch
+
+from ..ec import ErasureCodeProfile, registry_instance
+from ..ec.interface import ErasureCodeError
+from ..ec.stripe import (
+    HashInfo,
+    StripeInfo,
+    decode_concat,
+    encode as stripe_encode,
+    rmw_encode,
+)
+from ..native import ceph_crc32c
+from .objectstore import MemStore, ObjectStore, StoreError, Transaction
+from .pg_util import ObjectOpQueue, ScrubResult
+
+HINFO_KEY = "hinfo_key"  # the xattr name the reference uses
+
+
+class ExtentCache:
+    """In-flight/recent stripe contents per object (ExtentCache.h:120):
+    sequential RMW ops on one object reuse the stripes the previous op
+    just wrote instead of re-reading them from the shards.  Entries
+    live only while the object has ops in flight."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._stripes: dict[tuple[str, int], bytes] = {}
+        self._refs: dict[str, int] = {}
+
+    def open(self, name: str) -> None:
+        with self._lock:
+            self._refs[name] = self._refs.get(name, 0) + 1
+
+    def close(self, name: str) -> None:
+        with self._lock:
+            self._refs[name] -= 1
+            if self._refs[name] <= 0:
+                del self._refs[name]
+                for key in [k for k in self._stripes if k[0] == name]:
+                    del self._stripes[key]
+
+    def get(self, name: str, stripe: int) -> bytes | None:
+        with self._lock:
+            return self._stripes.get((name, stripe))
+
+    def put(self, name: str, stripe: int, data: bytes) -> None:
+        with self._lock:
+            if name in self._refs:
+                self._stripes[(name, stripe)] = data
+
+    def invalidate(self, name: str) -> None:
+        """Drop every cached stripe of ``name`` — a full-object write
+        replaced the content, so queued RMW ops must re-read (the
+        reference ExtentCache is repopulated by the write itself)."""
+        with self._lock:
+            for key in [k for k in self._stripes if k[0] == name]:
+                del self._stripes[key]
+
+
+class ECStore:
+    def __init__(
+        self,
+        plugin: str = "jerasure",
+        profile: dict | None = None,
+        stores: list[ObjectStore] | None = None,
+        stripe_width: int | None = None,
+        *,
+        ec=None,
+        cid: str = "ec_pool",
+        ensure_collections: bool = True,
+    ):
+        """``ec`` accepts a prebuilt codec (skipping the registry
+        factory); ``cid``/``ensure_collections`` let the OSD daemon
+        mount this machinery as a per-PG view over its own collection
+        and remote peers (the ECBackend-under-PrimaryLogPG shape)."""
+        if ec is None:
+            prof = ErasureCodeProfile(profile or {})
+            ec = registry_instance().factory(plugin, prof)
+        self.ec = ec
+        self.device = torch.device(ec.get_profile().get("device", "cuda"))
+        self.k = self.ec.get_data_chunk_count()
+        self.n = self.ec.get_chunk_count()
+        chunk = self.ec.get_chunk_size(
+            stripe_width if stripe_width else self.k * 4096
+        )
+        self.sinfo = StripeInfo(self.k, self.k * chunk)
+        self.stores = stores or [MemStore() for _ in range(self.n)]
+        assert len(self.stores) == self.n
+        self.cid = cid
+        if ensure_collections:
+            for store in self.stores:
+                try:
+                    store.queue_transaction(
+                        Transaction().create_collection(self.cid)
+                    )
+                except StoreError:
+                    pass  # already created (or shard unreachable)
+        # RMW pipeline state: per-object FIFO tickets (the reference's
+        # waiting_state/waiting_reads/waiting_commit op lists collapse
+        # to "ops on one object run in submission order"; ops on
+        # different objects run concurrently) + the extent cache
+        self._opq = ObjectOpQueue()
+        self._commit_seq = itertools.count(1)
+        self.extent_cache = ExtentCache()
+
+    # -- write path --------------------------------------------------------
+    def put(self, name: str, data: bytes, trace: str = "") -> None:
+        """Full-object write: pad to stripes, batch encode, one
+        transaction per shard carrying chunk bytes + hinfo.  When
+        shards are remote (RemoteStore sub-op proxies), ``trace``
+        rides every MECSubWrite so shard daemons record the same
+        span id (ECBackend.cc:886's sub-op tracing)."""
+        from .remote import trace_context
+
+        with trace_context(trace):
+            self._put_inner(name, data)
+
+    def _put_inner(self, name: str, data: bytes) -> None:
+        from ..common import tracing
+
+        logical = len(data)
+        padded_len = self.sinfo.logical_to_next_stripe_offset(logical)
+        padded = data + b"\0" * (padded_len - logical)
+        # per-stage child spans under the ambient daemon op: the
+        # device encode and the shard fan-out are the two stages a
+        # slow EC write can hide in
+        with tracing.span(
+            "ec_encode", tags={"oid": name, "size": logical}
+        ):
+            shards = stripe_encode(self.sinfo, self.ec, padded)
+        if not shards:  # zero-length object: n empty shards
+            shards = {
+                i: np.zeros(0, dtype=np.uint8) for i in range(self.n)
+            }
+        hinfo = HashInfo(self.n)
+        hinfo.append(0, shards)
+        meta = {
+            "size": logical,
+            "hashes": hinfo.cumulative_shard_hashes,
+        }
+        # full-object writes order through the same per-object ticket
+        # queue as RMW writes: interleaving put's per-shard
+        # transactions with a concurrent write()'s would leave shards
+        # encoding two different logical states
+        ticket = self._enter(name)
+        try:
+            with tracing.span("ec_shard_writes", tags={"oid": name}) as sp:
+                for i, store in enumerate(self.stores):
+                    self._write_shard(
+                        store, name, bytes(shards[i]), meta
+                    )
+                    sp.mark_event(f"shard_{i}_applied")
+        finally:
+            # queued RMW ops must not reuse stripes of the replaced
+            # content — even when a shard write failed partway, the
+            # cached stripes no longer match what landed
+            self.extent_cache.invalidate(name)
+            self._exit(name, ticket)
+
+    # -- partial-overwrite RMW pipeline ------------------------------------
+    def _enter(self, name: str) -> int:
+        """Queue behind in-flight ops on this object (waiting_state)."""
+        return self._opq.enter(
+            name, on_enter=lambda: self.extent_cache.open(name)
+        )
+
+    def _exit(self, name: str, ticket: int) -> int:
+        def on_exit():
+            self.extent_cache.close(name)
+            return next(self._commit_seq)
+
+        return self._opq.exit(name, ticket, on_exit=on_exit)
+
+    def write(self, name: str, offset: int, data: bytes) -> int:
+        """Partial overwrite with read-modify-write (start_rmw,
+        ECBackend.cc:1858).  Returns the commit sequence number (ops on
+        one object commit in submission order).
+
+        The WritePlan: only the head/tail stripes that are partially
+        covered AND hold pre-existing bytes need reading; fully-covered
+        and beyond-EOF stripes encode fresh.  Reads hit the ExtentCache
+        before the shards.  Per the reference's ec_overwrites
+        semantics, the object's cumulative HashInfo is invalidated
+        (scrub falls back to re-encode consistency checking)."""
+        data = bytes(data)
+        if not data:
+            return 0
+        sw = self.sinfo.stripe_width
+        cs = self.sinfo.chunk_size
+        ticket = self._enter(name)
+        try:
+            try:
+                meta = self._shard_meta(name)
+                old_size = meta["size"]
+            except ErasureCodeError:
+                meta = None
+                old_size = 0
+            if meta is not None:
+                # overwriting a degraded object would auto-create
+                # short zero-filled shards and lose data that is still
+                # reconstructible — recover missing/truncated shards
+                # first (the wait_for_degraded_object barrier before
+                # ECBackend::submit_transaction)
+                self._recover_degraded(name, old_size)
+            def read_cached(stripes: list[int]):
+                """ExtentCache first, shard reads for the rest (the
+                objects_read_async_no_cache hop inside start_rmw)."""
+                existing: dict[int, np.ndarray] = {}
+                to_read = []
+                for s in stripes:
+                    cached = self.extent_cache.get(name, s)
+                    if cached is not None:
+                        existing[s] = np.frombuffer(
+                            cached, dtype=np.uint8
+                        )
+                    else:
+                        to_read.append(s)
+                existing.update(self.read_stripes(name, to_read))
+                return existing
+
+            first, end, buf, shards = rmw_encode(
+                self.sinfo, self.ec, offset, data, old_size,
+                read_cached,
+            )
+            new_meta = {"size": max(old_size, offset + len(data))}
+            blob = json.dumps(new_meta).encode()
+            for i, store in enumerate(self.stores):
+                # the write op auto-creates the object; no touch needed
+                txn = Transaction()
+                txn.write(self.cid, name, first * cs, bytes(shards[i]))
+                txn.setattr(self.cid, name, HINFO_KEY, blob)
+                store.queue_transaction(txn)
+            for s in range(first, end):
+                self.extent_cache.put(
+                    name,
+                    s,
+                    bytes(buf[(s - first) * sw : (s - first + 1) * sw]),
+                )
+        except BaseException:
+            # shards may hold a half-landed write; cached stripes from
+            # earlier ops no longer describe what is on disk
+            self.extent_cache.invalidate(name)
+            raise
+        finally:
+            seq = self._exit(name, ticket)
+        return seq
+
+    def _recover_degraded(self, name: str, old_size: int) -> None:
+        """Rebuild any missing/truncated shard before a partial
+        overwrite lands range writes on it."""
+        expected = (
+            self.sinfo.logical_to_next_chunk_offset(old_size)
+        )
+        if expected == 0:
+            # empty object: every shard is empty or auto-creates
+            # uniformly; nothing to rebuild
+            return
+        for i, store in enumerate(self.stores):
+            try:
+                if store.stat(self.cid, name) == expected:
+                    continue
+            except StoreError:
+                pass
+            self._recover_locked(name, i)
+
+    def read_stripes(
+        self, name: str, stripes: list[int]
+    ) -> dict[int, np.ndarray]:
+        """Ranged stripe reads for RMW: data shards first, widening to
+        reconstruction when one fails (the objects_read_async_no_cache
+        hop inside start_rmw)."""
+        cs = self.sinfo.chunk_size
+        out: dict[int, np.ndarray] = {}
+        for s in stripes:
+            chunks: dict[int, np.ndarray] = {}
+            want = {self.ec.chunk_index(i) for i in range(self.k)}
+            for widen in (sorted(want), range(self.n)):
+                for i in widen:
+                    if i in chunks:
+                        continue
+                    try:
+                        raw = self.stores[i].read(
+                            self.cid, name, s * cs, cs
+                        )
+                    except StoreError:
+                        continue
+                    if len(raw) == cs:
+                        chunks[i] = np.frombuffer(raw, dtype=np.uint8)
+                if want <= set(chunks) or len(chunks) >= self.k:
+                    break
+            out[s] = decode_concat(self.sinfo, self.ec, chunks)
+        return out
+
+    def _write_shard(
+        self,
+        store: ObjectStore,
+        name: str,
+        shard: bytes,
+        meta: dict,
+        dev=None,
+    ) -> None:
+        """The one shard-write shape (remove+touch+write+hinfo in a
+        single transaction), shared by put and recovery.  ``dev``
+        registers an already-resident device array (a batched-decode
+        output slice — device-born, zero extra transfer) instead of
+        the host bytes."""
+        txn = Transaction()
+        if store.exists(self.cid, name):
+            txn.remove(self.cid, name)
+        txn.touch(self.cid, name)
+        txn.write(self.cid, name, 0, shard)
+        txn.setattr(self.cid, name, HINFO_KEY, json.dumps(meta).encode())
+        store.queue_transaction(txn)
+        # register AFTER the txn (the entry records the post-txn
+        # generation; any later txn on the shard invalidates it)
+        from ..ops.residency import residency_cache
+
+        if dev is not None:
+            residency_cache().put_committed(
+                store, self.cid, name, dev=dev
+            )
+        else:
+            residency_cache().put_committed(
+                store, self.cid, name, data=shard, device=self.device
+            )
+
+    # -- read path ---------------------------------------------------------
+    def _shard_meta(self, name: str) -> dict:
+        for store in self.stores:
+            try:
+                return json.loads(store.getattr(self.cid, name, HINFO_KEY))
+            except StoreError:
+                continue
+        raise ErasureCodeError(f"object {name} not found (-ENOENT)")
+
+    def meta(self, name: str) -> dict:
+        """Object meta ({"size", "hashes"}) from the first reachable
+        shard's HashInfo xattr (raises ErasureCodeError on -ENOENT)."""
+        return self._shard_meta(name)
+
+    def size(self, name: str) -> int:
+        return self._shard_meta(name)["size"]
+
+    def _read_verified(self, name: str, meta: dict, shard: int):
+        try:
+            raw = self.stores[shard].read(self.cid, name)
+        except StoreError:
+            return None
+        hashes = meta.get("hashes")
+        if hashes is not None and ceph_crc32c(0xFFFFFFFF, raw) != hashes[shard]:
+            return None
+        return np.frombuffer(raw, dtype=np.uint8)
+
+    def _gather(
+        self, name: str, meta: dict, want: set[int] | None = None
+    ) -> dict[int, np.ndarray]:
+        """crc-verified shard reads; corrupt/missing shards are simply
+        absent, like failed shard reads."""
+        shards: dict[int, np.ndarray] = {}
+        for i in range(self.n) if want is None else sorted(want):
+            got = self._read_verified(name, meta, i)
+            if got is not None:
+                shards[i] = got
+        return shards
+
+    def get(self, name: str) -> bytes:
+        """Read with reconstruction
+        (ECBackend::objects_read_and_reconstruct): fast path reads only
+        the k data shards; any failure widens to every shard.  Reads
+        order through the per-object ticket queue so they never observe
+        a half-landed multi-shard write."""
+        from ..common import tracing
+
+        ticket = self._enter(name)
+        try:
+            with tracing.span("ec_read", tags={"oid": name}) as sp:
+                meta = self._shard_meta(name)
+                if meta["size"] == 0:
+                    return b""
+                want = {self.ec.chunk_index(i) for i in range(self.k)}
+                chunks = self._gather(name, meta, want)
+                if set(chunks) != want:
+                    # reconstruct path: top up with the shards not
+                    # yet read
+                    sp.mark_event("widen_to_reconstruct")
+                    chunks.update(
+                        self._gather(
+                            name, meta,
+                            set(range(self.n)) - set(chunks),
+                        )
+                    )
+                sp.mark_event("shards_gathered")
+                data = decode_concat(self.sinfo, self.ec, chunks)
+                return bytes(data[: meta["size"]])
+        finally:
+            self._exit(name, ticket)
+
+    # -- scrub / recovery --------------------------------------------------
+    def scrub(self, name: str) -> ScrubResult:
+        """Deep scrub: per-shard crc audit where hinfo is valid; for
+        partially-overwritten objects (hinfo invalidated, matching the
+        reference's ec_overwrites behavior) fall back to re-encoding
+        the data shards and comparing every shard — a consistency
+        check that cannot attribute the fault to one shard."""
+        ticket = self._enter(name)
+        try:
+            return self._scrub_locked(name)
+        finally:
+            self._exit(name, ticket)
+
+    def scrub_batch(self, names) -> dict[str, ScrubResult]:
+        """Device-batched deep scrub of many objects: every shard of
+        every object rides ONE batched crc32c call on the store's
+        device (ops/scrub_kernels.batch_crc32c) instead of a per-shard
+        CPU crc loop; hinfo-less objects still take the per-object
+        re-encode fallback.  Findings are identical to scrub() by
+        construction (same hashes, same compare)."""
+        from ..ops.residency import (
+            residency_cache,
+            scrub_trusted as _scrub_trusted,
+        )
+        from ..ops.scrub_kernels import batch_crc32c
+
+        results: dict[str, ScrubResult] = {}
+        raws: dict[str, dict[int, bytes]] = {}
+        metas: dict[str, dict] = {}
+        bufs: list[bytes] = []
+        where: list[tuple[str, int]] = []
+        tickets = {n: self._enter(n) for n in dict.fromkeys(names)}
+        try:
+            for name in tickets:
+                result = results[name] = ScrubResult()
+                try:
+                    meta = self._shard_meta(name)
+                except ErasureCodeError:
+                    continue  # absent everywhere: nothing to audit
+                metas[name] = meta
+                raws[name] = {}
+                has_hashes = meta.get("hashes") is not None
+                for i, store in enumerate(self.stores):
+                    if has_hashes and _scrub_trusted(store):
+                        # generation-checked residency: a hit is the
+                        # shard the last committed txn landed, already
+                        # on device — zero-transfer digest.  Any txn
+                        # since registration (overwrite, delete,
+                        # injected corruption) misses and the disk
+                        # read below is audited instead.  Persistent
+                        # media is never served from cache (deep
+                        # scrub audits its out-of-band rot).
+                        buf = residency_cache().get(
+                            store, self.cid, name
+                        )
+                        if buf is not None:
+                            bufs.append(buf)
+                            where.append((name, i))
+                            continue
+                    try:
+                        raw = store.read(self.cid, name)
+                    except StoreError:
+                        result.missing.append(i)
+                        continue
+                    raws[name][i] = raw
+                    if has_hashes:
+                        bufs.append(raw)
+                        where.append((name, i))
+            if bufs:
+                crcs = batch_crc32c(bufs, 0xFFFFFFFF, device=self.device)
+                for (name, i), crc in zip(where, crcs):
+                    if int(crc) != metas[name]["hashes"][i]:
+                        results[name].corrupt.append(i)
+            for name, meta in metas.items():
+                result = results[name]
+                if (
+                    meta.get("hashes") is None
+                    and not result.missing
+                    and meta["size"]
+                ):
+                    # per-object re-encode fallback, same as scrub()
+                    data_chunks = {
+                        self.ec.chunk_index(i) for i in range(self.k)
+                    }
+                    logical = decode_concat(
+                        self.sinfo,
+                        self.ec,
+                        {
+                            i: np.frombuffer(
+                                raws[name][i], dtype=np.uint8
+                            )
+                            for i in sorted(data_chunks)
+                        },
+                    )
+                    reencoded = stripe_encode(
+                        self.sinfo, self.ec, logical
+                    )
+                    for i in range(self.n):
+                        if bytes(reencoded[i]) != raws[name][i]:
+                            result.inconsistent = True
+                            break
+        finally:
+            for name, ticket in tickets.items():
+                self._exit(name, ticket)
+        return results
+
+    def _scrub_locked(self, name: str) -> ScrubResult:
+        meta = self._shard_meta(name)
+        result = ScrubResult()
+        hashes = meta.get("hashes")
+        raws: dict[int, bytes] = {}
+        for i, store in enumerate(self.stores):
+            try:
+                raws[i] = store.read(self.cid, name)
+            except StoreError:
+                result.missing.append(i)
+                continue
+            if (
+                hashes is not None
+                and ceph_crc32c(0xFFFFFFFF, raws[i]) != hashes[i]
+            ):
+                result.corrupt.append(i)
+        if hashes is None and not result.missing and meta["size"]:
+            data_chunks = {
+                self.ec.chunk_index(i) for i in range(self.k)
+            }
+            logical = decode_concat(
+                self.sinfo,
+                self.ec,
+                {
+                    i: np.frombuffer(raws[i], dtype=np.uint8)
+                    for i in sorted(data_chunks)
+                },
+            )
+            reencoded = stripe_encode(self.sinfo, self.ec, logical)
+            for i in range(self.n):
+                if bytes(reencoded[i]) != raws[i]:
+                    result.inconsistent = True
+                    break
+        return result
+
+    def recover_shard(
+        self, name: str, shard: int, meta: dict | None = None
+    ) -> int:
+        """Rebuild one shard from its minimum read set and rewrite it
+        (RecoveryOp: READING -> WRITING).  Reads are REAL ranged
+        store reads; a failed rebuild crc (silently corrupt helper)
+        falls back to a crc-verified full decode.  Returns helper
+        bytes read."""
+        ticket = self._enter(name)
+        try:
+            return self._recover_locked(name, shard, meta)
+        finally:
+            self._exit(name, ticket)
+
+    def _recover_locked(self, name: str, shard: int, meta=None) -> int:
+        rebuilt, read_bytes, meta = self.reconstruct_shard(
+            name, shard, meta
+        )
+        self._write_shard(self.stores[shard], name, rebuilt, meta)
+        return read_bytes
+
+    def reconstruct_shard(
+        self, name: str, shard: int, meta: dict | None = None
+    ) -> tuple[bytes, int, dict]:
+        """Rebuild one shard's bytes WITHOUT writing them — the OSD
+        daemon uses this to serve recovery pulls and pushes where the
+        write travels in its own logged transaction.  ``meta`` lets an
+        authoritative caller pin the HashInfo (a rewinding peer may
+        still hold stale hinfo).  Returns (bytes, helper_bytes_read,
+        meta)."""
+        if meta is None:
+            meta = self._shard_meta(name)
+        available = set()
+        for i in range(self.n):
+            if i == shard:
+                continue
+            try:
+                if self.stores[i].exists(self.cid, name):
+                    available.add(i)
+            except StoreError:
+                pass  # unreachable shard: not a helper candidate
+        read_bytes = 0
+        rebuilt = None
+        hashes = meta.get("hashes")
+        try:
+            rebuilt, read_bytes = self._repair_minimum(
+                name, meta, shard, available
+            )
+        except (ErasureCodeError, StoreError):
+            # e.g. a truncated helper (length-checked in
+            # _repair_minimum); the verified path filters it by crc
+            rebuilt = None
+        if rebuilt is None or (
+            hashes is not None
+            and ceph_crc32c(0xFFFFFFFF, bytes(rebuilt)) != hashes[shard]
+        ):
+            # helper was corrupt or repair unsupported: verified path
+            shards = self._gather(name, meta)
+            shards.pop(shard, None)
+            read_bytes += sum(len(c) for c in shards.values())
+            decoded = self.ec._decode({shard}, shards)
+            rebuilt = np.ascontiguousarray(decoded[shard], dtype=np.uint8)
+            if (
+                hashes is not None
+                and ceph_crc32c(0xFFFFFFFF, bytes(rebuilt))
+                != hashes[shard]
+            ):
+                raise ErasureCodeError(
+                    f"rebuilt shard {shard} fails its hinfo crc (-EIO)"
+                )
+        return bytes(rebuilt), read_bytes, meta
+
+    def _repair_minimum(self, name, meta, shard, available):
+        """Minimum-read rebuild with ranged reads (trusting helpers,
+        like the reference's repair reads — corruption is caught by the
+        rebuilt-shard crc)."""
+        minimum = self.ec.minimum_to_decode({shard}, available)
+        chunk_len = self.sinfo.chunk_size
+        lengths = {
+            h: self.stores[h].stat(self.cid, name) for h in minimum
+        }
+        shard_len = max(lengths.values())
+        short = [h for h, n in lengths.items() if n != shard_len]
+        if short or shard_len % chunk_len:
+            raise StoreError(
+                f"helper shards truncated or misaligned: {short}"
+            )
+        sub_count = self.ec.get_sub_chunk_count()
+        read_bytes = 0
+        if sub_count > 1 and any(
+            runs != [(0, sub_count)] for runs in minimum.values()
+        ):
+            # fractional repair, stripe by stripe (the ECUtil::decode
+            # subchunk loop, src/osd/ECUtil.cc:82-116)
+            nstripes = shard_len // chunk_len
+            sc = chunk_len // sub_count
+            parts = []
+            for s in range(nstripes):
+                base = s * chunk_len
+                partial = {}
+                for helper, runs in minimum.items():
+                    segs = [
+                        self.stores[helper].read(
+                            self.cid, name, base + off * sc, cnt * sc
+                        )
+                        for off, cnt in runs
+                    ]
+                    buf = np.frombuffer(
+                        b"".join(segs), dtype=np.uint8
+                    )
+                    read_bytes += len(buf)
+                    partial[helper] = buf
+                decoded = self.ec.decode({shard}, partial, chunk_len)
+                parts.append(decoded[shard])
+            return np.concatenate(parts), read_bytes
+        chunks = {}
+        for helper in minimum:
+            raw = self.stores[helper].read(self.cid, name)
+            read_bytes += len(raw)
+            chunks[helper] = np.frombuffer(raw, dtype=np.uint8)
+        decoded = self.ec._decode({shard}, chunks)
+        return (
+            np.ascontiguousarray(decoded[shard], dtype=np.uint8),
+            read_bytes,
+        )
+
+    # -- batched recovery ----------------------------------------------------
+    def reconstruct_shards_batch(
+        self, names, shard: int, metas: dict | None = None
+    ):
+        """Rebuild ONE missing shard position for MANY objects through
+        a single coalesced decode-from-survivors dispatch (the
+        repair-side twin of the batched write path).  Survivor reads
+        honor ``minimum_to_decode`` — an LRC repair touches k_local ≪
+        k helpers, and the fan-in is MEASURED in the returned stats —
+        and consult the residency cache first (a survivor the encode
+        path just registered rides the dispatch with zero re-upload).
+
+        Returns (results, fallback, stats): ``results`` maps name →
+        (payload, meta) where payload is host bytes or a device-born
+        DeviceBuf, crc-verified against hinfo where it exists;
+        ``fallback`` lists names the batched path could not serve
+        (absent objects, fractional-repair profiles, short/corrupt
+        helpers) — callers route those through the per-op
+        :meth:`reconstruct_shard`, which widens and verifies.
+        ``stats`` counts survivor fan-in: ``survivor_shards`` (helper
+        shards consulted per the whole batch), ``read_bytes`` (bytes
+        actually read from stores — residency hits cost zero), and
+        ``residency_hits``."""
+        from ..ops.residency import (
+            residency_cache,
+            scrub_trusted as _scrub_trusted,
+        )
+        from ..ec.stripe import decode_batch
+
+        metas = metas or {}
+        results: dict[str, tuple] = {}
+        fallback: list[str] = []
+        stats = {
+            "survivor_shards": 0,
+            "read_bytes": 0,
+            "residency_hits": 0,
+        }
+        todo: list[str] = []
+        sets: list[dict] = []
+        obj_meta: dict[str, dict] = {}
+        # a position whose store errored once this batch is DEAD for
+        # the whole batch: re-probing it per object would hold the
+        # caller for a full sub-op timeout PER OBJECT (a freshly
+        # killed peer's session conn blocks, not refuses)
+        dead_positions: set[int] = set()
+        for name in dict.fromkeys(names):
+            meta = metas.get(name)
+            if meta is None:
+                try:
+                    meta = self._shard_meta(name)
+                except ErasureCodeError:
+                    fallback.append(name)
+                    continue
+            obj_meta[name] = meta
+            expected = self.sinfo.logical_to_next_chunk_offset(
+                meta["size"]
+            )
+            if expected == 0:
+                results[name] = (b"", meta)
+                continue
+            available = set()
+            for i in range(self.n):
+                if i == shard or i in dead_positions:
+                    continue
+                try:
+                    if self.stores[i].exists(self.cid, name):
+                        available.add(i)
+                except StoreError:
+                    dead_positions.add(i)
+            try:
+                minimum = self.ec.minimum_to_decode(
+                    {shard}, available
+                )
+            except ErasureCodeError:
+                fallback.append(name)
+                continue
+            sub = self.ec.get_sub_chunk_count()
+            if any(runs != [(0, sub)] for runs in minimum.values()):
+                # fractional (CLAY) repair: the per-op sub-chunk
+                # plumbing reads strictly less — never regress it to
+                # a whole-shard batch
+                fallback.append(name)
+                continue
+            survivors: dict[int, object] = {}
+            short = False
+            for pos in minimum:
+                store = self.stores[pos]
+                payload = None
+                if _scrub_trusted(store):
+                    payload = residency_cache().get(
+                        store, self.cid, name, expect_len=expected
+                    )
+                    if payload is not None:
+                        stats["residency_hits"] += 1
+                if payload is None:
+                    try:
+                        raw = store.read(self.cid, name)
+                    except StoreError:
+                        dead_positions.add(pos)
+                        short = True
+                        break
+                    if len(raw) != expected:
+                        short = True
+                        break
+                    stats["read_bytes"] += len(raw)
+                    payload = raw
+                survivors[pos] = payload
+            if short:
+                fallback.append(name)
+                continue
+            stats["survivor_shards"] += len(survivors)
+            todo.append(name)
+            sets.append(survivors)
+        if todo:
+            rebuilt = decode_batch(
+                self.sinfo, self.ec, sets, {shard}
+            )
+            for name, rec in zip(todo, rebuilt):
+                meta = obj_meta[name]
+                payload = rec[shard]
+                hashes = meta.get("hashes")
+                if hashes is not None:
+                    host = (
+                        payload.host()
+                        if hasattr(payload, "host")
+                        else bytes(payload)
+                    )
+                    if ceph_crc32c(0xFFFFFFFF, host) != hashes[shard]:
+                        # a silently-corrupt helper: the per-op
+                        # verified path filters it by crc
+                        fallback.append(name)
+                        continue
+                results[name] = (payload, meta)
+        return results, fallback, stats
+
+    def recover_objects_batch(self, names, shard: int) -> dict:
+        """Whole-PG rebuild of one dead shard position: batched
+        decode-from-survivors, then one shard-write per object —
+        reconstructed payloads registered device-born where the
+        device path ran (the next deep scrub digests them without a
+        transfer).  Objects the batched path cannot serve degrade to
+        the per-op verified :meth:`recover_shard` path.  Returns the
+        fan-in/throughput stats (plus ``objects``/``batched``)."""
+        tickets = {n: self._enter(n) for n in dict.fromkeys(names)}
+        try:
+            results, fallback, stats = self.reconstruct_shards_batch(
+                list(tickets), shard
+            )
+            for name, (payload, meta) in results.items():
+                if hasattr(payload, "host"):
+                    self._write_shard(
+                        self.stores[shard], name, payload.host(),
+                        meta, dev=payload.device(),
+                    )
+                else:
+                    self._write_shard(
+                        self.stores[shard], name, bytes(payload), meta
+                    )
+            recovered = 0
+            for name in fallback:
+                try:
+                    stats["read_bytes"] += self._recover_locked(
+                        name, shard
+                    )
+                    recovered += 1
+                except (ErasureCodeError, StoreError):
+                    pass  # absent everywhere / unreachable helpers
+            stats["objects"] = len(results) + recovered
+            stats["batched"] = len(results)
+            return stats
+        finally:
+            for name, ticket in tickets.items():
+                self._exit(name, ticket)
+
+    def lose_shard(self, name: str, shard: int) -> None:
+        self.stores[shard].queue_transaction(
+            Transaction().remove(self.cid, name)
+        )
+
+    def corrupt_shard(self, name: str, shard: int, offset: int = 0) -> None:
+        raw = bytearray(self.stores[shard].read(self.cid, name))
+        raw[offset] ^= 0xFF
+        self.stores[shard].queue_transaction(
+            Transaction().write(self.cid, name, 0, bytes(raw))
+        )

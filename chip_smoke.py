@@ -55,8 +55,26 @@ script exits non-zero:
    against ``device="cpu"``; end-to-end and device-resident mappings/s,
    a ``torch.profiler`` split of one chunk, crushtool's statistics; the
    straw2 golden vectors of the reference C; one ``{"crush": ...}`` line;
-6. one JSON line describing each kernel;
-7. the last line, ``{"ok": true, "device": {...}}``.
+6. the store data plane on ``device="cuda"`` at one PG's size, with the
+   launch counts zeroed before and both non-zero after: an ``ECStore``
+   (isa k=8 m=3, stripe unit 4096) over 11 ``MemStore``s with 256
+   seeded objects of 4 MiB, the residency cache sized to hold the PG;
+   ``put`` of every object, two ``scrub_batch`` passes (clean, residency
+   hits growing), three seeded corrupt shards flagged exactly and
+   repaired, position 1 lost on every object and rebuilt by one
+   ``recover_objects_batch`` equal to the original bytes, a clean scrub,
+   then degraded ``get`` with shards {1, 9} lost; ``batch_crc32c`` over
+   every shard of the PG equal to the host C crc32c and the HashInfo
+   hashes, again on resident ``DeviceBuf``s with zero upload bytes, and
+   the golden vectors; ``batch_compare`` against copies with seeded
+   one-byte flips equal to the host's verdicts; a ``ReplicatedStore``
+   (3 replicas) over the same objects scrubbed clean, one corrupt
+   replica flagged and recovered; put, scrub, recovery and degraded-read
+   GB/s, the crc and compare times on the card beside their bounds, the
+   host C crc's time and the dispatch profiler's breakdown, beside the
+   card's name and power limit; one ``{"store": ...}`` line;
+7. one JSON line describing each kernel;
+8. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -69,6 +87,7 @@ import contextlib
 import io
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -261,9 +280,9 @@ def phase_main_path():
         [np.concatenate([s, o], axis=1)[:, i].reshape(-1) for i in survivors]
         for s, o in zip(batches, outs)
     ]
-    rec = backend.decode_stripes_batch(dec, row_sets, 8, 4096)
+    rec = backend.decode_stripes_batch(dec, row_sets, 8, 4096)  # stays on the card
     for s, r in zip(batches, rec):
-        check(np.array_equal(r, s[:, [1, 6]]), "batched decode")
+        check(r.is_cuda and np.array_equal(r.cpu().numpy(), s[:, [1, 6]]), "batched decode")
     print(f"[3] batched encode of {len(batches)} objects and decode of their "
           "erased chunks {1,6} equal the per-object results")
     out = io.StringIO()
@@ -439,6 +458,9 @@ def _eccodec_isa(rng) -> dict:
     before = bitplane_gf.launches
     t0 = time.perf_counter()
     rec = codec.decode_object_batch(survivors, want)
+    for r in rec:  # numpy out: the device-born DeviceBufs fetched to the host
+        for p in want:
+            r[p].host()
     dec_s = time.perf_counter() - t0
     launched = bitplane_gf.launches - before
     check(launched == expect, f"ECCodec decode: K2 launched {launched} times, expected {expect}")
@@ -900,10 +922,281 @@ def phase_crush(smi: str) -> dict:
             **rows, "golden_checked": golden}
 
 
+STORE_OBJECTS = 256
+STORE_OBJECT_BYTES = 4 << 20  # the RADOS default object size
+STORE_REPLICAS = 3
+STORE_DEVICE = "cuda"
+# the EC PG's 1.375 GiB of shards and the replicated PG's 3 GiB of copies
+RESIDENCY_BYTES = 6 << 30
+
+
+def _scrub_flags(results: dict) -> list:
+    """(name, position) of every finding of a scrub_batch, sorted; a
+    missing or inconsistent finding is reported as such."""
+    flags = []
+    for name, r in results.items():
+        flags += [(name, p) for p in r.corrupt]
+        flags += [(name, "missing", p) for p in r.missing]
+        if r.inconsistent:
+            flags.append((name, "inconsistent"))
+    return sorted(flags, key=str)
+
+
+def _kind_delta(before: dict, after: dict, kind: str) -> dict:
+    a, b = after.get(kind, {}), before.get(kind, {})
+    return {f: a.get(f, 0) - b.get(f, 0) for f in ("dispatches", "bytes_in", "bytes_uploaded",
+                                                     "bytes_resident")}
+
+
+def _ec_store(rng, datas: dict) -> dict:
+    """The EC PG: put, scrub twice, corrupt and repair, lose a position
+    and rebuild it in one batched decode, scrub, degraded reads."""
+    from ceph_tpu_torch.ops.profiler import dispatch_profiler
+    from ceph_tpu_torch.ops.residency import residency_cache
+    from ceph_tpu_torch.store import ECStore
+
+    ecs = ECStore(plugin="isa", profile={"k": "8", "m": "3", "device": STORE_DEVICE})
+    names = list(datas)
+    cache, prof = residency_cache(), dispatch_profiler()
+    check(cache.capacity_bytes == RESIDENCY_BYTES,
+          f"residency cache holds {cache.capacity_bytes} B, not {RESIDENCY_BYTES}")
+    t0 = time.perf_counter()
+    for name in names:
+        ecs.put(name, datas[name])
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    shard_len = ecs.stores[0].stat(ecs.cid, names[0])
+    shard_bytes = len(names) * ecs.n * shard_len
+    out = {"put_s": put_s, "shard_bytes": shard_bytes, "stripe_width": ecs.sinfo.stripe_width}
+    for label in ("first", "second"):
+        hits, tot = cache.stats()["hits"], prof.totals()
+        t0 = time.perf_counter()
+        res = ecs.scrub_batch(names)
+        out[f"scrub_{label}_s"] = time.perf_counter() - t0
+        check(not _scrub_flags(res), f"{label} scrub of a clean PG: {_scrub_flags(res)[:5]}")
+        grew = cache.stats()["hits"] - hits
+        check(grew == len(names) * ecs.n, f"{label} scrub: residency hits grew by {grew}")
+        out[f"scrub_{label}_crc32c"] = _kind_delta(tot, prof.totals(), "crc32c")
+    check(out["scrub_second_crc32c"]["bytes_uploaded"] == 0,
+          f"the second scrub uploaded {out['scrub_second_crc32c']}")
+    # every shard of the PG and its HashInfo hash, for the crc section
+    shards = [ecs.stores[p].read(ecs.cid, name) for name in names for p in range(ecs.n)]
+    hashes = [h for name in names for h in ecs.meta(name)["hashes"]]
+    print(f"[6] ECStore isa k=8 m=3: {len(names)} objects of {STORE_OBJECT_BYTES} B put "
+          f"({shard_bytes} B of shards in {ecs.n} MemStores); two scrub_batch passes clean, "
+          f"residency hits +{len(names) * ecs.n} each; crc32c bytes uploaded "
+          f"{out['scrub_first_crc32c']['bytes_uploaded']} then "
+          f"{out['scrub_second_crc32c']['bytes_uploaded']}")
+    picks = rng.choice(len(names) * ecs.n, 3, replace=False)
+    pairs = sorted(((names[int(i) // ecs.n], int(i) % ecs.n) for i in picks), key=str)
+    for name, pos in pairs:
+        ecs.corrupt_shard(name, pos, offset=int(rng.integers(0, shard_len)))
+    flags = _scrub_flags(ecs.scrub_batch(names))
+    check(flags == pairs, f"scrub after corrupting {pairs} flagged {flags}")
+    for name, pos in pairs:
+        ecs.recover_shard(name, pos)
+    print(f"[6] corrupt_shard {pairs}: the next scrub_batch flagged exactly those; repaired")
+    originals = {name: ecs.stores[1].read(ecs.cid, name) for name in names}
+    for name in names:
+        ecs.lose_shard(name, 1)
+    t0 = time.perf_counter()
+    stats = ecs.recover_objects_batch(names, 1)
+    torch.cuda.synchronize()
+    out["recover_s"] = time.perf_counter() - t0
+    out["recover_stats"] = stats
+    check(stats["batched"] == len(names) and stats["objects"] == len(names),
+          f"recover_objects_batch: {stats}")
+    for name in names:
+        check(ecs.stores[1].read(ecs.cid, name) == originals[name], f"rebuilt shard 1 of {name}")
+    out["recover_bytes"] = sum(len(v) for v in originals.values())
+    del originals
+    flags = _scrub_flags(ecs.scrub_batch(names))
+    check(not flags, f"scrub after recovery: {flags[:5]}")
+    print(f"[6] position 1 lost on every object and rebuilt by one recover_objects_batch "
+          f"({stats}): every shard equal to the original; the next scrub clean")
+    for name in names:
+        ecs.lose_shard(name, 1)
+        ecs.lose_shard(name, 9)
+    t0 = time.perf_counter()
+    for name in names:
+        check(ecs.get(name) == datas[name], f"degraded get of {name}")
+    out["get_s"] = time.perf_counter() - t0
+    print(f"[6] degraded get with shards {{1, 9}} lost: all {len(names)} payloads byte-exact")
+    return out, shards, hashes
+
+
+def _crc_on_card(rng, shards: list, hashes: list) -> dict:
+    """batch_crc32c and batch_compare over every shard of the EC PG, on
+    host bytes and on resident DeviceBufs, timed beside their bounds and
+    the host C crc32c."""
+    from ceph_tpu_torch.native import ceph_crc32c
+    from ceph_tpu_torch.ops import scrub_kernels as sk
+    from ceph_tpu_torch.ops.profiler import dispatch_profiler
+    from ceph_tpu_torch.ops.residency import DeviceBuf
+    from ceph_tpu_torch.tools.timing import time_ms
+
+    dev = torch.device(STORE_DEVICE)
+    total = sum(map(len, shards))
+    t0 = time.perf_counter()
+    host = [ceph_crc32c(0xFFFFFFFF, s) for s in shards]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(host == hashes, "host crc32c != HashInfo")
+    t0 = time.perf_counter()
+    got = sk.batch_crc32c(shards, 0xFFFFFFFF, device=dev)
+    upload_call_ms = (time.perf_counter() - t0) * 1e3
+    check([int(c) for c in got] == host, "batch_crc32c of host bytes != host crc32c")
+    bufs = [DeviceBuf(data=s, device=dev) for s in shards]
+    for b in bufs:
+        b.device()
+    torch.cuda.synchronize()
+    prof = dispatch_profiler()
+    before = prof.totals()
+    t0 = time.perf_counter()
+    got = sk.batch_crc32c(bufs, 0xFFFFFFFF, device=dev)
+    resident_call_ms = (time.perf_counter() - t0) * 1e3
+    rec = _kind_delta(before, prof.totals(), "crc32c")
+    check([int(c) for c in got] == host, "batch_crc32c of resident DeviceBufs != host crc32c")
+    check(rec["bytes_uploaded"] == 0 and rec["bytes_resident"] == total,
+          f"resident batch_crc32c moved bytes: {rec}")
+    for init, payload, want in sk.GOLDEN_VECTORS:
+        check(int(sk.batch_crc32c([payload], init, device=dev)[0]) == want,
+              f"golden vector {payload!r}")
+    print(f"[6] batch_crc32c on the card: {len(shards)} shards ({total} B) equal to the host C "
+          f"crc32c and the HashInfo hashes, from host bytes and from resident DeviceBufs "
+          f"(0 B uploaded, {total} B resident); golden vectors equal")
+    width = max(map(len, shards))
+    rows = sk._gather_rows(bufs, width, dev, align_right=True)
+    nchunks = width // sk._CHUNK
+    gc_t = sk._device_chunk_matrix(sk._CHUNK, dev)
+    hc_t = sk._device_combine_matrix(sk._CHUNK, nchunks, dev)
+    crc_ms = time_ms(lambda: sk.crc_bits(rows, gc_t, hc_t), iters=3)
+    n = len(shards)
+    by_ms = total / HBM_BYTES_PER_S * 1e3
+    ops = 2 * (n * nchunks) * (sk._CHUNK * 8) * 32 + 2 * n * (nchunks * 32) * 32
+    op_ms = ops / INT8_OPS_PER_S * 1e3
+    flips = sorted(int(i) for i in rng.choice(n, 64, replace=False))
+    expected = list(shards)
+    cols = rng.integers(0, width, len(flips))
+    for i, col in zip(flips, cols):
+        b = bytearray(shards[i])
+        b[int(col)] ^= 1 + int(rng.integers(0, 255))
+        expected[i] = bytes(b)
+    want = np.array([s != e for s, e in zip(shards, expected)])
+    verdict = sk.batch_compare(bufs, expected, device=dev)
+    check(np.array_equal(verdict, want), "batch_compare verdicts != the host's")
+    flipped = rows.clone()
+    flipped[flips, torch.as_tensor(width - len(shards[0]) + cols, device=dev)] ^= 1
+    check(np.array_equal(sk.mismatch(rows, flipped).cpu().numpy(), want), "mismatch on the card")
+    mis_ms = time_ms(lambda: sk.mismatch(rows, flipped), iters=5)
+    print(f"[6] batch_compare of the {n} shards against copies with {len(flips)} seeded one-byte "
+          "flips: verdicts equal the host's")
+    del rows, flipped, bufs
+    torch.cuda.empty_cache()
+    return {
+        "shards": n, "bytes": total, "host_c_ms": host_ms,
+        "call_ms_host_bytes": upload_call_ms, "call_ms_resident": resident_call_ms,
+        "crc_bits": {"ms": crc_ms, "bound_ms": max(by_ms, op_ms),
+                     "bound_by": "bytes" if by_ms >= op_ms else "operations",
+                     "bytes_bound_ms": by_ms, "ops_bound_ms": op_ms, "ops": ops,
+                     "dtype": "int8 x int8 -> int32 (torch._int_mm)"},
+        "mismatch": {"ms": mis_ms, "bound_ms": 2 * total / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"},
+    }
+
+
+def _replicated_store(rng, datas: dict) -> dict:
+    from ceph_tpu_torch.store import ReplicatedStore
+
+    rs = ReplicatedStore(size=STORE_REPLICAS, device=STORE_DEVICE)
+    names = list(datas)
+    t0 = time.perf_counter()
+    for name in names:
+        rs.put(name, datas[name])
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flags = _scrub_flags(rs.scrub_batch(names))
+    scrub_s = time.perf_counter() - t0
+    check(not flags, f"replicated scrub of a clean PG: {flags[:5]}")
+    victim = (names[int(rng.integers(0, len(names)))], int(rng.integers(0, STORE_REPLICAS)))
+    rs.corrupt_replica(*victim, offset=int(rng.integers(0, STORE_OBJECT_BYTES)))
+    flags = _scrub_flags(rs.scrub_batch(names))
+    check(flags == [victim], f"replicated scrub after corrupting {victim}: {flags}")
+    rs.recover_replica(*victim)
+    flags = _scrub_flags(rs.scrub_batch(names))
+    check(not flags, f"replicated scrub after recover_replica: {flags[:5]}")
+    print(f"[6] ReplicatedStore, {STORE_REPLICAS} replicas of the {len(names)} objects: "
+          f"scrub_batch clean, corrupt replica {victim} flagged alone, recover_replica "
+          "cleared it")
+    return {"replicas": STORE_REPLICAS, "put_s": put_s, "scrub_s": scrub_s,
+            "bytes": STORE_REPLICAS * len(names) * STORE_OBJECT_BYTES}
+
+
+def phase_store(smi: str) -> dict:
+    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
+    from ceph_tpu_torch.ops.profiler import breakdown, dispatch_profiler
+    from ceph_tpu_torch.ops.residency import residency_cache
+
+    rng = np.random.default_rng(SEED + 6)
+    block = rng.bytes(STORE_OBJECTS * STORE_OBJECT_BYTES)
+    datas = {f"obj{i:03d}": block[i * STORE_OBJECT_BYTES : (i + 1) * STORE_OBJECT_BYTES]
+             for i in range(STORE_OBJECTS)}
+    del block
+    ks = kernel_stats()
+    calls0 = {k: ks.dump().get(f"l_tpu_{k}_calls", 0) for k in ("scrub_crc32c", "scrub_verify")}
+    packed_gf.launches = 0
+    bitplane_gf.launches = 0
+    prof0 = dispatch_profiler().totals()
+    t0 = time.perf_counter()
+    ec, shards, hashes = _ec_store(rng, datas)
+    residency_cache().clear()
+    torch.cuda.empty_cache()
+    crc = _crc_on_card(rng, shards, hashes)
+    del shards, hashes
+    rep = _replicated_store(rng, datas)
+    residency_cache().clear()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    counts = {"K1": packed_gf.launches, "K2": bitplane_gf.launches}
+    calls = {k: ks.dump().get(f"l_tpu_{k}_calls", 0) - v for k, v in calls0.items()}
+    check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
+    bd = breakdown(prof0, dispatch_profiler().totals())
+    logical = STORE_OBJECTS * STORE_OBJECT_BYTES
+    gbps = {
+        "put_GBps": logical / ec["put_s"] / 1e9,
+        "scrub_first_GBps": ec["shard_bytes"] / ec["scrub_first_s"] / 1e9,
+        "scrub_second_GBps": ec["shard_bytes"] / ec["scrub_second_s"] / 1e9,
+        "recover_GBps": ec["recover_bytes"] / ec["recover_s"] / 1e9,
+        "get_degraded_GBps": logical / ec["get_s"] / 1e9,
+        "replicated_put_GBps": logical / rep["put_s"] / 1e9,
+        "replicated_scrub_GBps": rep["bytes"] / rep["scrub_s"] / 1e9,
+    }
+    print(f"[6] store phase took {phase_s:.1f} s; launches {counts}; scrub function calls {calls}")
+    print(f"[6] on {smi.splitlines()[0]} (host clock, numpy in and out): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in gbps.items()))
+    print(f"[6] crc_bits over the PG's {crc['shards']} shards ({crc['bytes']} B, resident): "
+          f"{crc['crc_bits']['ms']:.3f} ms (CUDA events), bound {crc['crc_bits']['bound_ms']:.3f} "
+          f"ms ({crc['crc_bits']['bound_by']}; bytes {crc['crc_bits']['bytes_bound_ms']:.3f}, "
+          f"int8 products {crc['crc_bits']['ops_bound_ms']:.3f}); host C crc32c "
+          f"{crc['host_c_ms']:.1f} ms; mismatch {crc['mismatch']['ms']:.3f} ms, bound "
+          f"{crc['mismatch']['bound_ms']:.3f} ms (bytes)")
+    print(f"[6] dispatch profiler over the phase: {json.dumps(bd)}")
+    return {"card": smi.splitlines()[0],
+            "config": {"plugin": "isa", "k": 8, "m": 3, "stripe_unit": 4096,
+                       "objects": STORE_OBJECTS, "object_bytes": STORE_OBJECT_BYTES,
+                       "replicas": STORE_REPLICAS, "residency_bytes": RESIDENCY_BYTES},
+            **gbps, "seconds": {k: v for k, v in ec.items() if k.endswith("_s")},
+            "phase_s": phase_s, "recover_stats": ec["recover_stats"],
+            "scrub_crc32c": {k: ec[k] for k in ("scrub_first_crc32c", "scrub_second_crc32c")},
+            "crc": crc, "launches": counts, "scrub_calls": calls, "breakdown": bd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # read when the residency cache is first made, in phase 6
+    os.environ["CEPH_TPU_RESIDENCY_BYTES"] = str(RESIDENCY_BYTES)
     smi = phase_build()
     errs = {"K1": 0, "K2": 0}
     phase_kernels(errs)
@@ -911,6 +1204,7 @@ def main() -> int:
     phase_layered(smi)
     rows = phase_resident()
     crush = phase_crush(smi)
+    store = phase_store(smi)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
     for key, name, replaces, label in (
@@ -927,6 +1221,7 @@ def main() -> int:
             "shape": "B=1024 k=8 m=3 chunk=131072 (1 GiB in)",
         })
     print(json.dumps({"crush": crush}))
+    print(json.dumps({"store": store}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

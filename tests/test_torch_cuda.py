@@ -4,7 +4,10 @@ oracle, and the registry path on
 ``device="cuda"``: jerasure and isa, the layered plugins (equal to
 ``device="cpu"``), ``ec_benchmark`` over them, and ECCodec's batch
 routes with their K2 launch counts; the CRUSH mapper's hash,
-``crush_ln`` and raw output on ``cuda`` against ``cpu``.  Marked
+``crush_ln`` and raw output on ``cuda`` against ``cpu``; the store plane:
+``DeviceBuf`` on the card, the crc at 64 MiB against the host C crc,
+resident scrub and compare with no upload, ``ECStore`` on ``cuda``
+against ``cpu``.  Marked
 ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -382,3 +385,94 @@ def test_crush_packed_range_equals_unpacked(cuda, rule, rmax):
     np.testing.assert_array_equal(a[1], b[1])
     for i in range(0, n, 97):
         assert a[0][i, : a[1][i]].tolist() == m.do_rule(rule, int(xs[i]), rmax, list(w))
+
+
+# -- the store data plane -------------------------------------------------------
+
+
+def test_devicebuf_on_the_card(cuda):
+    from ceph_tpu_torch.ops.residency import DeviceBuf
+
+    data = np.random.default_rng(4).integers(0, 256, 10_000, dtype=np.uint8).tobytes()
+    buf = DeviceBuf(data=data)
+    dev = buf.device()
+    assert dev.is_cuda and buf.resident and buf.device() is dev
+    assert buf.host() == data and np.asarray(buf).tobytes() == data
+    born = DeviceBuf(dev=dev[:100].clone())
+    assert born.torch_device.type == "cuda" and born.host() == data[:100]
+
+
+def test_crc_on_the_card_equals_host_crc_at_64_mib(cuda):
+    from ceph_tpu_torch.native import ceph_crc32c
+    from ceph_tpu_torch.ops.scrub_kernels import GOLDEN_VECTORS, batch_crc32c
+
+    rng = np.random.default_rng(64)
+    bufs = [rng.integers(0, 256, (4 << 20) - 7 * i, dtype=np.uint8).tobytes()
+            for i in range(16)]
+    got = batch_crc32c(bufs, 0xFFFFFFFF)
+    assert [int(c) for c in got] == [ceph_crc32c(0xFFFFFFFF, b) for b in bufs]
+    for init, payload, want in GOLDEN_VECTORS:
+        assert batch_crc32c([payload], init)[0] == want
+
+
+def test_resident_scrub_and_compare_on_the_card_upload_nothing(cuda):
+    from ceph_tpu_torch.native import ceph_crc32c
+    from ceph_tpu_torch.ops.profiler import dispatch_profiler
+    from ceph_tpu_torch.ops.residency import DeviceBuf
+    from ceph_tpu_torch.ops.scrub_kernels import batch_compare, batch_crc32c
+
+    rng = np.random.default_rng(5)
+    raws = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (5000, 4096, 1, 70001)]
+    bufs = [DeviceBuf(data=r) for r in raws]
+    for b in bufs:
+        b.device()
+    before = dispatch_profiler().totals()
+    got = batch_crc32c(bufs, 7)
+    assert [int(c) for c in got] == [ceph_crc32c(7, r) for r in raws]
+    flipped = [r[:-1] + bytes([r[-1] ^ 1]) if i % 2 else r for i, r in enumerate(raws)]
+    assert list(batch_compare(bufs, flipped)) == [False, True, False, True]
+    after = dispatch_profiler().totals()
+    assert after["crc32c"]["bytes_uploaded"] == before.get("crc32c", {}).get(
+        "bytes_uploaded", 0)
+    assert after["crc32c"]["bytes_resident"] - before.get("crc32c", {}).get(
+        "bytes_resident", 0) == sum(map(len, raws))
+
+
+def test_ecstore_on_the_card(cuda):
+    """put, scrub_batch (residency hits), corruption flagged, a dead
+    position rebuilt in one batched decode, degraded reads: K1 and K2
+    launched, every byte equal to device=cpu."""
+    from ceph_tpu_torch.ops.residency import residency_cache
+    from ceph_tpu_torch.store import ECStore
+
+    prof = {"k": "4", "m": "2"}
+    card = ECStore(plugin="isa", profile={**prof, "device": "cuda"})
+    cpu = ECStore(plugin="isa", profile={**prof, "device": "cpu"})
+    rng = np.random.default_rng(9)
+    datas = {f"o{i}": rng.integers(0, 256, (1 << 18) + 333 * i, dtype=np.uint8).tobytes()
+             for i in range(6)}
+    k1, k2 = packed_gf.launches, bitplane_gf.launches
+    for st in (card, cpu):
+        for name, data in datas.items():
+            st.put(name, data)
+    names = list(datas)
+    hits = residency_cache().stats()["hits"]
+    assert all(r.clean for r in card.scrub_batch(names).values())
+    assert residency_cache().stats()["hits"] >= hits + 6 * card.n
+    card.corrupt_shard("o2", 3)
+    assert card.scrub_batch(names)["o2"].corrupt == [3]
+    card.recover_shard("o2", 3)
+    for st in (card, cpu):
+        for name in names:
+            st.lose_shard(name, 1)
+    stats = card.recover_objects_batch(names, 1)
+    assert stats["batched"] == len(names)
+    cpu.recover_objects_batch(names, 1)
+    for name in names:
+        for pos in range(card.n):
+            assert card.stores[pos].read(card.cid, name) == cpu.stores[pos].read(cpu.cid, name)
+    assert all(r.clean for r in card.scrub_batch(names).values())
+    for name in names:
+        card.lose_shard(name, 0)
+        assert card.get(name) == datas[name]
+    assert packed_gf.launches > k1 and bitplane_gf.launches > k2

@@ -1,8 +1,9 @@
 """ceph_tpu_torch stands alone: no JAX and nothing of ceph_tpu.
 
 An AST scan of every module of the port and of chip_smoke.py, and a
-fresh interpreter that imports the port and its erasure-code plane and
-finds no ``jax`` in ``sys.modules``.
+fresh interpreter that imports the port — its erasure-code plane, CRUSH,
+the stores, residency, the profiler and the scrub functions — and finds
+no ``jax`` in ``sys.modules``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.osd.ec_pg, ceph_tpu_torch.tools.ec_non_regression\n"
         "import ceph_tpu_torch.crush, ceph_tpu_torch.crush.torchmap\n"
         "import ceph_tpu_torch.tools.crushtool\n"
+        "import ceph_tpu_torch.common, ceph_tpu_torch.store, ceph_tpu_torch.store.pg_backend\n"
+        "import ceph_tpu_torch.store.remote, ceph_tpu_torch.ops.scrub_kernels\n"
+        "import ceph_tpu_torch.ops.residency, ceph_tpu_torch.ops.profiler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
