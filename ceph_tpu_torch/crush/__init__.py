@@ -1,16 +1,19 @@
 """CRUSH placement for ceph_tpu_torch.
 
 Port-side copies of the CRUSH host modules (types, hashing, ln,
-buckets, mapper, builder) and a batched torch mapper:
+buckets, mapper, builder, encode) and a batched torch mapper:
 
 - ``mapper`` / ``buckets`` — the exact-semantics oracle (pure Python),
   the same placements as the reference ``crush_do_rule`` over every
   bucket algorithm.
 - ``builder`` — map construction; ``CrushMap.copy_from`` reads a map
   built elsewhere by attribute.
-- ``torchmap`` — the batched mapper: a straw2 map compiled to dense
-  int64 tensors on the card, and the rule program run over a whole PG
-  batch at once.  Imported on demand (it imports torch).
+- ``encode`` — the map's versioned wire form (the OSD map's crush
+  blob and content fingerprint).
+- ``torchmap`` — the batched mapper: a map (every bucket algorithm,
+  choose_args) compiled to dense int64 tensors on the card, and the
+  rule program run over a whole PG batch at once.  Imported on demand
+  (it imports torch).
 """
 
 from .builder import CrushMap

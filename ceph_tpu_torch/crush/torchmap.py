@@ -1,25 +1,30 @@
 """Batched CRUSH in torch — the PG mapper of ceph_tpu_torch.
 
 The reference recomputes every PG's placement by sharding pgid ranges
-over a thread pool (src/osd/OSDMapMapping.h:18-156).  Here a straw2 map
+over a thread pool (src/osd/OSDMapMapping.h:18-156).  Here a map
 compiles to dense int64 tensors on the card (``compile_map``) and one
 call runs ``crush_do_rule`` for a whole batch of PGs: every lane of the
 batch is a PG, every register of the C state machine is a tensor over
 the lanes, and every branch is a ``torch.where``.
 
-Scope: straw2 buckets, tunables with choose_local_tries ==
-choose_local_fallback_tries == 0, rule programs of [SET_*...] TAKE
-CHOOSE[LEAF] EMIT groups, firstn and indep.  Maps outside the reference
-device kernel's scope raise ``UnsupportedMap`` (callers use the exact
-oracle, ``mapper``); maps with legacy bucket algorithms or choose_args
-raise ``NotImplementedError`` (not ported yet).
+Scope: every bucket algorithm (uniform, list, tree, straw, straw2),
+choose_args weight-sets and id remaps, tunables with
+choose_local_tries == choose_local_fallback_tries == 0, rule programs
+of [SET_*...] TAKE CHOOSE[LEAF] EMIT groups, firstn and indep.  Maps
+outside the reference device kernel's scope raise ``UnsupportedMap``
+(callers use the exact oracle, ``mapper``).
 
 Exactness: the rjenkins hash runs on int32 words (wrapping subtract and
 shift-left, masked logical shift-right), ``crush_ln`` gathers the three
 int64 tables of ``ln`` and does the C's integer arithmetic in int64
 (including the wrapping ``x * RH``), and the straw2 draw divides with
-truncation toward zero like ``div64_s64``.  Two execution strategies per
-rule group, as in the reference device kernel:
+truncation toward zero like ``div64_s64``.  The legacy draws stay below
+2^63 in int64: straw's and list's 16-bit hash times a u32 is under
+2^48, and tree's u32 hash times a u32 node weight, shifted right by 32,
+is taken in two 16-bit halves.  Uniform buckets rebuild the C's
+Fisher-Yates permutation statelessly, up to the largest uniform bucket.
+Two execution strategies per rule group, as in the reference device
+kernel:
 
 * FAST (firstn groups on acyclic maps): the candidate descents for
   r' = 0..R0-1 and their chooseleaf descents are drawn in batched rounds
@@ -147,6 +152,31 @@ def hash2(a, b):
         return h
 
 
+def hash4(a, b, c, d):
+    """rjenkins1 arity 4 (hash.c:61-74) on int32 tensors."""
+    with record_function("crush.hash"):
+        h = a ^ b ^ c ^ d ^ _SEED
+        a, b, h = _mix(a, b, h)
+        c, d, h = _mix(c, d, h)
+        a, x, h = _mix(a, _X0, h)
+        y, b, h = _mix(_Y0, b, h)
+        c, x, h = _mix(c, x, h)
+        y, d, h = _mix(y, d, h)
+        return h
+
+
+def _u32(h):
+    """A hash's int32 bit pattern as its uint32 value in int64."""
+    return h.to(torch.int64) & 0xFFFFFFFF
+
+
+def _mulhi32(h, w):
+    """(h * w) >> 32 for u32 values in int64 without overflow: with h in
+    16-bit halves, ((h_hi * w) + ((h_lo * w) >> 16)) >> 16, each product
+    under 2^48 (exact by nested floor division)."""
+    return ((h >> 16) * w + (((h & 0xFFFF) * w) >> 16)) >> 16
+
+
 def crush_ln(u, rh_t, lh_t, ll_t):
     """2^44*log2(u+1) for u in [0, 0xffff] (mapper.c:248-290), int64.
 
@@ -168,7 +198,7 @@ def crush_ln(u, rh_t, lh_t, ll_t):
 
 @dataclass(frozen=True, eq=False)
 class CompiledMap:
-    """Dense int64 rendering of a straw2 CrushMap on one device."""
+    """Dense int64 rendering of a CrushMap on one device."""
 
     items: torch.Tensor  # (nb, sz) item ids, 0 past a bucket's size
     weights: torch.Tensor  # (nb, sz) 16.16 item weights, 0 past size
@@ -180,11 +210,30 @@ class CompiledMap:
     # derived for the draw: int32 hash inputs, divisors with 0 -> 1,
     # and which columns draw at all (weight > 0)
     items32: torch.Tensor
+    ids32: torch.Tensor
     wdiv: torch.Tensor
     wlive: torch.Tensor
     ln_rh: torch.Tensor  # (129,) int64
     ln_lh: torch.Tensor  # (129,)
     ln_ll: torch.Tensor  # (256,)
+    # legacy algorithms' tables, None where the map has no such bucket:
+    # straw lengths and the list chooser's tail sums (nb, sz), tree
+    # node weights (nb, tree_nodes) and each tree's root node (nb,)
+    straws: torch.Tensor | None
+    sums: torch.Tensor | None
+    tree_nw: torch.Tensor | None
+    tree_start: torch.Tensor | None
+    # choose_args (crush.h:248-293), None without them: the straw2 draw's
+    # weights per (row, position) as rows row * P + position of
+    # (nb * P, sz) divisor/live tables, and the hash ids (nb, sz); rows
+    # of buckets without args carry the bucket's own weights and items
+    args_wdiv: torch.Tensor | None
+    args_wlive: torch.Tensor | None
+    args_ids32: torch.Tensor | None
+    arg_positions: int  # P (0 without choose_args)
+    algs_present: frozenset
+    uniform_sz: int  # the largest uniform bucket (the permutation bound)
+    tree_nodes: int
     device: torch.device
     sz: int
     nb: int
@@ -208,9 +257,8 @@ class CompiledMap:
 def compile_map(cmap, device=None) -> CompiledMap:
     """CrushMap -> dense int64 tensors on ``device`` (default ``cuda``).
 
-    Raises UnsupportedMap where the reference device kernel does (callers
-    map through the oracle) and NotImplementedError for legacy bucket
-    algorithms and choose_args, which are not ported yet."""
+    Raises UnsupportedMap where the reference device kernel does, with
+    its messages; callers then map through the oracle."""
     t = cmap.tunables
     if t.choose_local_tries or t.choose_local_fallback_tries:
         raise UnsupportedMap(
@@ -230,29 +278,20 @@ def compile_map(cmap, device=None) -> CompiledMap:
             raise UnsupportedMap(
                 f"bucket {b.id} alg {b.alg}: unknown bucket alg"
             )
-    for b in cmap.buckets.values():
-        if b.alg != CRUSH_BUCKET_STRAW2:
-            raise NotImplementedError(
-                f"bucket {b.id} alg {b.alg}: only straw2 buckets are "
-                "ported to the batched mapper (ROADMAP A1b)"
-            )
-    if cmap.choose_args:
-        raise NotImplementedError(
-            "choose_args are not ported to the batched mapper (ROADMAP A1b)"
-        )
     nb = len(cmap.buckets)
     sz = max(max(b.size for b in cmap.buckets.values()), 1)
     items = np.zeros((nb, sz), dtype=np.int64)
     weights = np.zeros((nb, sz), dtype=np.int64)
+    straws = np.zeros((nb, sz), dtype=np.int64)
+    sums = np.zeros((nb, sz), dtype=np.int64)
     sizes = np.zeros(nb, dtype=np.int64)
     types = np.zeros(nb, dtype=np.int64)
     algs = np.zeros(nb, dtype=np.int64)
     ids = np.zeros(nb, dtype=np.int64)
     max_neg = max(-b.id for b in cmap.buckets.values())
     bidx = np.full(max_neg, -1, dtype=np.int64)
-    for row, b in enumerate(
-        sorted(cmap.buckets.values(), key=lambda b: -b.id)
-    ):
+    ordered = sorted(cmap.buckets.values(), key=lambda b: -b.id)
+    for row, b in enumerate(ordered):
         items[row, : b.size] = b.items
         weights[row, : b.size] = b.item_weights
         sizes[row] = b.size
@@ -266,6 +305,86 @@ def compile_map(cmap, device=None) -> CompiledMap:
             raise UnsupportedMap("bucket id magnitude >= 2^24")
         if b.weight >= 1 << 32:
             raise UnsupportedMap("bucket weight >= 2^32")
+        if b.alg == CRUSH_BUCKET_STRAW:
+            if not b.straws or len(b.straws) < b.size:
+                raise UnsupportedMap(
+                    f"straw bucket {b.id} missing straw table"
+                )
+            if any(s >= 1 << 32 for s in b.straws[: b.size]):
+                raise UnsupportedMap("straw length >= 2^32")
+            straws[row, : b.size] = b.straws[: b.size]
+        if b.alg == CRUSH_BUCKET_LIST:
+            if not b.sum_weights or len(b.sum_weights) < b.size:
+                raise UnsupportedMap(
+                    f"list bucket {b.id} missing sum_weights"
+                )
+            if any(s >= 1 << 32 for s in b.sum_weights[: b.size]):
+                raise UnsupportedMap("list sum weight >= 2^32")
+            sums[row, : b.size] = b.sum_weights[: b.size]
+        if b.alg == CRUSH_BUCKET_TREE and not b.node_weights:
+            raise UnsupportedMap(
+                f"tree bucket {b.id} missing node_weights"
+            )
+    present = frozenset(int(a) for a in np.unique(algs))
+
+    tree_nodes = 0
+    tree_nw = tree_start = None
+    if CRUSH_BUCKET_TREE in present:
+        tree_nodes = max(
+            len(b.node_weights) for b in ordered if b.alg == CRUSH_BUCKET_TREE
+        )
+        tree_nw = np.zeros((nb, tree_nodes), dtype=np.int64)
+        tree_start = np.zeros(nb, dtype=np.int64)
+        for row, b in enumerate(ordered):
+            if b.alg != CRUSH_BUCKET_TREE:
+                continue
+            if any(w >= 1 << 32 for w in b.node_weights):
+                raise UnsupportedMap("tree node weight >= 2^32")
+            tree_nw[row, : len(b.node_weights)] = b.node_weights
+            tree_start[row] = len(b.node_weights) >> 1
+
+    # choose_args: the C consults them only in the straw2 chooser
+    # (crush_bucket_choose, mapper.c:387-418), so args on other
+    # algorithms are ignored, and the position clamp
+    # (get_choose_arg_weights, mapper.c:311-317) is baked in by
+    # repeating each bucket's last weight-set row
+    P = 0
+    aw = aids = None
+    if cmap.choose_args:
+        P = max(
+            (len(a.weight_set) for a in cmap.choose_args.values() if a.weight_set),
+            default=1,
+        )
+        aw = np.repeat(weights[:, None, :], P, axis=1)  # (nb, P, sz)
+        aids = items.copy()
+        for bid, arg in cmap.choose_args.items():
+            b = cmap.buckets.get(bid)
+            if b is None or b.alg != CRUSH_BUCKET_STRAW2:
+                continue
+            row = bidx[-1 - bid]
+            # an empty weight_set keeps the bucket's weights (the C's
+            # weight_set_positions == 0 case)
+            if arg.weight_set:
+                for p in range(P):
+                    ws = arg.weight_set[min(p, len(arg.weight_set) - 1)]
+                    if len(ws) != b.size:
+                        raise UnsupportedMap(
+                            f"choose_arg weight_set size {len(ws)} != "
+                            f"bucket {b.id} size {b.size}"
+                        )
+                    if any(w >= 1 << 32 for w in ws):
+                        raise UnsupportedMap("choose_arg weight >= 2^32")
+                    aw[row, p, : b.size] = ws
+            if arg.ids is not None:
+                if len(arg.ids) != b.size:
+                    raise UnsupportedMap(
+                        f"choose_arg ids size {len(arg.ids)} != "
+                        f"bucket {b.id} size {b.size}"
+                    )
+                if any(abs(i) >= 1 << 24 for i in arg.ids):
+                    raise UnsupportedMap("choose_arg id magnitude >= 2^24")
+                aids[row, : b.size] = arg.ids
+        aw = aw.reshape(nb * P, sz)
 
     rules = tuple(
         None if rule is None else _compile_rule(rule) for rule in cmap.rules
@@ -280,6 +399,8 @@ def compile_map(cmap, device=None) -> CompiledMap:
         sz,
         nb,
         cmap.max_devices,
+        P,
+        tree_nodes,
         items.tobytes(),
         sizes.tobytes(),
         types.tobytes(),
@@ -292,7 +413,7 @@ def compile_map(cmap, device=None) -> CompiledMap:
     dev = torch.device("cuda" if device is None else device)
 
     def on(a):
-        return torch.as_tensor(a, device=dev)
+        return None if a is None else torch.as_tensor(a, device=dev)
 
     rh, lh, ll = _ln_tables()
     return CompiledMap(
@@ -304,11 +425,23 @@ def compile_map(cmap, device=None) -> CompiledMap:
         ids=on(ids),
         bidx=on(bidx),
         items32=on(items.astype(np.int32)),
+        ids32=on(ids.astype(np.int32)),
         wdiv=on(np.where(weights > 0, weights, 1)),
         wlive=on(weights > 0),
         ln_rh=on(rh),
         ln_lh=on(lh),
         ln_ll=on(ll),
+        straws=on(straws) if CRUSH_BUCKET_STRAW in present else None,
+        sums=on(sums) if CRUSH_BUCKET_LIST in present else None,
+        tree_nw=on(tree_nw),
+        tree_start=on(tree_start),
+        args_wdiv=None if aw is None else on(np.where(aw > 0, aw, 1)),
+        args_wlive=None if aw is None else on(aw > 0),
+        args_ids32=None if aids is None else on(aids.astype(np.int32)),
+        arg_positions=P,
+        algs_present=present,
+        uniform_sz=int(sizes[algs == CRUSH_BUCKET_UNIFORM].max(initial=0)),
+        tree_nodes=tree_nodes,
         device=dev,
         sz=sz,
         nb=nb,
@@ -456,7 +589,8 @@ def _plan_groups(
 ):
     """Host-side pre-pass over a rule's groups: resolve TAKE rows,
     tries/tunables, and decide per group whether the speculative fast
-    path applies (firstn, acyclic bounded-depth descent)."""
+    path applies (firstn, acyclic bounded-depth descent, at most one
+    choose_args position)."""
     groups = cm.rules[ruleno]
     if groups is None:
         raise UnsupportedMap(f"no rule {ruleno}")
@@ -511,8 +645,8 @@ def _plan_groups(
         }
         plans.append(plan)
         # -- fast-path qualification ----------------------------------
-        if not firstn:
-            continue
+        if not firstn or cm.arg_positions > 1:
+            continue  # multi-position choose_args keeps the generic path
         if leaf and arg2 == 0:
             continue  # chooseleaf targeting devices: degenerate shape
         outer_steps, domains = _descent_steps(cm, [take_row], arg2)
@@ -656,22 +790,146 @@ class _Lanes:
         hashed = hash2(x32, _i32(item)) & 0xFFFF
         return oob | (w == 0) | ((w < 0x10000) & (hashed >= w))
 
-    def bucket_draw(self, rows, x32, r32):
-        """One draw per lane from bucket row ``rows`` (N,) over the full
-        map width; returns (item, size)."""
+    def pick(self, rows, x, r, pos, szi, algs, usz):
+        """crush_bucket_choose (mapper.c:387-418) for buckets ``rows``
+        (a row number, or a tensor of rows) over their first ``szi``
+        columns; ``x``, ``r`` and ``pos`` broadcast against ``rows``
+        with a trailing axis of 1.  Only the draws of ``algs`` run;
+        ``pos``, shaped like ``rows``, is the choose_args position (None
+        for position 0).  Returns (item, size)."""
         cm = self.cm
-        am = self.draw(
-            x32[:, None], cm.items32[rows], cm.wdiv[rows], cm.wlive[rows],
-            _i32(r32)[:, None],
-        )
-        return cm.items[rows].gather(1, am).squeeze(1), cm.sizes[rows]
+        one = isinstance(rows, int)
 
-    def step_draw(self, st, x32, r, ttype):
+        def cols(t, at=rows):
+            return t[at, :szi] if one else t[:, :szi][at]
+
+        def meta(t):
+            return t[rows][..., None]
+
+        size = meta(cm.sizes)
+        alg = meta(cm.algs)
+        idx = None
+        for a in sorted(algs):
+            if a == CRUSH_BUCKET_STRAW2:
+                if cm.arg_positions:
+                    arows = rows
+                    if pos is not None:
+                        arows = rows * cm.arg_positions + pos.clamp(
+                            0, cm.arg_positions - 1
+                        )
+                    got = self.draw(
+                        x, cols(cm.args_ids32), cols(cm.args_wdiv, arows),
+                        cols(cm.args_wlive, arows), r,
+                    )
+                else:
+                    got = self.draw(
+                        x, cols(cm.items32), cols(cm.wdiv), cols(cm.wlive), r
+                    )
+            elif a == CRUSH_BUCKET_STRAW:
+                got = self.straw_draw(x, cols(cm.items32), cols(cm.straws), size, r)
+            elif a == CRUSH_BUCKET_LIST:
+                got = self.list_draw(
+                    x, cols(cm.items32), cols(cm.weights), cols(cm.sums), size,
+                    meta(cm.ids32), r,
+                )
+            elif a == CRUSH_BUCKET_TREE:
+                got = self.tree_draw(
+                    x, cm.tree_nw[rows], meta(cm.tree_start), meta(cm.ids32), r
+                )
+            else:
+                got = self.perm_draw(x, meta(cm.ids32), size, r, usz)
+            idx = got if idx is None else torch.where(alg == a, got, idx)
+        lead = idx.shape[:-1]
+        item = cols(cm.items).expand(*lead, szi).gather(-1, idx.clamp(0, szi - 1))
+        return item.squeeze(-1), size.squeeze(-1).expand(lead)
+
+    def straw_draw(self, x32, ids32, straws, size, r32):
+        """Legacy straw chooser (mapper.c:227-245): (hash3(x, item, r) &
+        0xffff) * straw length, the first maximum of a bucket's columns;
+        a u16 times a u32 is exact in int64."""
+        u = (hash3(x32, ids32, r32) & 0xFFFF).to(torch.int64)
+        with record_function("crush.draw"):
+            col = torch.arange(straws.shape[-1], device=straws.device)
+            d = torch.where(col < size, u * straws, -1)
+            return d.argmax(-1, keepdim=True)
+
+    def list_draw(self, x32, ids32, weights, sums, size, bid32, r32):
+        """List chooser (mapper.c:141-164): walking tail to head, item i
+        wins when (hash4(x, item, r, bucket id) & 0xffff) * sum_i >> 16
+        < weight_i, so the highest accepting column wins; column 0 when
+        none accepts."""
+        u = (hash4(x32, ids32, r32, bid32) & 0xFFFF).to(torch.int64)
+        with record_function("crush.draw"):
+            col = torch.arange(sums.shape[-1], device=sums.device)
+            accept = (((u * sums) >> 16) < weights) & (col < size)
+            return torch.where(accept, col, -1).amax(-1, keepdim=True).clamp_min(0)
+
+    def tree_draw(self, x32, nw, start, bid32, r32):
+        """Tree chooser (mapper.c:195-222): descend the implicit binary
+        tree of node weights ``nw`` from the root ``start`` while the
+        node is even.  The C's (u32 hash * u32 weight) >> 32 is
+        ((h_hi * w) + ((h_lo * w) >> 16)) >> 16 with the hash in 16-bit
+        halves, each product under 2^48.  Returns the leaf's column."""
+        tn = nw.shape[-1]
+        lead = torch.broadcast_shapes(
+            x32.shape, start.shape, bid32.shape, r32.shape
+        )[:-1]
+        nw = nw.expand(*lead, tn)
+        n = start.expand(*lead, 1)
+        for _ in range(max(tn.bit_length(), 1)):
+            h = _u32(hash4(x32, _i32(n), r32, bid32))
+            with record_function("crush.draw"):
+                w = nw.gather(-1, n)
+                t = _mulhi32(h, w)
+                low = (n & -n) >> 1
+                left = n - low
+                nxt = torch.where(t < nw.gather(-1, left), left, n + low)
+                n = torch.where((n & 1) == 1, n, nxt)
+        return n >> 1
+
+    def perm_draw(self, x32, bid32, size, r32, usz):
+        """Uniform chooser (bucket_perm_choose, mapper.c:73-131): slot
+        r % size of the Fisher-Yates permutation seeded by hash(x,
+        bucket id, p), rebuilt statelessly for p <= r % size (the C's
+        r = 0 shortcut is the p = 0 swap of the same construction);
+        ``usz`` bounds the permutation (the largest uniform bucket)."""
+        dev = self.cm.device
+        lead = torch.broadcast_shapes(
+            x32.shape, bid32.shape, size.shape, r32.shape
+        )
+        size1 = size.clamp_min(1)
+        pr = r32.to(torch.int64) % size1
+        slots = torch.arange(usz, device=dev)
+        perm = slots.expand(*lead[:-1], usz)
+        for p in range(usz):
+            h = _u32(hash3(x32, bid32, torch.tensor(p, dtype=torch.int32, device=dev)))
+            with record_function("crush.draw"):
+                active = (pr >= p) & (size - 1 > p)
+                j = (p + h % (size1 - p).clamp_min(1)).clamp(max=usz - 1)
+                vp = perm[..., p : p + 1]
+                vj = perm.gather(-1, j.expand(*lead[:-1], 1))
+                swapped = torch.where(
+                    slots == p, vj, torch.where(slots == j, vp, perm)
+                )
+                perm = torch.where(active, swapped, perm)
+        return perm.gather(-1, pr.clamp(max=usz - 1).expand(*lead[:-1], 1))
+
+    def bucket_draw(self, rows, x32, r32, pos):
+        """One draw per lane from bucket row ``rows`` (N,) over the full
+        map width, at choose_args position ``pos`` (N,); returns (item,
+        size)."""
+        cm = self.cm
+        return self.pick(
+            rows, x32[:, None], _i32(r32)[:, None], pos, cm.sz,
+            cm.algs_present, max(cm.uniform_sz, 1),
+        )
+
+    def step_draw(self, st, x32, r, ttype, pos):
         """One generic-chooser draw from each lane's current bucket and
         its outcome against the level's target (ttype, or a device in
         chooseleaf): (item, empty, found, descend, hard_bad, nrow).  A
         descent past MAX_DEPTH counts as a bad item."""
-        item, bsize = self.bucket_draw(st["row"], x32, r)
+        item, bsize = self.bucket_draw(st["row"], x32, r, pos)
         with record_function("crush.choose"):
             empty = bsize == 0
             target = torch.where(st["leaf"], 0, ttype)
@@ -686,8 +944,9 @@ class _Lanes:
     def spec_descend(self, steps, rows, rs, valid, target, x32):
         """Batched candidate descents: each candidate (N, C) draws with
         its own fixed r (rs, (C,)) at every level, one draw round per
-        level over that level's widest bucket; returns (kind, item) per
-        candidate."""
+        level over that level's widest bucket and its algorithms;
+        returns (kind, item) per candidate.  Choose_args take position
+        0 (the fast path runs only with one position)."""
         cm = self.cm
         n, c = rows.shape
         kinds = torch.where(valid, _K_OVER, _K_BAD).expand(n, c)
@@ -696,28 +955,11 @@ class _Lanes:
         rb = _i32(rs).view(1, c, 1)
         for sinfo in steps:
             szi = min(sinfo["sz"], cm.sz)
-            if len(sinfo["rows"]) == 1:
-                row = sinfo["rows"][0]
-                am = self.draw(
-                    xb,
-                    cm.items32[row, :szi].view(1, 1, szi),
-                    cm.wdiv[row, :szi].view(1, 1, szi),
-                    cm.wlive[row, :szi].view(1, 1, szi),
-                    rb,
-                )
-                it = cm.items[row, :szi].expand(n, c, szi).gather(2, am)
-                bsize = cm.sizes[row]
-            else:
-                am = self.draw(
-                    xb,
-                    cm.items32[:, :szi][rows],
-                    cm.wdiv[:, :szi][rows],
-                    cm.wlive[:, :szi][rows],
-                    rb,
-                )
-                it = cm.items[:, :szi][rows].gather(2, am)
-                bsize = cm.sizes[rows]
-            it = it.squeeze(2)
+            sel = sinfo["rows"][0] if len(sinfo["rows"]) == 1 else rows
+            it, bsize = self.pick(
+                sel, xb, rb, None, szi, sinfo["algs"], sinfo["usz"]
+            )
+            it = it.expand(n, c)
             empty = bsize == 0
             found, desc, hard_bad, nrow = self.classify(it, target)
             active = kinds == _K_OVER
@@ -945,8 +1187,11 @@ class _Lanes:
                 r_outer = st["rep"] + ftotal
                 sub_r = r_outer >> (vary_r - 1) if vary_r else 0
                 r = torch.where(in_leaf, leaf_rep + sub_r + lftotal, r_outer)
+            # choose_args position: the running outpos at every draw
+            # (mapper.c:526-530), and the chooseleaf recursion re-enters
+            # with the same outpos (:578-588)
             item, empty, found, desc, hard_bad, nrow = self.step_draw(
-                st, x32, r, ttype
+                st, x32, r, ttype, outpos
             )
             with record_function("crush.choose"):
 
@@ -1051,13 +1296,28 @@ class _Lanes:
                 slot, ftotal, lftotal = st["slot"], st["ftotal"], st["lftotal"]
                 in_leaf, out, out2 = st["leaf"], st["out"], st["out2"]
                 act = ~st["done"]
+                stride = numrep
+                if CRUSH_BUCKET_UNIFORM in cm.algs_present:
+                    # a uniform bucket whose size divides numrep
+                    # strides by numrep + 1 (mapper.c:722-728)
+                    bsz = cm.sizes[st["row"]]
+                    stride = torch.where(
+                        (cm.algs[st["row"]] == CRUSH_BUCKET_UNIFORM)
+                        & (bsz > 0)
+                        & (bsz % numrep == 0),
+                        numrep + 1,
+                        numrep,
+                    )
                 r = torch.where(
                     in_leaf,
-                    slot + st["parent_r"] + numrep * lftotal,
-                    slot + numrep * ftotal,
+                    slot + st["parent_r"] + stride * lftotal,
+                    slot + stride * ftotal,
                 )
+            # choose_args position: outer draws pass the frame's outpos,
+            # 0 from do_rule (mapper.c:736-739); the leaf recursion
+            # enters with outpos = rep (:790-794), the slot
             item, empty, found, desc, hard_bad, nrow = self.step_draw(
-                st, x32, r, ttype
+                st, x32, r, ttype, torch.where(in_leaf, slot, 0)
             )
             with record_function("crush.choose"):
 

@@ -54,7 +54,12 @@ script exits non-zero:
    pool of worker processes), the raw output of the first 2^16 lanes
    against ``device="cpu"``; end-to-end and device-resident mappings/s,
    a ``torch.profiler`` split of one chunk, crushtool's statistics; the
-   straw2 golden vectors of the reference C; one ``{"crush": ...}`` line;
+   same hierarchy with legacy straw hosts and with a one-position
+   choose_args weight-set, both rules over 2^18 PGs each, timed and held
+   against the oracle; every golden vector of the reference C (scenarios
+   0 to 4 and the choose_args lines) on the card, but scenario 3, whose
+   argonaut tunables are outside the batched mapper and map through the
+   oracle; one ``{"crush": ...}`` line;
 6. the store data plane on ``device="cuda"`` at one PG's size, with the
    launch counts zeroed before and both non-zero after: an ``ECStore``
    (isa k=8 m=3, stripe unit 4096) over 11 ``MemStore``s with 256
@@ -73,8 +78,21 @@ script exits non-zero:
    GB/s, the crc and compare times on the card beside their bounds, the
    host C crc's time and the dispatch profiler's breakdown, beside the
    card's name and power limit; one ``{"store": ...}`` line;
-7. one JSON line describing each kernel;
-8. the last line, ``{"ok": true, "device": {...}}``.
+7. the OSD map on the card: config 5's cluster (10 000 OSDs) with a
+   replicated pool of 2^20 PGs (size 3, rule 0) and an EC pool of 2^18
+   (size 11, rule 1) through ``OSDMapMapping`` on cuda: a warm update and
+   three timed ones (PG mappings/s, numpy out; the perf counters' CRUSH
+   and fix-up stages; the dispatch profiler's split), then a seeded
+   incremental (encoded and decoded: OSDs down, out and reweighted,
+   primary affinities, upmaps, pg_temp, primary_temp) and one timed
+   update; for each epoch and pool a seeded sample of 2048 PGs and every
+   PG an override touches against the scalar pipeline in the process
+   pool; the whole map's encoding decoded and mapped again to equal
+   arrays; ``osdmaptool --test-map-pgs`` in process; ``calc_pg_upmaps``
+   on 1000 OSDs and 2^15 PGs, each upmap held against the scalar
+   pipeline; one ``{"osdmap": ...}`` line;
+8. one JSON line describing each kernel;
+9. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -87,10 +105,12 @@ import contextlib
 import io
 import itertools
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -669,6 +689,7 @@ def phase_resident():
 
 CRUSH_PGS = 1 << 20
 CRUSH_CHUNK = 1 << 19
+CRUSH_VARIANT_PGS = 1 << 18
 CRUSH_LABELS = ("crush.hash", "crush.ln", "crush.draw", "crush.replay", "crush.choose",
                 "crush.emit")
 
@@ -811,14 +832,16 @@ def _crush_rule(pool, smi: str, pm, cm, rule: int, rmax: int, n: int) -> dict:
 
 
 def _golden_maps() -> dict:
-    """Scenarios 0, 1 and 4 of tests/data/crush_do_rule_golden.txt.gz
-    (the straw2 ones), built as the reference C built them."""
+    """The five scenarios of tests/data/crush_do_rule_golden.txt.gz,
+    built as the reference C built them (straw_calc_version 0), and the
+    choose_args scenario of tests/data/crush_choose_args_golden.txt.gz."""
     from ceph_tpu_torch.crush.builder import CrushMap
     from ceph_tpu_torch.crush.types import (
-        CRUSH_BUCKET_STRAW2, CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSE_INDEP,
+        CRUSH_BUCKET_LIST, CRUSH_BUCKET_STRAW, CRUSH_BUCKET_STRAW2, CRUSH_BUCKET_TREE,
+        CRUSH_BUCKET_UNIFORM, CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSE_INDEP,
         CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP, CRUSH_RULE_EMIT,
         CRUSH_RULE_SET_CHOOSE_TRIES, CRUSH_RULE_SET_CHOOSELEAF_TRIES, CRUSH_RULE_TAKE,
-        Rule, RuleStep, Tunables,
+        ChooseArg, Rule, RuleStep, Tunables,
     )
 
     def two_rules(m, root, domain):
@@ -835,25 +858,40 @@ def _golden_maps() -> dict:
                      0, domain),
             RuleStep(CRUSH_RULE_EMIT)], type=3), 1)
 
-    def two_level(tun, nhosts, per_host, wfun):
+    def two_level(tun, algs, nhosts, per_host, wfun, root_alg=CRUSH_BUCKET_STRAW2):
         m = CrushMap(tunables=tun)
-        hosts = [m.add_bucket(CRUSH_BUCKET_STRAW2, 1,
+        hosts = [m.add_bucket(algs[h % len(algs)], 1,
                               [h * per_host + i for i in range(per_host)],
                               [wfun(h, i) for i in range(per_host)])
                  for h in range(nhosts)]
-        root = m.add_bucket(CRUSH_BUCKET_STRAW2, 3, hosts, [m.buckets[b].weight for b in hosts])
+        root = m.add_bucket(root_alg, 3, hosts, [m.buckets[b].weight for b in hosts])
         two_rules(m, root, 1)
         return m
 
     jewel, firefly = Tunables(0, 0, 50, 1, 1, 1, 0), Tunables(0, 0, 50, 1, 1, 0, 0)
+    argonaut = Tunables(2, 5, 19, 0, 0, 0, 0)
     m0 = CrushMap(tunables=jewel)
     root = m0.add_bucket(CRUSH_BUCKET_STRAW2, 3, list(range(10)),
                          [(i + 1) * 0x10000 // 2 for i in range(10)])
     two_rules(m0, root, 0)
+    ca = two_level(jewel, [CRUSH_BUCKET_STRAW2], 5, 4, lambda h, i: 0x10000 + i * 0x4000)
+    hosts = sorted((b for b, bk in ca.buckets.items() if bk.type == 1), reverse=True)
+    ca.set_choose_args({
+        hosts[0]: ChooseArg(weight_set=[[0x8000 + i * 0x2000 for i in range(4)],
+                                        [0x20000 - i * 0x3000 for i in range(4)]]),
+        hosts[2]: ChooseArg(ids=[1008, 1009, 1010, 1011]),
+        min(ca.buckets): ChooseArg(weight_set=[[0x40000 + i * 0x10000 for i in range(5)]]),
+    })
     return {
         0: m0,
-        1: two_level(jewel, 5, 4, lambda h, i: 0x10000 + i * 0x4000),
-        4: two_level(firefly, 4, 5, lambda h, i: 0x8000 * (1 + (i % 4))),
+        1: two_level(jewel, [CRUSH_BUCKET_STRAW2], 5, 4, lambda h, i: 0x10000 + i * 0x4000),
+        2: two_level(jewel, [CRUSH_BUCKET_UNIFORM, CRUSH_BUCKET_LIST, CRUSH_BUCKET_TREE,
+                             CRUSH_BUCKET_STRAW, CRUSH_BUCKET_STRAW2], 5, 4,
+                     lambda h, i: 0x18000 if h % 5 == 0 else 0x10000 + i * 0x6000),
+        3: two_level(argonaut, [CRUSH_BUCKET_STRAW], 6, 3,
+                     lambda h, i: 0x10000 * (1 + (h + i) % 3), CRUSH_BUCKET_STRAW),
+        4: two_level(firefly, [CRUSH_BUCKET_STRAW2], 4, 5, lambda h, i: 0x8000 * (1 + (i % 4))),
+        "choose_args": ca,
     }
 
 
@@ -861,37 +899,102 @@ def _golden_weights(n: int) -> list[int]:
     return [0 if i % 11 == 5 else 0x8000 if i % 7 == 3 else 0x10000 for i in range(n)]
 
 
-def _crush_golden() -> int:
+def _crush_golden() -> dict:
+    """Every golden line of the reference C: through the batched mapper
+    on the card where it takes the map, else (scenario 3's argonaut
+    tunables, outside it as outside jaxmap) through the oracle, as
+    crushtool and OSDMapMapping map it; and the 600 choose_args lines."""
     import gzip
     import pathlib
+    import re
 
     from ceph_tpu_torch.crush import torchmap as tm
 
-    path = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "crush_do_rule_golden.txt.gz"
+    data = pathlib.Path(__file__).resolve().parent / "tests" / "data"
     maps = _golden_maps()
     want = collections.defaultdict(dict)
-    for line in gzip.open(path, "rt").read().splitlines():
+    for line in gzip.open(data / "crush_do_rule_golden.txt.gz", "rt").read().splitlines():
         head, _, tail = line.partition(" ->")
         scen, rule, x, rmax = head.split()
         key = (int(scen[1:]), int(rule[1:]), int(rmax.split("=")[1]))
-        if key[0] in maps:
-            want[key][int(x.split("=")[1])] = [int(v) for v in tail.split()]
-    checked = 0
-    for (scen, rule, rmax), rows in sorted(want.items()):
+        want[key][int(x.split("=")[1])] = [int(v) for v in tail.split()]
+    for line in gzip.open(data / "crush_choose_args_golden.txt.gz", "rt").read().splitlines():
+        tag, rule, nrep, x, res = re.match(r"(\w+) (\d+) (\d+) (\d+) \[(.*)\]", line).groups()
+        if tag == "ca":
+            want[("choose_args", int(rule), int(nrep))][int(x)] = (
+                [int(v) for v in res.split(",")] if res else [])
+    out = {"card": collections.Counter(), "oracle": collections.Counter(), "refused": {}}
+    for (scen, rule, rmax), rows in want.items():
         m = maps[scen]
+        w = _golden_weights(m.max_devices)
         xs = np.array(sorted(rows))
-        res, counts = tm.batch_do_rule(tm.compile_map(m), rule, xs, rmax,
-                                       _golden_weights(m.max_devices))
+        try:
+            cm = tm.compile_map(m)
+        except tm.UnsupportedMap as e:
+            out["refused"][f"S{scen}"] = str(e)
+            for x in xs:
+                check(m.do_rule(rule, int(x), rmax, w) == rows[x], f"golden S{scen} R{rule} x={x}")
+            out["oracle"][f"S{scen}"] += len(xs)
+            continue
+        res, counts = tm.batch_do_rule(cm, rule, xs, rmax, w)
         for i, x in enumerate(xs):
-            check(res[i, : counts[i]].tolist() == rows[x], f"golden S{scen} R{rule} x={x}")
-            checked += 1
-    return checked
+            check(res[i, : counts[i]].tolist() == rows[x], f"golden {scen} R{rule} x={x}")
+        out["card"][f"S{scen}" if scen != "choose_args" else scen] += len(xs)
+    check(sum(out["card"].values()) + sum(out["oracle"].values()) == 3600,
+          f"golden lines: {out}")
+    return {k: dict(v) for k, v in out.items()}
 
 
-def phase_crush(smi: str) -> dict:
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def _crush_variant(pool, smi: str, name: str, pm, rule: int, rmax: int) -> dict:
+    """One rule over CRUSH_VARIANT_PGS PGs of a variant of config 5's
+    map on the card, end to end (numpy out, oracle fallback included,
+    median of 3), held against the oracle."""
+    from ceph_tpu_torch.crush import torchmap as tm
 
+    n = CRUSH_VARIANT_PGS
+    cm = tm.compile_map(pm)
+    xs = np.arange(n)
+    tm.fallback_lanes = 0
+    res, counts = tm.batch_do_rule(cm, rule, xs, rmax)
+    fallback = tm.fallback_lanes
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = tm.batch_do_rule(cm, rule, xs, rmax)
+        times.append(time.perf_counter() - t0)
+        check(np.array_equal(again[0], res), f"{name} rule {rule}: a second pass differs")
+    e2e_s = sorted(times)[1]
+    raw_ok = tm.batch_do_rule_raw(cm, rule, xs, rmax)[2].cpu().numpy()
+    sample = np.unique(np.concatenate([np.linspace(0, n - 1, 1024).astype(np.int64),
+                                       np.nonzero(~raw_ok)[0]]))
+    _hold_against_oracle(pool, pm, rule, rmax, sample, res, counts)
+    row = {"pgs": n, "positions": rmax, "e2e_s": e2e_s, "e2e_mappings_per_s": n / e2e_s,
+           "fallback_lanes": fallback, "oracle_checked": int(len(sample))}
+    print(f"[5] {name}, rule {rule} ({rmax} positions) on {smi}: {n / e2e_s:.0f} mappings/s end "
+          f"to end ({e2e_s:.4f} s, median of 3); {fallback} oracle fallback lanes; "
+          f"{len(sample)} PGs equal to the oracle")
+    return row
+
+
+def _variant_maps() -> dict:
+    """Config 5's hierarchy with its hosts as legacy straw buckets, and
+    with a one-position weight-set on every bucket (the mgr balancer's
+    compat weight-set, seeded within ±25 % of the weights)."""
+    from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW, ChooseArg
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    straw = build_hierarchy(10000, 40, 25, host_alg=CRUSH_BUCKET_STRAW)
+    compat = build_hierarchy(10000, 40, 25)
+    rng = np.random.default_rng(SEED + 5)
+    compat.set_choose_args({
+        bid: ChooseArg(weight_set=[[int(w * f) for w, f in zip(
+            b.item_weights, rng.uniform(0.75, 1.25, b.size))]])
+        for bid, b in compat.buckets.items()
+    })
+    return {"straw_hosts": straw, "compat_weight_set": compat}
+
+
+def phase_crush(smi: str, pool) -> dict:
     from ceph_tpu_torch.crush import torchmap as tm
     from ceph_tpu_torch.tools.crushtool import build_hierarchy
 
@@ -908,18 +1011,21 @@ def phase_crush(smi: str) -> dict:
           f"racks, {cm.nb} straw2 buckets; {len(tables)} device tables on cuda, "
           f"{table_bytes} bytes")
     rows = {}
-    # a worker that dies breaks the pool (BrokenProcessPool), it does not hang
-    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
-        rows["rule0"] = _crush_rule(pool, smi, pm, cm, 0, 3, CRUSH_PGS)
-        rows["rule1"] = _crush_rule(pool, smi, pm, cm, 1, 11, CRUSH_PGS)
+    rows["rule0"] = _crush_rule(pool, smi, pm, cm, 0, 3, CRUSH_PGS)
+    rows["rule1"] = _crush_rule(pool, smi, pm, cm, 1, 11, CRUSH_PGS)
+    variants = {}
+    for name, vm in _variant_maps().items():
+        variants[name] = {f"rule{r}": _crush_variant(pool, smi, name, vm, r, rmax)
+                          for r, rmax in ((0, 3), (1, 11))}
     golden = _crush_golden()
-    print(f"[5] golden vectors of the reference C, scenarios 0, 1 and 4: {golden} mappings "
-          f"on cuda equal to the file")
+    print(f"[5] golden vectors of the reference C: on cuda {golden['card']}, through the "
+          f"oracle {golden['oracle']} (refused by the batched mapper, as by jaxmap: "
+          f"{golden['refused']}), every line equal to the file")
     print(f"[5] CRUSH phase took {time.perf_counter() - t0:.1f} s")
     return {"card": smi.splitlines()[0],
             "map": {"osds": pm.max_devices, "hosts": hosts, "racks": racks, "buckets": cm.nb,
                     "table_bytes": table_bytes},
-            **rows, "golden_checked": golden}
+            **rows, "variants": variants, "golden": golden}
 
 
 STORE_OBJECTS = 256
@@ -1191,6 +1297,230 @@ def phase_store(smi: str) -> dict:
             "crc": crc, "launches": counts, "scrub_calls": calls, "breakdown": bd}
 
 
+OSDMAP_POOLS = ((1, "replicated", 3, 0, 1 << 20), (2, "erasure", 11, 1, 1 << 18))
+OSDMAP_SAMPLE = 2048
+
+
+def _scalar_rows(job):
+    """Pool worker: the scalar pipeline's (up, up_primary, acting,
+    acting_primary) of each PG, on a map decoded from its wire bytes."""
+    from ceph_tpu_torch.osd import OSDMap
+
+    blob, pid, pss = job
+    om = OSDMap.decode(blob)
+    return [om.pg_to_up_acting_osds(pid, int(ps)) for ps in pss]
+
+
+def _hold_mapping(pool, om, mapping, touched: dict, epoch: int) -> dict:
+    """mapping.get against the scalar pipeline on a seeded sample of
+    each pool's PGs and every PG an override touches, in the pool of
+    worker processes; returns the PGs checked a pool."""
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+
+    def norm(v):
+        v = list(v)
+        while v and v[-1] == CRUSH_ITEM_NONE:
+            v.pop()
+        return v
+
+    blob = om.encode()
+    rng = np.random.default_rng(SEED + 70 + epoch)
+    checked = {}
+    for pid, p in om.pools.items():
+        pss = np.unique(np.concatenate([rng.choice(p.pg_num, OSDMAP_SAMPLE, replace=False),
+                                        np.array(sorted(touched.get(pid, ())), dtype=np.int64)]))
+        jobs = [(blob, pid, part) for part in np.array_split(pss, 32)]
+        want = [r for rows in pool.map(_scalar_rows, jobs, timeout=600) for r in rows]
+        for ps, (up, upp, acting, actp) in zip(pss, want):
+            gup, gupp, gact, gactp = mapping.get(pid, int(ps))
+            check((norm(gup), gupp, norm(gact), gactp) == (norm(up), upp, norm(acting), actp),
+                  f"epoch {epoch} pg {pid}.{ps}: {(gup, gupp, gact, gactp)} != scalar "
+                  f"{(up, upp, acting, actp)}")
+        checked[pid] = int(len(pss))
+    return checked
+
+
+def _timed_update(mapping, om) -> float:
+    t0 = time.perf_counter()
+    mapping.update(om)
+    return time.perf_counter() - t0
+
+
+def _epoch2(om, mapping) -> tuple:
+    """The seeded incremental of epoch 2 (encoded and decoded), and the
+    PGs each pool's overrides touch."""
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osd import Incremental
+
+    rng = np.random.default_rng(SEED + 7)
+    inc = om.new_incremental()
+    osds = [int(o) for o in rng.permutation(om.max_osd)]
+    for o in osds[:100]:
+        inc.mark_down(o)
+    for o in osds[100:200]:
+        inc.mark_out(o)
+    for o in osds[200:220]:
+        inc.new_weight[o] = 0x8000
+    for o in osds[220:320]:
+        inc.new_primary_affinity[o] = 0
+    for o in osds[320:420]:
+        inc.new_primary_affinity[o] = 0x8000
+    touched = collections.defaultdict(set)
+    pools = list(om.pools.values())
+    for kind, count in (("items", 1000), ("upmap", 100), ("temp", 500), ("ptemp", 100)):
+        for i in range(count):
+            p = pools[i % len(pools)]
+            ps = int(rng.integers(p.pg_num))
+            touched[p.pool_id].add(ps)
+            up = [int(o) for o in mapping.up[p.pool_id][ps] if o != CRUSH_ITEM_NONE]
+            pg = (p.pool_id, ps)
+            if kind == "items":
+                inc.new_pg_upmap_items[pg] = [(up[0], int(rng.integers(om.max_osd)))]
+            elif kind == "upmap":
+                inc.new_pg_upmap[pg] = [int(o) for o in
+                                        rng.choice(om.max_osd, p.size, replace=False)]
+            elif kind == "temp":
+                inc.new_pg_temp[pg] = [int(o) for o in
+                                       rng.choice(om.max_osd, p.size, replace=False)]
+            else:
+                inc.new_primary_temp[pg] = int(rng.integers(om.max_osd))
+    wire = inc.encode()
+    return Incremental.decode(wire), len(wire), touched
+
+
+def _balancer(smi: str) -> dict:
+    """calc_pg_upmaps on 1000 OSDs and 2^15 PGs of a size-3 pool (~98
+    PG shards an OSD), each upmap checked against the scalar pipeline."""
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE, PG_POOL_TYPE_REPLICATED
+    from ceph_tpu_torch.osd import OSDMap, OSDMapMapping, PgPool
+    from ceph_tpu_torch.osd.balancer import calc_pg_upmaps
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    om = OSDMap.build(build_hierarchy(1000, 10, 10), 1000)
+    om.add_pool(PgPool(pool_id=1, type=PG_POOL_TYPE_REPLICATED, size=3, pg_num=1 << 15,
+                       crush_rule=0))
+    target = 3 * (1 << 15) / 1000
+
+    def worst():
+        m = OSDMapMapping()
+        m.update(om)
+        up = m.up[1]
+        counts = np.bincount(up[up != CRUSH_ITEM_NONE], minlength=1000)
+        return float(np.abs(counts - target).max()), int(counts.sum())
+
+    before, total = worst()
+    t0 = time.perf_counter()
+    changed = calc_pg_upmaps(om, max_deviation=1, max_changes=100)
+    seconds = time.perf_counter() - t0
+    after, total_after = worst()
+    check(changed > 0 and total_after == total and after < before,
+          f"balancer: {changed} changes, deviation {before} -> {after}")
+    for (pid, ps), items in om.pg_upmap_items.items():
+        up = om.pg_to_up_acting_osds(pid, ps)[0]
+        check(all(src not in up and dst in up for src, dst in items),
+              f"balancer upmap {pid}.{ps} {items} against the scalar up {up}")
+    print(f"[7] calc_pg_upmaps(max_deviation=1, max_changes=100) on 1000 OSDs, 2^15 PGs x 3 "
+          f"on {smi}: {changed} changes in {seconds:.3f} s; largest |deviation| {before:.3f} "
+          f"-> {after:.3f} PGs (target {target}); every upmap valid in the scalar pipeline")
+    return {"changes": changed, "seconds": seconds, "max_abs_deviation_before": before,
+            "max_abs_deviation_after": after, "target": target}
+
+
+def phase_osdmap(smi: str, pool) -> dict:
+    """The OSD map on the card: config 5's cluster, two epochs."""
+    from ceph_tpu_torch.crush import torchmap as tm
+    from ceph_tpu_torch.crush.types import PG_POOL_TYPE_ERASURE, PG_POOL_TYPE_REPLICATED
+    from ceph_tpu_torch.ops.profiler import breakdown, dispatch_profiler
+    from ceph_tpu_torch.osd import OSDMap, OSDMapMapping, PgPool
+    from ceph_tpu_torch.tools import osdmaptool
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    t0 = time.perf_counter()
+    om = OSDMap.build(build_hierarchy(10000, 40, 25), 10000)
+    for pid, kind, size, rule, pg_num in OSDMAP_POOLS:
+        om.add_pool(PgPool(pool_id=pid, size=size, crush_rule=rule, pg_num=pg_num,
+                           type=PG_POOL_TYPE_REPLICATED if kind == "replicated"
+                           else PG_POOL_TYPE_ERASURE))
+    pgs = sum(p.pg_num for p in om.pools.values())
+    mapping = OSDMapMapping()
+    check(mapping.device.type == "cuda", f"OSDMapMapping on {mapping.device}")
+    tm.fallback_lanes = 0
+    warm_s = _timed_update(mapping, om)
+    perf0 = mapping.perf.dump()
+    prof0 = dispatch_profiler().totals()
+    times = [_timed_update(mapping, om) for _ in range(3)]
+    perf1 = mapping.perf.dump()
+    split = breakdown(prof0, dispatch_profiler().totals())
+    fallback1 = tm.fallback_lanes
+    e1 = sorted(times)[1]
+
+    def avg(key, before, after):
+        n = after[key]["avgcount"] - before[key]["avgcount"]
+        return (after[key]["sum"] - before[key]["sum"]) / n
+
+    for pid, p in om.pools.items():
+        check(mapping.up[pid].shape == (p.pg_num, p.size) and mapping.up[pid].dtype == np.int64,
+              f"pool {pid}: up {mapping.up[pid].shape} {mapping.up[pid].dtype}")
+    epoch1 = {"warm_s": warm_s, "update_s": e1, "pg_mappings_per_s": pgs / e1,
+              "crush_stage_avg_s": avg("crush_stage", perf0, perf1),
+              "fixup_stages_avg_s": avg("fixup_stages", perf0, perf1),
+              "fallback_lanes": fallback1, "dispatch": split}
+    print(f"[7] epoch 1 on {smi}: {pgs} PGs (pool 1 2^20 x 3 rule 0, pool 2 2^18 x 11 rule 1) "
+          f"in {e1:.4f} s median of 3 = {pgs / e1:.0f} PG mappings/s end to end, numpy out "
+          f"(first update {warm_s:.3f} s); a pool's crush_stage {epoch1['crush_stage_avg_s']:.4f}"
+          f" s, fixup_stages {epoch1['fixup_stages_avg_s']:.4f} s on average; "
+          f"{fallback1} oracle lanes in 4 updates")
+    print(f"[7] epoch 1 dispatch profiler over 3 updates: {json.dumps(split)}")
+    checked1 = _hold_mapping(pool, om, mapping, {}, 1)
+
+    inc, wire_bytes, touched = _epoch2(om, mapping)
+    om.apply_incremental(inc)
+    tm.fallback_lanes = 0
+    prof0 = dispatch_profiler().totals()
+    e2 = _timed_update(mapping, om)
+    perf2 = mapping.perf.dump()
+    split2 = breakdown(prof0, dispatch_profiler().totals())
+    epoch2 = {"update_s": e2, "pg_mappings_per_s": pgs / e2, "incremental_bytes": wire_bytes,
+              "crush_stage_avg_s": avg("crush_stage", perf1, perf2),
+              "fixup_stages_avg_s": avg("fixup_stages", perf1, perf2),
+              "fallback_lanes": tm.fallback_lanes, "dispatch": split2,
+              "touched_pgs": {pid: len(v) for pid, v in touched.items()}}
+    print(f"[7] epoch 2 ({wire_bytes} B incremental: 100 down, 100 out, 20 at 0x8000, affinity 0 "
+          f"and 0x8000 on 100 each, 1000 pg_upmap_items, 100 pg_upmap, 500 pg_temp, 100 "
+          f"primary_temp): {e2:.4f} s = {pgs / e2:.0f} PG mappings/s; a pool's crush_stage "
+          f"{epoch2['crush_stage_avg_s']:.4f} s, fixup_stages {epoch2['fixup_stages_avg_s']:.4f} "
+          f"s; {tm.fallback_lanes} oracle lanes; dispatch compute {split2['compute_ms']} ms, "
+          f"sync (the oracle lanes' read and re-map) {split2['sync_ms']} ms")
+    checked2 = _hold_mapping(pool, om, mapping, touched, 2)
+
+    blob = om.encode()
+    again = OSDMapMapping()
+    again.update(OSDMap.decode(blob))
+    for pid in om.pools:
+        for name in ("up", "up_primary", "acting", "acting_primary"):
+            check(np.array_equal(getattr(again, name)[pid], getattr(mapping, name)[pid]),
+                  f"decoded map: pool {pid} {name} differs")
+    print(f"[7] scalar pipeline in the process pool: epoch 1 {checked1}, epoch 2 {checked2} PGs "
+          f"a pool equal; the whole map's {len(blob)} B encoding, decoded, maps to equal arrays "
+          f"on cuda")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = osdmaptool.main(["--test-map-pgs", "--build", "10000:40:25", "--pg-num", "1048576"])
+    tool = out.getvalue().strip().splitlines()
+    check(rc == 0 and "[torch]" in tool[0], f"osdmaptool: rc {rc}, {tool}")
+    print(f"[7] osdmaptool: {tool[0]!r}; {tool[1].strip()!r}")
+    balancer = _balancer(smi)
+    phase_s = time.perf_counter() - t0
+    print(f"[7] OSD-map phase took {phase_s:.1f} s")
+    return {"card": smi.splitlines()[0], "osds": om.max_osd,
+            "pools": [dict(zip(("pool", "type", "size", "rule", "pg_num"), p))
+                      for p in OSDMAP_POOLS],
+            "epoch1": epoch1, "epoch2": epoch2, "checked": {"epoch1": checked1,
+                                                            "epoch2": checked2},
+            "encoded_bytes": len(blob), "osdmaptool": tool, "balancer": balancer,
+            "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1203,8 +1533,11 @@ def main() -> int:
     counts = phase_main_path()
     phase_layered(smi)
     rows = phase_resident()
-    crush = phase_crush(smi)
-    store = phase_store(smi)
+    # a worker that dies breaks the pool (BrokenProcessPool), it does not hang
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        crush = phase_crush(smi, pool)
+        store = phase_store(smi)
+        osdmap = phase_osdmap(smi, pool)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
     for key, name, replaces, label in (
@@ -1222,6 +1555,7 @@ def main() -> int:
         })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
+    print(json.dumps({"osdmap": osdmap}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -476,3 +476,119 @@ def test_ecstore_on_the_card(cuda):
         card.lose_shard(name, 0)
         assert card.get(name) == datas[name]
     assert packed_gf.launches > k1 and bitplane_gf.launches > k2
+
+
+# -- CRUSH's legacy algorithms and choose_args, and the OSD map, on the card ----
+
+
+def _legacy_card_maps():
+    from ceph_tpu_torch.crush.types import (
+        CRUSH_BUCKET_LIST, CRUSH_BUCKET_STRAW, CRUSH_BUCKET_TREE, CRUSH_BUCKET_UNIFORM,
+        ChooseArg,
+    )
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    maps = {name: build_hierarchy(96, 4, 4, host_alg=alg) for name, alg in (
+        ("straw", CRUSH_BUCKET_STRAW), ("list", CRUSH_BUCKET_LIST),
+        ("tree", CRUSH_BUCKET_TREE), ("uniform", CRUSH_BUCKET_UNIFORM))}
+    for name, positions in (("choose_args1", 1), ("choose_args2", 2)):
+        m = build_hierarchy(96, 4, 4)
+        rng = np.random.default_rng(positions)
+        m.set_choose_args({
+            bid: ChooseArg(weight_set=[[int(w) for w in rng.integers(0x4000, 0x20000, b.size)]
+                                       for _ in range(positions)])
+            for bid, b in m.buckets.items() if b.type == 1
+        })
+        maps[name] = m
+    return maps
+
+
+@pytest.mark.parametrize("name", ["straw", "list", "tree", "uniform", "choose_args1",
+                                  "choose_args2"])
+@pytest.mark.parametrize("rule,rmax", [(0, 3), (1, 6)])
+def test_crush_legacy_and_choose_args_on_the_card_equal_cpu(cuda, name, rule, rmax):
+    from ceph_tpu_torch.crush import torchmap
+
+    m = _legacy_card_maps()[name]
+    w = _mixed_weights(m.max_devices, 4)
+    card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
+    xs = np.arange(4096)
+    got = torchmap.batch_do_rule_raw(card, rule, xs, rmax, w)
+    want = torchmap.batch_do_rule_raw(cpu, rule, xs, rmax, w)
+    for g, v in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), v)
+    res, counts = torchmap.apply_oracle_fallback(card, rule, xs, *got, rmax, w)
+    for i in range(0, len(xs), 131):
+        assert res[i, : counts[i]].tolist() == m.do_rule(rule, int(xs[i]), rmax, list(w))
+
+
+def _card_cluster():
+    from ceph_tpu_torch.crush.types import PG_POOL_TYPE_ERASURE, PG_POOL_TYPE_REPLICATED
+    from ceph_tpu_torch.osd import OSDMap, PgPool
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    om = OSDMap.build(build_hierarchy(240, 8, 5), 240)
+    om.add_pool(PgPool(pool_id=1, type=PG_POOL_TYPE_REPLICATED, size=3, pg_num=4096,
+                       crush_rule=0))
+    om.add_pool(PgPool(pool_id=2, type=PG_POOL_TYPE_ERASURE, size=6, pg_num=1000,
+                       crush_rule=1))
+    rng = np.random.default_rng(11)
+    for o in rng.choice(240, 6, replace=False):
+        om.mark_down(int(o))
+    for o in rng.choice(240, 6, replace=False):
+        om.mark_out(int(o))
+    om.osd_exists[7] = False
+    om.osd_primary_affinity = [0x10000] * 240
+    for o in rng.choice(240, 20, replace=False):
+        om.osd_primary_affinity[int(o)] = int(rng.choice([0, 0x8000]))
+    for pid, pool in om.pools.items():
+        for ps in rng.choice(pool.pg_num, 8, replace=False):
+            ps = int(ps)
+            src = om.pg_to_up_acting_osds(pid, ps)[0]
+            om.pg_upmap_items[(pid, ps)] = [(src[0], int(rng.integers(240)))]
+        om.pg_temp[(pid, 3)] = [int(v) for v in rng.choice(240, pool.size, replace=False)]
+        om.primary_temp[(pid, 5)] = int(rng.integers(240))
+        om.pg_upmap[(pid, 9)] = [int(v) for v in rng.choice(240, pool.size, replace=False)]
+    return om
+
+
+def test_osdmap_mapping_on_the_card_equals_cpu(cuda):
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osd import OSDMapMapping
+
+    om = _card_cluster()
+    card, cpu = OSDMapMapping(), OSDMapMapping(device="cpu")
+    assert card.device.type == "cuda"
+    card.update(om)
+    cpu.update(om)
+    for pid in om.pools:
+        for name in ("up", "up_primary", "acting", "acting_primary"):
+            np.testing.assert_array_equal(getattr(card, name)[pid], getattr(cpu, name)[pid])
+    def norm(v):
+        v = list(v)
+        while v and v[-1] == CRUSH_ITEM_NONE:
+            v.pop()
+        return v
+
+    for pid, pool in om.pools.items():
+        for ps in range(0, pool.pg_num, 37):
+            up, upp, acting, actp = om.pg_to_up_acting_osds(pid, ps)
+            gup, gupp, gact, gactp = card.get(pid, ps)
+            assert (norm(gup), gupp, norm(gact), gactp) == (norm(up), upp, norm(acting), actp)
+
+
+def test_balancer_on_the_card_equals_cpu(cuda):
+    from ceph_tpu_torch.crush.types import PG_POOL_TYPE_REPLICATED
+    from ceph_tpu_torch.osd import OSDMap, PgPool
+    from ceph_tpu_torch.osd.balancer import calc_pg_upmaps
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    maps = []
+    for _ in range(2):
+        om = OSDMap.build(build_hierarchy(60, 6, weight_fn=lambda o: 0x10000 + (o // 6 % 3) * 0x4000),
+                          60)
+        om.add_pool(PgPool(pool_id=1, type=PG_POOL_TYPE_REPLICATED, size=3, pg_num=1024,
+                           crush_rule=0))
+        maps.append(om)
+    assert calc_pg_upmaps(maps[0], 1, 40) == calc_pg_upmaps(maps[1], 1, 40, device="cpu") > 0
+    assert maps[0].pg_upmap_items == maps[1].pg_upmap_items

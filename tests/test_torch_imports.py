@@ -2,7 +2,8 @@
 
 An AST scan of every module of the port and of chip_smoke.py, and a
 fresh interpreter that imports the port — its erasure-code plane, CRUSH,
-the stores, residency, the profiler and the scrub functions — and finds
+the OSD map and its mapping, the stores, residency, the profiler and the
+scrub functions — and finds
 no ``jax`` in ``sys.modules``.
 """
 
@@ -59,6 +60,9 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.common, ceph_tpu_torch.store, ceph_tpu_torch.store.pg_backend\n"
         "import ceph_tpu_torch.store.remote, ceph_tpu_torch.ops.scrub_kernels\n"
         "import ceph_tpu_torch.ops.residency, ceph_tpu_torch.ops.profiler\n"
+        "import ceph_tpu_torch.crush.encode, ceph_tpu_torch.osd.osdmap\n"
+        "import ceph_tpu_torch.osd.mapping, ceph_tpu_torch.osd.balancer\n"
+        "import ceph_tpu_torch.tools.osdmaptool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
