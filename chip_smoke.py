@@ -91,8 +91,29 @@ script exits non-zero:
    arrays; ``osdmaptool --test-map-pgs`` in process; ``calc_pg_upmaps``
    on 1000 OSDs and 2^15 PGs, each upmap held against the scalar
    pipeline; one ``{"osdmap": ...}`` line;
-8. one JSON line describing each kernel;
-9. the last line, ``{"ok": true, "device": {...}}``.
+8. the EC sub-op wire and the durable stores, with the launch counts
+   zeroed before and both non-zero after: one PG (isa k=8 m=3, stripe
+   unit 4096, 256 seeded objects of 4 MiB) whose 11 shards sit behind
+   ``ShardServer``s, each on its own ``Messenger`` on 127.0.0.1 over a
+   ``WALStore(device="cuda")`` fronting a ``BlockStore`` under
+   ``build/``, with one client ``Messenger`` and 11 ``RemoteStore``s
+   under an ``ECStore``: put (K1) and every object read back; a deep
+   scrub of the media (``build_scrub_map`` on cuda, ``compare_ec``)
+   clean, then one bit flipped in one shard's ``block.dev`` flagged as
+   exactly that (object, shard) and repaired; one shard server's
+   messenger stopped and named by ``HeartbeatTracker`` ping rounds,
+   marked down by two reporters in a ``FailureAggregator``; a degraded
+   get of a sample; ``recover_objects_batch`` (K2) onto a fresh server,
+   every rebuilt shard equal to its first-scrub crc and a clean
+   re-scrub; one shard's WAL dropped with 16 small RMW writes acked but
+   unapplied, remounted (the replay's crc verify on the card, timed by
+   CUDA events beside its byte bound) and every object read back;
+   ``python -m ceph_tpu_torch.store.remote --port 0`` answering a
+   transaction, a read and a ping; the host crc32c's thread-seconds by
+   caller and a 2 ms sample of where the threads run during put and
+   recovery; one ``{"wire": ...}`` line;
+9. one JSON line describing each kernel;
+10. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -107,8 +128,13 @@ import itertools
 import json
 import multiprocessing
 import os
+import pathlib
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -1521,6 +1547,528 @@ def phase_osdmap(smi: str, pool) -> dict:
             "phase_s": phase_s}
 
 
+WIRE_OBJECTS = 256
+WIRE_OBJECT_BYTES = 4 << 20  # the RADOS default object size
+WIRE_GRACE_S = 2.0  # osd_heartbeat_grace is 20 s; cut so detection waits 2
+WIRE_PING_S = 0.25  # one heartbeat round every 0.25 s
+WIRE_DEGRADED_SAMPLE = 32
+WIRE_REPLAY_WRITES = 16
+WIRE_LOST = 4  # the position whose shard server is stopped and replaced
+WIRE_ROT = 6  # the position whose media rots out of band
+WIRE_WAL = 0  # the position whose WAL crashes
+
+
+class _CrcClock:
+    """Host crc32c calls, bytes and thread-seconds by caller over a
+    window: each module's ``ceph_crc32c`` (the name it bound at import)
+    is swapped for a timed one and put back after."""
+
+    def __init__(self, modules: dict):
+        from ceph_tpu_torch import native
+
+        self._orig = native.ceph_crc32c
+        self._modules = modules
+        self._lock = threading.Lock()
+        self.acc = {label: [0, 0, 0.0] for label in modules}
+
+    def _timed(self, label):
+        orig, acc, lock = self._orig, self.acc[label], self._lock
+
+        def timed(crc, data):
+            t0 = time.perf_counter()
+            out = orig(crc, data)
+            dt = time.perf_counter() - t0
+            with lock:
+                acc[0] += 1
+                acc[1] += len(data)
+                acc[2] += dt
+            return out
+
+        return timed
+
+    def __enter__(self):
+        for label, mod in self._modules.items():
+            mod.ceph_crc32c = self._timed(label)
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._modules.values():
+            mod.ceph_crc32c = self._orig
+        return False
+
+    def dump(self) -> dict:
+        return {label: {"calls": c, "bytes": b, "thread_s": s}
+                for label, (c, b, s) in self.acc.items()}
+
+
+def _crc_modules() -> dict:
+    from ceph_tpu_torch.ec import stripe
+    from ceph_tpu_torch.msg import message
+    from ceph_tpu_torch.store import blockstore, framed_log, wal_store
+
+    return {"frame (msg)": message, "HashInfo (ec.stripe)": stripe, "WAL record": wal_store,
+            "log frames (framed_log)": framed_log, "BlockStore blob": blockstore}
+
+
+class _HostSampler:
+    """Where the process's threads run, sampled every ``interval`` s from
+    ``sys._current_frames()``: each thread's innermost frame by file and
+    function; threads parked in a wait (a condition, a lock, a selector,
+    a sleep) are counted apart as idle."""
+
+    IDLE = {("threading.py", "wait"), ("threading.py", "_wait_for_tstate_lock"),
+            ("selectors.py", "select"), ("queue.py", "get"), ("_base.py", "result"),
+            ("chip_smoke.py", "_run")}
+
+    def __init__(self, interval: float = 0.002):
+        self.interval = interval
+        self.busy = collections.Counter()
+        self.idle = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        me = threading.get_ident()
+        while not self._stop.wait(self.interval):
+            for ident, frame in sys._current_frames().items():
+                if ident == me:
+                    continue
+                where = (os.path.basename(frame.f_code.co_filename), frame.f_code.co_name)
+                if where in self.IDLE:
+                    self.idle += 1
+                else:
+                    self.busy[f"{where[0]}:{where[1]}"] += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(5)
+        return False
+
+    def top(self, n: int = 10) -> dict:
+        total = sum(self.busy.values())
+        return {"busy_samples": total, "idle_samples": self.idle,
+                "top": {k: round(v / max(total, 1), 4) for k, v in self.busy.most_common(n)}}
+
+
+class _ShardOSD:
+    """One shard OSD: a Messenger on 127.0.0.1 with a ShardServer over a
+    WALStore (device cuda) fronting a BlockStore, both under ``root``
+    (the cluster launcher's ``--wal`` layout)."""
+
+    def __init__(self, root: pathlib.Path, whoami: int):
+        from ceph_tpu_torch.msg import Messenger
+        from ceph_tpu_torch.store.remote import ShardServer
+
+        self.root = root
+        self.store = self.mount()
+        self.server = ShardServer(store=self.store, whoami=whoami)
+        self.msgr = Messenger(f"osd.{whoami}")
+        self.msgr.add_dispatcher(self.server)
+        self.addr = self.msgr.bind("127.0.0.1", 0)
+
+    def mount(self):
+        from ceph_tpu_torch.store import BlockStore, WALStore
+
+        return WALStore(BlockStore(self.root / "block", sync=False), self.root / "wal",
+                        device="cuda")
+
+    def close(self) -> None:
+        self.msgr.shutdown()
+        if self.store._closed:
+            self.store.inner.close()
+        else:
+            self.store.close()
+
+
+def _ec_findings(maps: dict, names, acting: list, sinfo) -> list:
+    """(object, position, errors) of every shard ``compare_ec`` flags."""
+    from ceph_tpu_torch.osd.scrub import compare_ec
+
+    out = []
+    for name in names:
+        rec, _ = compare_ec(name, {p: m[name] for p, m in maps.items()}, acting, sinfo, True)
+        if rec is not None:
+            out += [(name, sh["shard"], sh["errors"]) for sh in rec["shards"] if sh["errors"]]
+    return out
+
+
+def _deep_scrub(stores: dict, cid: str, names) -> dict:
+    from ceph_tpu_torch.osd.scrub import build_scrub_map
+
+    return {p: build_scrub_map(s, cid, names, deep=True, with_hinfo=True, device="cuda")
+            for p, s in stores.items()}
+
+
+def _rot(osd: _ShardOSD, cid: str, name: str, at: int) -> None:
+    """Flip one bit of a shard's bytes in ``block.dev`` behind the
+    store's back (no transaction: out-of-band bit rot)."""
+    doff = osd.store.inner._onode(cid, name).blobs[0][2]
+    with open(osd.root / "block" / "block.dev", "r+b") as f:
+        f.seek(doff + at)
+        byte = f.read(1)[0]
+        f.seek(doff + at)
+        f.write(bytes([byte ^ 0x10]))
+
+
+def _heartbeat(remotes: list, osd: _ShardOSD, lost: int) -> tuple[float, int]:
+    """Stop one shard server's messenger, then ping every shard each
+    WIRE_PING_S until the tracker names it; returns (seconds to
+    detection, ping rounds)."""
+    from ceph_tpu_torch.msg import MessageError
+    from ceph_tpu_torch.osd.failure import HeartbeatTracker
+
+    tracker = HeartbeatTracker(whoami=-1, grace=WIRE_GRACE_S)
+
+    def ping_round():
+        for i, rs in enumerate(remotes):
+            try:
+                rs.ping(from_osd=-1, timeout=1.0)
+                tracker.handle_ping(i, time.monotonic())
+            except MessageError:
+                pass
+
+    now = time.monotonic()
+    for i in range(len(remotes)):
+        tracker.add_peer(i, now)
+    ping_round()
+    check(tracker.failures(time.monotonic()) == [], "a shard failed before any was stopped")
+    stopped = time.monotonic()
+    osd.msgr.shutdown()
+    rounds = 0
+    while True:
+        ping_round()
+        rounds += 1
+        failed = [f[0] for f in tracker.failures(time.monotonic())]
+        if failed:
+            break
+        check(time.monotonic() - stopped < 10 * WIRE_GRACE_S, "the stopped shard was not detected")
+        time.sleep(WIRE_PING_S)
+    check(failed == [lost], f"heartbeats named {failed}, not {lost}")
+    return time.monotonic() - stopped, rounds
+
+
+def _mark_down(lost: int, n: int) -> int:
+    """Two reporters' failure reports mark the shard down in an OSD map
+    of the PG's n OSDs; returns the new epoch."""
+    from ceph_tpu_torch.crush.builder import CrushMap
+    from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW2
+    from ceph_tpu_torch.osd import OSDMap
+    from ceph_tpu_torch.osd.failure import FailureAggregator
+
+    cmap = CrushMap()
+    cmap.add_bucket(CRUSH_BUCKET_STRAW2, 1, list(range(n)), [0x10000] * n, name="host0")
+    om = OSDMap.build(cmap, n)
+    agg = FailureAggregator(om, min_reporters=2)
+    check(not agg.report_failure(lost, 0, time.monotonic()), "one reporter marked it down")
+    check(agg.report_failure(lost, 1, time.monotonic()) and om.is_down(lost),
+          "two reporters did not mark it down")
+    return om.epoch
+
+
+def _replay(osd: _ShardOSD, ecs, rng, model: dict) -> dict:
+    """Crash one shard's WAL with small RMW shard writes committed but
+    not applied, remount, and time the replay's crc verify."""
+    from ceph_tpu_torch.common.encoding import Decoder
+    from ceph_tpu_torch.ops import scrub_kernels as sk
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
+    from ceph_tpu_torch.store.framed_log import replay_frames
+    from ceph_tpu_torch.store.wal_store import decode_wal_record
+    from ceph_tpu_torch.tools.timing import time_ms
+
+    wal = osd.store
+    wal.drain_paused = True
+    names = [str(n) for n in rng.choice(sorted(model), WIRE_REPLAY_WRITES, replace=False)]
+    for name in names:
+        off = int(rng.integers(0, WIRE_OBJECT_BYTES - 4096))
+        data = rng.bytes(4096)
+        ecs.write(name, off, data)
+        b = bytearray(model[name])
+        b[off : off + 4096] = data
+        model[name] = bytes(b)
+    unapplied = len(wal._pending)
+    check(unapplied == WIRE_REPLAY_WRITES, f"{unapplied} unapplied records, not "
+          f"{WIRE_REPLAY_WRITES}")
+    # dropped without close or flush, as if the process died here; the
+    # writer thread is woken so it exits instead of waiting forever
+    with wal._wal_cv:
+        wal._closed = True
+        wal._wal_cv.notify_all()
+    wal.inner.close()
+    payloads = [decode_wal_record(Decoder(body)).payload
+                for body, _end in replay_frames((osd.root / "wal" / "wal.log").read_bytes())]
+    ks = kernel_stats()
+    calls0 = ks.dump().get("l_tpu_scrub_crc32c_calls", 0)
+    t0 = time.perf_counter()
+    osd.store = osd.mount()
+    osd.server.store = osd.store
+    mount_s = time.perf_counter() - t0
+    calls = ks.dump().get("l_tpu_scrub_crc32c_calls", 0) - calls0
+    check(osd.store.replayed_records == unapplied,
+          f"replayed {osd.store.replayed_records} of {unapplied} unapplied records")
+    check(calls >= 1, "the replay verify made no device crc call")
+    total = sum(map(len, payloads))
+    crc_ms = time_ms(lambda: sk.batch_crc32c(payloads, device="cuda"), iters=5)
+    return {"unapplied": unapplied, "replayed_records": osd.store.replayed_records,
+            "log_records": len(payloads), "log_record_bytes": total, "mount_s": mount_s,
+            "mount_ms": mount_s * 1e3, "crc32c_calls": calls, "crc_call_ms": crc_ms,
+            "crc_bound_ms": total / HBM_BYTES_PER_S * 1e3, "written": names}
+
+
+def _shard_daemon(client) -> dict:
+    """``python -m ceph_tpu_torch.store.remote --port 0``: ready line,
+    one transaction, a read and a ping, then killed."""
+    from ceph_tpu_torch.store import Transaction
+    from ceph_tpu_torch.store.remote import RemoteStore
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "ceph_tpu_torch.store.remote", "--port", "0",
+                             "--osd-id", "99"], stdout=subprocess.PIPE, text=True,
+                            cwd=pathlib.Path(__file__).resolve().parent)
+    try:
+        line = proc.stdout.readline().strip()
+        ready_s = time.perf_counter() - t0
+        check(line.startswith("shard_daemon ready "), f"shard daemon said {line!r}")
+        host, port = line.rsplit(" ", 1)[1].split(":")
+        rs = RemoteStore(client.connect(host, int(port)))
+        payload = bytes(range(256)) * 64
+        rs.queue_transaction(Transaction().create_collection("pg_9.0")
+                             .write("pg_9.0", "o", 0, payload))
+        check(rs.read("pg_9.0", "o") == payload, "shard daemon read back other bytes")
+        rtt = rs.ping(from_osd=-1)
+        rs.conn.close()
+    finally:
+        proc.kill()
+        proc.wait(30)
+    return {"ready_line": line, "ready_s": ready_s, "ping_rtt_s": rtt}
+
+
+def _sum_wal_perf(stores) -> dict:
+    out: dict = {}
+    for s in stores:
+        for key, val in s.wal_perf.dump().items():
+            if isinstance(val, dict):
+                acc = out.setdefault(key, {k: 0 for k in val})
+                for k, v in val.items():
+                    acc[k] += v
+            else:
+                out[key] = out.get(key, 0) + val
+    return out
+
+
+def phase_wire(smi: str) -> dict:
+    """The EC sub-op wire and the durable stores: one PG over the
+    messenger, on WAL-fronted BlockStore media."""
+    from ceph_tpu_torch.msg import Messenger, NetworkStack, stack_perf_dump
+    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
+    from ceph_tpu_torch.store import ECStore, Transaction
+    from ceph_tpu_torch.store.remote import RemoteStore
+
+    rng = np.random.default_rng(SEED + 8)
+    block = rng.bytes(WIRE_OBJECTS * WIRE_OBJECT_BYTES)
+    datas = {f"obj{i:03d}": block[i * WIRE_OBJECT_BYTES : (i + 1) * WIRE_OBJECT_BYTES]
+             for i in range(WIRE_OBJECTS)}
+    del block
+    names = list(datas)
+    logical = WIRE_OBJECTS * WIRE_OBJECT_BYTES
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="wire-", dir=build))
+    free = shutil.disk_usage(root)
+    print(f"[8] media under {root}: {free.free} B free of {free.total}")
+    osds, fresh, client = [], None, None
+    ks = kernel_stats()
+    try:
+        osds = [_ShardOSD(root / f"osd.{i}", i) for i in range(11)]
+        client = Messenger("client")
+        remotes = [RemoteStore(client.connect(*o.addr)) for o in osds]
+        exists_calls = collections.Counter()
+
+        def counted(fn, pos):
+            def exists(cid, oid):
+                exists_calls[pos] += 1
+                return fn(cid, oid)
+
+            return exists
+
+        for pos, rs in enumerate(remotes):
+            rs.exists = counted(rs.exists, pos)
+        ecs = ECStore(plugin="isa", profile={"k": "8", "m": "3", "device": "cuda"},
+                      stores=list(remotes))
+        check(ecs.n == 11 and ecs.sinfo.stripe_width == 8 * 4096,
+              f"isa k=8 m=3 at stripe unit 4096: n={ecs.n} width={ecs.sinfo.stripe_width}")
+        acting = list(range(ecs.n))
+        packed_gf.launches = 0
+        bitplane_gf.launches = 0
+        crc_calls0 = ks.dump().get("l_tpu_scrub_crc32c_calls", 0)
+        t_phase = time.perf_counter()
+
+        # 1. put, then read every acknowledged object back
+        with _CrcClock(_crc_modules()) as clock, _HostSampler() as put_where:
+            t0 = time.perf_counter()
+            for name in names:
+                ecs.put(name, datas[name])
+            torch.cuda.synchronize()
+            put_s = time.perf_counter() - t0
+        put_crc = clock.dump()
+        put_exists = sum(exists_calls.values())
+        shard_len = osds[0].store.stat(ecs.cid, names[0])
+        shard_bytes = WIRE_OBJECTS * ecs.n * shard_len
+        t0 = time.perf_counter()
+        for name in names:
+            check(ecs.get(name) == datas[name], f"get of {name} after put")
+        get_s = time.perf_counter() - t0
+        print(f"[8] put {WIRE_OBJECTS} objects of {WIRE_OBJECT_BYTES} B (isa k=8 m=3, "
+              f"{shard_bytes} B of shards through 11 messengers onto WAL+BlockStore media) in "
+              f"{put_s:.3f} s, {put_exists} exists round trips; every object read back "
+              f"byte-equal in {get_s:.3f} s")
+        print("[8] host crc32c during put (thread-seconds): " + ", ".join(
+            f"{k} {v['thread_s']:.3f} s / {v['bytes']} B" for k, v in put_crc.items()))
+        print(f"[8] put, threads sampled every 2 ms: {json.dumps(put_where.top())}")
+
+        # 2. deep scrub from media, then out-of-band rot
+        for o in osds:
+            check(o.store.flush(), "a WAL did not drain")
+        t0 = time.perf_counter()
+        maps = _deep_scrub({p: o.store for p, o in enumerate(osds)}, ecs.cid, names)
+        torch.cuda.synchronize()
+        scrub_s = time.perf_counter() - t0
+        findings = _ec_findings(maps, names, acting, ecs.sinfo)
+        check(not findings, f"deep scrub of a clean PG: {findings[:5]}")
+        victim = names[int(rng.integers(0, len(names) - 1))]
+        _rot(osds[WIRE_ROT], ecs.cid, victim, at=int(rng.integers(0, 4096)))
+        t0 = time.perf_counter()
+        rotted = _deep_scrub({p: o.store for p, o in enumerate(osds)}, ecs.cid, names)
+        rescrub_s = time.perf_counter() - t0
+        findings = _ec_findings(rotted, names, acting, ecs.sinfo)
+        check(findings == [(victim, WIRE_ROT, ["read_error"])],
+              f"scrub after rotting ({victim}, {WIRE_ROT}) flagged {findings}")
+        ecs.recover_shard(victim, WIRE_ROT)
+        again = _deep_scrub({WIRE_ROT: osds[WIRE_ROT].store}, ecs.cid, [victim])
+        check(again[WIRE_ROT][victim]["data_digest"] == maps[WIRE_ROT][victim]["data_digest"],
+              "the repaired shard's digest")
+        print(f"[8] deep scrub of the media on cuda: {len(names) * ecs.n} shards clean in "
+              f"{scrub_s:.3f} s; one bit of ({victim}, shard {WIRE_ROT}) flipped in its "
+              f"block.dev: the next scrub ({rescrub_s:.3f} s) flagged exactly that pair "
+              f"(read_error), recover_shard rewrote it to its first digest")
+
+        # 3. failure detection
+        detect_s, rounds = _heartbeat(remotes, osds[WIRE_LOST], WIRE_LOST)
+        epoch = _mark_down(WIRE_LOST, ecs.n)
+        print(f"[8] shard {WIRE_LOST}'s messenger stopped: heartbeats (grace {WIRE_GRACE_S} s, "
+              f"a round every {WIRE_PING_S} s) named it after {detect_s:.3f} s ({rounds} rounds);"
+              f" two reporters marked it down (epoch {epoch})")
+
+        # 4. degraded get
+        sample = [str(n) for n in rng.choice(names, WIRE_DEGRADED_SAMPLE, replace=False)]
+        t0 = time.perf_counter()
+        for name in sample:
+            check(ecs.get(name) == datas[name], f"degraded get of {name}")
+        degraded_s = time.perf_counter() - t0
+        print(f"[8] degraded get of {len(sample)} objects with shard {WIRE_LOST} down: "
+              f"byte-equal in {degraded_s:.3f} s")
+
+        # 5. recovery onto fresh media
+        fresh = _ShardOSD(root / "osd.11", 11)
+        rs = RemoteStore(client.connect(*fresh.addr))
+        rs.queue_transaction(Transaction().create_collection(ecs.cid))
+        ecs.stores[WIRE_LOST] = rs
+        remotes[WIRE_LOST] = rs
+        with _HostSampler() as recover_where:
+            t0 = time.perf_counter()
+            stats = ecs.recover_objects_batch(names, WIRE_LOST)
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t0
+        check(stats["batched"] == len(names) and stats["objects"] == len(names),
+              f"recover_objects_batch: {stats}")
+        live = {p: o.store for p, o in enumerate(osds)}
+        live[WIRE_LOST] = fresh.store
+        t0 = time.perf_counter()
+        maps2 = _deep_scrub(live, ecs.cid, names)
+        scrub2_s = time.perf_counter() - t0
+        for name in names:
+            check(maps2[WIRE_LOST][name]["data_digest"] == maps[WIRE_LOST][name]["data_digest"],
+                  f"rebuilt shard {WIRE_LOST} of {name}")
+        findings = _ec_findings(maps2, names, acting, ecs.sinfo)
+        check(not findings, f"scrub after recovery: {findings[:5]}")
+        print(f"[8] recover_objects_batch onto a fresh shard server: {stats['objects']} shards "
+              f"rebuilt in {recover_s:.3f} s, each equal to its first-scrub crc; re-scrub "
+              f"clean in {scrub2_s:.3f} s")
+        print(f"[8] recovery, threads sampled every 2 ms: {json.dumps(recover_where.top())}")
+
+        # 6. WAL crash and replay
+        model = dict(datas)
+        del datas
+        replay = _replay(osds[WIRE_WAL], ecs, rng, model)
+        t0 = time.perf_counter()
+        for name in names:
+            check(ecs.get(name) == model[name], f"get of {name} after the WAL replay")
+        get2_s = time.perf_counter() - t0
+        print(f"[8] shard {WIRE_WAL}'s WAL dropped with {replay['unapplied']} RMW shard writes "
+              f"acked but unapplied; remount replayed {replay['replayed_records']} in "
+              f"{replay['mount_ms']:.1f} ms ({replay['crc32c_calls']} device crc call over "
+              f"{replay['log_records']} records, {replay['log_record_bytes']} B: "
+              f"{replay['crc_call_ms']:.3f} ms by CUDA events, byte bound "
+              f"{replay['crc_bound_ms']:.5f} ms); every object read back byte-equal in "
+              f"{get2_s:.3f} s")
+
+        # 7. the shard daemon process
+        daemon = _shard_daemon(client)
+        print(f"[8] python -m ceph_tpu_torch.store.remote: {daemon['ready_line']!r} after "
+              f"{daemon['ready_s']:.2f} s; one transaction, a read and a ping "
+              f"({daemon['ping_rtt_s'] * 1e3:.2f} ms); killed")
+
+        phase_s = time.perf_counter() - t_phase
+        counts = {"K1": packed_gf.launches, "K2": bitplane_gf.launches}
+        crc_calls = ks.dump().get("l_tpu_scrub_crc32c_calls", 0) - crc_calls0
+        check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
+        msgr = {k: v for k, v in stack_perf_dump().items()
+                if not re.match(r"l_msgr_worker\d", k)}
+        wal_perf = _sum_wal_perf([o.store for o in osds] + [fresh.store])
+        gbps = {
+            "put_GBps": logical / put_s / 1e9,
+            "get_GBps": logical / get_s / 1e9,
+            "scrub_GBps": shard_bytes / scrub_s / 1e9,
+            "recover_GBps": WIRE_OBJECTS * shard_len / recover_s / 1e9,
+            "get_degraded_GBps": len(sample) * WIRE_OBJECT_BYTES / degraded_s / 1e9,
+        }
+        print(f"[8] wire phase took {phase_s:.1f} s; launches {counts}; device crc calls "
+              f"{crc_calls}")
+        print(f"[8] on {smi.splitlines()[0]} (host clock): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in gbps.items()))
+        print(f"[8] messenger: {json.dumps(msgr)}")
+        result = {
+            "card": smi.splitlines()[0],
+            "config": {"plugin": "isa", "k": 8, "m": 3, "stripe_unit": 4096,
+                       "objects": WIRE_OBJECTS, "object_bytes": WIRE_OBJECT_BYTES,
+                       "shard_servers": 11, "store": "WALStore(BlockStore, sync=False)",
+                       "heartbeat_grace_s": WIRE_GRACE_S, "ping_interval_s": WIRE_PING_S},
+            **gbps,
+            "seconds": {"put": put_s, "get": get_s, "scrub": scrub_s, "rescrub": rescrub_s,
+                        "degraded_get": degraded_s, "recover": recover_s,
+                        "scrub_after_recovery": scrub2_s, "get_after_replay": get2_s,
+                        "phase": phase_s},
+            "shard_bytes": shard_bytes, "exists_round_trips_in_put": put_exists,
+            "put_host_crc32c": put_crc, "put_threads": put_where.top(),
+            "recover_threads": recover_where.top(), "detect_s": detect_s, "ping_rounds": rounds,
+            "replay": {k: v for k, v in replay.items() if k != "written"},
+            "shard_daemon": daemon, "recover_stats": stats,
+            "msgr": msgr, "wal": wal_perf, "launches": counts, "device_crc32c_calls": crc_calls,
+        }
+    finally:
+        if client is not None:
+            client.shutdown()
+        for o in osds + ([fresh] if fresh is not None else []):
+            o.close()
+        shutil.rmtree(root, ignore_errors=True)
+    check(NetworkStack.live() is None, "a messenger reactor outlived the phase")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1538,6 +2086,7 @@ def main() -> int:
         crush = phase_crush(smi, pool)
         store = phase_store(smi)
         osdmap = phase_osdmap(smi, pool)
+    wire = phase_wire(smi)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
     for key, name, replaces, label in (
@@ -1552,10 +2101,13 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "library_note": note,
             "shape": "B=1024 k=8 m=3 chunk=131072 (1 GiB in)",
+            "launches_by_path": {"main (3)": counts[key], "store (6)": store["launches"][key],
+                                 "wire (8)": wire["launches"][key]},
         })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
     print(json.dumps({"osdmap": osdmap}))
+    print(json.dumps({"wire": wire}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

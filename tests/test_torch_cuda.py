@@ -7,7 +7,9 @@ routes with their K2 launch counts; the CRUSH mapper's hash,
 ``crush_ln`` and raw output on ``cuda`` against ``cpu``; the store plane:
 ``DeviceBuf`` on the card, the crc at 64 MiB against the host C crc,
 resident scrub and compare with no upload, ``ECStore`` on ``cuda``
-against ``cpu``.  Marked
+against ``cpu``; the durable stores: ``build_scrub_map`` over BlockStore
+media and the WAL's replay verify on ``cuda`` against ``cpu`` and the
+host C crc.  Marked
 ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -592,3 +594,75 @@ def test_balancer_on_the_card_equals_cpu(cuda):
         maps.append(om)
     assert calc_pg_upmaps(maps[0], 1, 40) == calc_pg_upmaps(maps[1], 1, 40, device="cpu") > 0
     assert maps[0].pg_upmap_items == maps[1].pg_upmap_items
+
+
+def _shard_store_with_objects(path, n=12):
+    from ceph_tpu_torch.store import BlockStore, Transaction
+
+    store = BlockStore(path, sync=False)
+    store.queue_transaction(Transaction().create_collection("pg_1.0"))
+    rng = np.random.default_rng(9)
+    for i in range(n):
+        txn = Transaction().touch("pg_1.0", f"o{i}")
+        txn.write("pg_1.0", f"o{i}", 0, rng.integers(0, 256, 4096 * i + 3, dtype=np.uint8).tobytes())
+        txn.setattr("pg_1.0", f"o{i}", "u_k", bytes([i]))
+        store.queue_transaction(txn)
+    return store
+
+
+def test_scrub_map_on_the_card_equals_cpu_and_host_crc(cuda, tmp_path):
+    from ceph_tpu_torch.native import ceph_crc32c
+    from ceph_tpu_torch.osd.scrub import DIGEST_SEED, build_scrub_map
+
+    store = _shard_store_with_objects(tmp_path / "bs")
+    oids = [f"o{i}" for i in range(12)] + ["absent"]
+    card = build_scrub_map(store, "pg_1.0", oids, deep=True)
+    assert card == build_scrub_map(store, "pg_1.0", oids, deep=True, device="cpu")
+    for oid in oids[:-1]:
+        assert card[oid]["data_digest"] == ceph_crc32c(DIGEST_SEED, store.read("pg_1.0", oid))
+    store.close()
+
+
+def test_wal_replay_on_the_card_verifies_and_truncates_like_cpu(cuda, tmp_path):
+    """One record's payload corrupted under a valid frame (so only the
+    record's own crc, verified on the device, can catch it): replay on
+    ``cuda`` keeps the same prefix, truncates to the same bytes and
+    leaves the same state as on ``cpu``."""
+    import shutil
+
+    from ceph_tpu_torch.common.encoding import Decoder, Encoder
+    from ceph_tpu_torch.store import BlockStore, Transaction, WALStore
+    from ceph_tpu_torch.store.framed_log import frame, replay_frames
+    from ceph_tpu_torch.store.wal_store import decode_wal_record, encode_wal_record
+
+    src = tmp_path / "src"
+    w = WALStore(BlockStore(src / "data", sync=False), src / "wal", device="cpu")
+    w.drain_paused = True
+    w.queue_transaction(Transaction().create_collection("c"))
+    for i in range(8):
+        w.queue_transaction(Transaction().write("c", f"o{i}", 0, bytes([i]) * (3000 + i)))
+    w._closed = True
+    w.inner.close()
+    log = b""
+    for n, (body, _end) in enumerate(replay_frames((src / "wal" / "wal.log").read_bytes())):
+        rec = decode_wal_record(Decoder(body))
+        if n == 5:
+            rec.payload = rec.payload[:-1] + bytes([rec.payload[-1] ^ 1])
+        e = Encoder()
+        encode_wal_record(e, rec)
+        log += frame(e.getvalue())
+    results = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        shutil.copytree(src, d)
+        (d / "wal" / "wal.log").write_bytes(log)
+        again = WALStore(BlockStore(d / "data", sync=False), d / "wal", device=dev)
+        results[dev] = (
+            again.replayed_records,
+            {o: again.read("c", o) for o in again.list_objects("c")},
+            (d / "wal" / "wal.log").read_bytes(),
+        )
+        again.close()
+    assert results["cuda"] == results["cpu"]
+    assert results["cuda"][0] == 5
+    assert len(results["cuda"][2]) < len(log)

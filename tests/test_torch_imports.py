@@ -63,6 +63,10 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.crush.encode, ceph_tpu_torch.osd.osdmap\n"
         "import ceph_tpu_torch.osd.mapping, ceph_tpu_torch.osd.balancer\n"
         "import ceph_tpu_torch.tools.osdmaptool\n"
+        "import ceph_tpu_torch.msg, ceph_tpu_torch.auth, ceph_tpu_torch.compressor\n"
+        "import ceph_tpu_torch.store.wal_store, ceph_tpu_torch.store.blockstore\n"
+        "import ceph_tpu_torch.store.kstore, ceph_tpu_torch.osd.failure\n"
+        "import ceph_tpu_torch.osd.scrub, ceph_tpu_torch.tools.objectstore_tool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
