@@ -1,0 +1,466 @@
+"""Typed options + layered configuration (src/common/options.cc schema,
+src/common/config.cc semantics).
+
+One schema of typed ``Option`` definitions (level/desc/default/min-max/
+enum/see_also, options.cc's shape) consumed by ``Config``, which
+resolves values through the reference's precedence chain:
+
+    compiled defaults < conf file < environment < runtime set < override
+
+(config.cc: default/conf/env/mon/override).  Runtime ``set`` plays the
+ConfigMonitor role (centralized `ceph config set`); observers are
+notified when an option's effective value changes (config_obs.h).
+
+The schema is the JAX package's option for option, except that
+``erasure_code_backend`` and ``crush_backend`` default to ``torch`` and
+allow only the port's backends.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+OPT_INT = "int"
+OPT_STR = "str"
+OPT_BOOL = "bool"
+OPT_FLOAT = "float"
+
+LEVEL_BASIC = "basic"
+LEVEL_ADVANCED = "advanced"
+LEVEL_DEV = "dev"
+
+
+class ConfigError(ValueError):
+    pass
+
+
+@dataclass
+class Option:
+    name: str
+    type: str = OPT_STR
+    default: Any = None
+    description: str = ""
+    level: str = LEVEL_ADVANCED
+    min: Any = None
+    max: Any = None
+    enum_allowed: tuple = ()
+    see_also: tuple = ()
+
+    def validate(self, value: Any) -> Any:
+        try:
+            if self.type == OPT_INT:
+                value = int(value)
+            elif self.type == OPT_FLOAT:
+                value = float(value)
+            elif self.type == OPT_BOOL:
+                if isinstance(value, str):
+                    low = value.lower()
+                    if low in ("yes", "true", "1", "on"):
+                        value = True
+                    elif low in ("no", "false", "0", "off"):
+                        value = False
+                    else:
+                        # strict like strict_strtob's -EINVAL
+                        raise ValueError(value)
+                else:
+                    value = bool(value)
+            else:
+                value = str(value)
+        except (TypeError, ValueError):
+            raise ConfigError(
+                f"{self.name}: {value!r} is not a valid {self.type}"
+            )
+        if self.min is not None and value < self.min:
+            raise ConfigError(
+                f"{self.name}: {value} < min {self.min}"
+            )
+        if self.max is not None and value > self.max:
+            raise ConfigError(
+                f"{self.name}: {value} > max {self.max}"
+            )
+        if self.enum_allowed and value not in self.enum_allowed:
+            raise ConfigError(
+                f"{self.name}: {value!r} not one of {self.enum_allowed}"
+            )
+        return value
+
+
+# The framework's option schema — the options.cc analog for the
+# components built so far (EC-relevant entries mirror options.cc:565,
+# :2717, :2723).
+SCHEMA: dict[str, Option] = {
+    opt.name: opt
+    for opt in [
+        Option(
+            "erasure_code_backend",
+            OPT_STR,
+            "torch",
+            "compute backend for erasure-code region math (the port's "
+            "one backend, ops.ec_backend.TorchBackend)",
+            enum_allowed=("torch",),
+        ),
+        Option(
+            "osd_erasure_code_plugins",
+            OPT_STR,
+            "jerasure isa lrc shec clay",
+            "erasure code plugins to preload at daemon start",
+        ),
+        Option(
+            "osd_pool_default_erasure_code_profile",
+            OPT_STR,
+            "plugin=jerasure technique=reed_sol_van k=2 m=1",
+            "default erasure code profile for new erasure-coded pools",
+        ),
+        Option(
+            "crush_backend",
+            OPT_STR,
+            "torch",
+            "batched PG mapping backend (crush.torchmap on the device "
+            "or the exact python oracle)",
+            enum_allowed=("oracle", "torch"),
+        ),
+        Option(
+            "crush_device_batch",
+            OPT_INT,
+            1 << 20,
+            "maximum PGs mapped per device call",
+            min=1,
+        ),
+        Option(
+            "osd_pool_default_size",
+            OPT_INT,
+            3,
+            "default replica count",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "osd_pool_default_pg_num",
+            OPT_INT,
+            32,
+            "default pg_num for new pools",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "ec_stripe_batch",
+            OPT_INT,
+            64,
+            "stripes folded into one device encode call",
+            min=1,
+        ),
+        Option(
+            "osd_tpu_batch_max",
+            OPT_INT,
+            16,
+            "queued same-pool client writes the OSD worker drains "
+            "into one coalesced device encode dispatch (1 disables "
+            "write coalescing)",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "osd_recovery_batch_max",
+            OPT_INT,
+            16,
+            "queued same-peer recovery pushes the OSD worker drains "
+            "into one coalesced decode-from-survivors dispatch (1 "
+            "disables recovery batching)",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "wal_prefer_deferred_size",
+            OPT_INT,
+            65536,
+            "transactions whose write payload is below this ack at "
+            "WAL append and defer the apply to the drain "
+            "(bluestore_prefer_deferred_size, options.cc)",
+            min=0,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "wal_max_group_txc",
+            OPT_INT,
+            32,
+            "commit records one group-commit barrier may absorb "
+            "(bluestore_max_deferred_txc analog)",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "wal_flush_interval_ms",
+            OPT_FLOAT,
+            0.5,
+            "how long a group-commit barrier holds for in-flight "
+            "stragglers before syncing; a solo writer never waits",
+            min=0.0,
+        ),
+        Option(
+            "wal_checkpoint_bytes",
+            OPT_INT,
+            8 << 20,
+            "WAL size that triggers a checkpoint + truncation once "
+            "every record is applied (durable inner stores only)",
+            min=1 << 10,
+        ),
+        Option(
+            "rgw_max_objs_per_shard",
+            OPT_INT,
+            100000,
+            "bucket-index entries per shard before the bucket joins "
+            "the dynamic-reshard queue (rgw_max_objs_per_shard, "
+            "options.cc)",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "osd_deep_scrub_large_omap_object_key_threshold",
+            OPT_INT,
+            200000,
+            "omap keys on one object before deep scrub flags it "
+            "LARGE_OMAP_OBJECTS "
+            "(osd_deep_scrub_large_omap_object_key_threshold, "
+            "options.cc)",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "perf_enabled",
+            OPT_BOOL,
+            True,
+            "collect performance counters",
+        ),
+        Option(
+            "osd_op_complaint_time",
+            OPT_FLOAT,
+            30.0,
+            "an op in flight longer than this is a SLOW_OPS health "
+            "complaint (osd_op_complaint_time, options.cc)",
+            min=0.0,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "mon_slow_op_report_grace",
+            OPT_FLOAT,
+            60.0,
+            "seconds before a daemon's last slow-op report goes "
+            "stale and stops degrading health",
+            min=1.0,
+        ),
+        Option(
+            "osd_max_scrubs",
+            OPT_INT,
+            1,
+            "concurrent scrubs an OSD runs or grants to primaries "
+            "(the scrub reservation cap, options.cc osd_max_scrubs)",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "osd_scrub_chunk_max",
+            OPT_INT,
+            25,
+            "objects digested per scrub chunk — the preemption "
+            "granularity (osd_scrub_chunk_max)",
+            min=1,
+        ),
+        Option(
+            "osd_scrub_auto_repair",
+            OPT_BOOL,
+            False,
+            "repair inconsistencies found by deep scrub "
+            "automatically (osd_scrub_auto_repair)",
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "osd_scrub_auto_repair_num_errors",
+            OPT_INT,
+            5,
+            "auto-repair only when deep scrub found at most this "
+            "many errors (osd_scrub_auto_repair_num_errors)",
+            min=1,
+        ),
+        Option(
+            "mon_osd_nearfull_ratio",
+            OPT_FLOAT,
+            0.85,
+            "used/total ratio above which an OSD raises OSD_NEARFULL "
+            "(mon_osd_nearfull_ratio, options.cc)",
+            min=0.0,
+            max=1.0,
+            level=LEVEL_BASIC,
+            see_also=("mon_osd_full_ratio",),
+        ),
+        Option(
+            "mon_osd_full_ratio",
+            OPT_FLOAT,
+            0.95,
+            "used/total ratio above which an OSD is FULL: writes "
+            "without FULL_TRY park on backoff and the mon raises "
+            "OSD_FULL at HEALTH_ERR (mon_osd_full_ratio)",
+            min=0.0,
+            max=1.0,
+            level=LEVEL_BASIC,
+            see_also=("mon_osd_nearfull_ratio",),
+        ),
+        Option(
+            "mon_osd_min_down_reporters",
+            OPT_INT,
+            1,
+            "distinct live reporters required before the mon accepts "
+            "a failure report — the flap guard against one partitioned "
+            "reporter re-downing a reachable OSD "
+            "(mon_osd_min_down_reporters)",
+            min=1,
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "slo_targets",
+            OPT_STR,
+            "",
+            "latency SLO targets the mgr slo module evaluates: "
+            "whitespace/comma-separated "
+            "<class>_p<pct>_ms=<target>[@<objective>] tokens, e.g. "
+            "'client_p99_ms=50@99.9 bulk_p95_ms=500' (empty = no "
+            "SLO evaluation)",
+            level=LEVEL_BASIC,
+        ),
+        Option(
+            "tracing_enabled",
+            OPT_BOOL,
+            True,
+            "collect distributed trace spans and push them to the "
+            "mgr tracing module",
+        ),
+        Option(
+            "tracing_max_spans",
+            OPT_INT,
+            2048,
+            "per-daemon bound on buffered finished spans "
+            "(drop-oldest)",
+            min=16,
+        ),
+    ]
+}
+
+# precedence, lowest to highest (config.cc source ordering)
+_SOURCES = ("default", "file", "env", "runtime", "override")
+
+# harness env vars that share the prefix but are not config options
+_RESERVED_ENV = frozenset(
+    {"CEPH_TPU_TEST_PLATFORM", "CEPH_TPU_LOCKDEP"}
+)
+
+
+class Config:
+    """Layered config over a schema; the md_config_t role."""
+
+    def __init__(self, schema: dict[str, Option] | None = None):
+        self.schema = dict(schema or SCHEMA)
+        self._layers: dict[str, dict[str, Any]] = {
+            s: {} for s in _SOURCES
+        }
+        self._observers: list[Callable[[str, Any], None]] = []
+
+    # -- sources -----------------------------------------------------------
+    def parse_file(self, path: str) -> None:
+        """JSON conf file (the ceph.conf role).  Atomic: every key is
+        validated before any is applied."""
+        with open(path) as f:
+            data = json.load(f)
+        self._set_layer_many("file", data)
+
+    def parse_env(self, environ: dict | None = None) -> None:
+        """CEPH_TPU_<OPTION> environment overrides."""
+        environ = os.environ if environ is None else environ
+        updates = {}
+        for key, value in environ.items():
+            if not key.startswith("CEPH_TPU_") or key in _RESERVED_ENV:
+                continue
+            # the prefix is ours, so an unknown suffix is always a
+            # user error — rejected like parse_file rejects it
+            updates[key[len("CEPH_TPU_"):].lower()] = value
+        self._set_layer_many("env", updates)
+
+    def set(self, name: str, value: Any) -> None:
+        """Runtime set — the `ceph config set` / ConfigMonitor path."""
+        self._set_layer("runtime", name, value)
+
+    def override(self, name: str, value: Any) -> None:
+        self._set_layer("override", name, value)
+
+    def rm(self, name: str, source: str = "runtime") -> None:
+        old = self.get(name)
+        self._layers[source].pop(name, None)
+        new = self.get(name)
+        if new != old:
+            self._notify(name, new)
+
+    def _set_layer_many(self, source: str, updates: dict) -> None:
+        """Validate every key first, then apply — a bad entry must not
+        leave the config half-updated with observers already fired."""
+        validated = {}
+        for name, value in updates.items():
+            opt = self.schema.get(name)
+            if opt is None:
+                raise ConfigError(f"unknown option {name!r}")
+            validated[name] = opt.validate(value)
+        for name, value in validated.items():
+            self._apply(source, name, value)
+
+    def _set_layer(self, source: str, name: str, value: Any) -> None:
+        opt = self.schema.get(name)
+        if opt is None:
+            raise ConfigError(f"unknown option {name!r}")
+        self._apply(source, name, opt.validate(value))
+
+    def _apply(self, source: str, name: str, value: Any) -> None:
+        """Store an already-validated value and notify on change."""
+        old = self.get(name)
+        self._layers[source][name] = value
+        if self.get(name) != old:
+            self._notify(name, value)
+
+    # -- queries -----------------------------------------------------------
+    def get(self, name: str) -> Any:
+        opt = self.schema.get(name)
+        if opt is None:
+            raise ConfigError(f"unknown option {name!r}")
+        for source in reversed(_SOURCES):
+            if name in self._layers[source]:
+                return self._layers[source][name]
+        return opt.default
+
+    def get_source(self, name: str) -> str:
+        for source in reversed(_SOURCES):
+            if name in self._layers[source]:
+                return source
+        return "default"
+
+    def show_config(self) -> dict[str, Any]:
+        return {name: self.get(name) for name in sorted(self.schema)}
+
+    def diff(self) -> dict[str, dict]:
+        """Non-default values with their source (`ceph config diff`)."""
+        out = {}
+        for name, opt in self.schema.items():
+            value = self.get(name)
+            if value != opt.default:
+                out[name] = {
+                    "value": value,
+                    "source": self.get_source(name),
+                    "default": opt.default,
+                }
+        return out
+
+    # -- observers ---------------------------------------------------------
+    def add_observer(self, fn: Callable[[str, Any], None]) -> None:
+        self._observers.append(fn)
+
+    def _notify(self, name: str, value: Any) -> None:
+        for fn in self._observers:
+            fn(name, value)

@@ -1,0 +1,4925 @@
+"""OSD daemon — boot, map subscription, per-PG peering, replicated
+I/O, log-based recovery, heartbeats (src/osd/OSD.cc, PeeringState.cc,
+PrimaryLogPG.cc — the daemon core).
+
+Shape vs the reference:
+
+- Boot: bind the messenger, connect the MonClient, announce with
+  MOSDBoot; the monitor marks the OSD up and a new map epoch arrives
+  by subscription (OSD::start_boot → _send_boot).
+- Dispatch: the messenger read loop enqueues ops onto a worker queue
+  (the op_shardedwq role, OSD.cc:9612 enqueue_op) — nested sub-op
+  RPC must never run on the loop thread.  Pure-answer messages
+  (MPGQuery/MPGLogReq/MPGPull/MOSDRepOp) are served inline.
+- PGs: every map epoch, the worker walks pool PGs, instantiates the
+  ones this OSD serves, and runs the peering sequence on primaries:
+  GetInfo (MPGQuery → MPGNotify), choose the authoritative log
+  (find_best_info), GetLog (MPGLogReq), pull objects the primary
+  itself is missing (MPGPull), push each peer's missing objects
+  (MPGPush), then activate (MPGActivate carrying the log suffix) —
+  the Initial→GetInfo→GetLog→GetMissing→Active walk of
+  PeeringState.cc collapsed to one deterministic worker pass.
+- I/O: client MOSDOp on the primary appends a pg_log entry and
+  applies ONE transaction locally carrying data + log entry + info,
+  then fans the same transaction out as MOSDRepOp (sub_op_modify:
+  data and log ride one atomic apply).  Reads serve locally.
+- Persistence: log entries and pg info live in the PG's collection
+  (entries as ``_log/`` objects, info as an xattr on ``_pgmeta_``),
+  so a restarted OSD reloads its PGs from the store and rejoins with
+  honest history (load_pgs).
+- Failure detection: a tick thread pings peers (MOSDPing role) and
+  files mon failure reports after the grace window; the monitor's
+  distinct-reporter threshold marks OSDs down, the epoch bumps, and
+  primaries re-peer (OSD.cc:5235 handle_osd_ping / :5889
+  send_failures).
+
+Both pool types run through this one daemon — ONE peering/pg_log/
+failover/recovery machinery with two backends, the reference's
+build_pg_backend split (src/osd/PGBackend.cc:571-607):
+
+- Replicated pools ship the SAME transaction to every acting OSD.
+- Erasure pools (osd/ec_pg.py) encode the object and ship a DIFFERENT
+  per-position transaction (shard bytes + HashInfo + log entry + info)
+  down the same MOSDRepOp path (ECBackend::submit_transaction under
+  PrimaryLogPG, ECBackend.cc:1502).  Reads and recovery mount the
+  ECStore machinery over RemoteStore proxies so reconstruction and
+  minimum-repair (CLAY fractional) reads travel as MECSubRead sub-ops
+  (handle_sub_read, ECBackend.cc:1010); recovery pushes carry
+  reconstructed shard bytes (objects_read_and_reconstruct,
+  ECBackend.cc:2364).
+
+``OSD(device=...)`` (default ``cuda``) is where a daemon's codecs,
+scrub maps, crcs and WAL replay run. A kernel or CUDA error in a
+coalesced device call propagates (``BATCH_ERRORS`` lists what the per-op
+fallback covers). Three faults of the JAX daemon are repaired here: a
+repeated activation keeps the objects recovery pushed, a member whose
+EC position moved is emptied and backfilled, and the tick retries
+peering without starving recovery.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import itertools
+import json
+import threading
+import time
+import types
+from collections import deque
+
+from ..common.encoding import Decoder, Encoder
+from ..crush.types import CRUSH_ITEM_NONE
+from ..ec.interface import ErasureCodeError
+from ..msg import (
+    MECSubRead,
+    MECSubWrite,
+    Message,
+    MessageError,
+    Messenger,
+    MOSDOp,
+    MOSDOpReply,
+    MOSDRepOp,
+    MOSDRepOpReply,
+    MPGActivate,
+    MPGLogReply,
+    MPGLogReq,
+    MPGNotify,
+    MPGPull,
+    MPGPush,
+    MPGPushReply,
+    MPGQuery,
+    MPing,
+    MRepScrub,
+    MScrubCommand,
+    MScrubMap,
+)
+from dataclasses import dataclass, field as dc_field
+
+from ..common import tracing
+from ..common.histogram import LogHistogram, PerfHistogram2D
+from ..common.op_tracker import sanitize_class
+from ..common.perf_counters import PerfCountersBuilder
+from ..common.throttle import Throttle
+from .scheduler import (
+    CLASS_BACKGROUND,
+    CLASS_CLIENT,
+    CLASS_RECOVERY,
+    CLASS_STRICT,
+    MClockQueue,
+    WeightedPriorityQueue,
+)
+from ..msg.message import (
+    BACKOFF_OP_BLOCK,
+    BACKOFF_OP_UNBLOCK,
+    MCommand,
+    MOSDBackoff,
+    MRecoveryReserve,
+    MMgrReport,
+    MPGStats,
+    OSD_FLAG_FULL_TRY,
+    OSD_OP_APPEND,
+    OSD_OP_CALL,
+    OSD_OP_DELETE,
+    OSD_OP_GETXATTR,
+    OSD_OP_LIST,
+    OSD_OP_NOTIFY,
+    OSD_OP_OMAPCLEAR,
+    OSD_OP_OMAPGET,
+    OSD_OP_OMAPRM,
+    OSD_OP_OMAPSET,
+    OSD_OP_READ,
+    OSD_OP_SETXATTR,
+    OSD_OP_STAT,
+    OSD_OP_UNWATCH,
+    OSD_OP_WATCH,
+    OSD_OP_WRITE,
+    OSD_OP_WRITEFULL,
+    MWatchNotify,
+    MWatchNotifyAck,
+)
+from ..msg.messenger import Connection, Dispatcher
+from ..cls import RD as CLS_RD, WR as CLS_WR, ClassError, MethodContext, default_handler
+from ..common import crash as crash_util
+from ..common.log import dout
+from ..common.log_client import LogClient
+from ..common import lockdep
+from ..mon.monitor import MonClient
+from ..store.ec_store import ECStore, HINFO_KEY
+from ..store.objectstore import MemStore, ObjectStore, StoreError, Transaction
+from ..store.remote import RemoteStore, ShardServer
+from .ec_pg import (
+    ECCodec,
+    UnreachableStore,
+    rmw_write_txns,
+    shard_write_txn,
+)
+from .failure import HeartbeatTracker
+from .scrub import ScrubStore, Scrubber, build_scrub_map
+from .pg_log import (
+    DELETE,
+    EV_ZERO,
+    MODIFY,
+    LogEntry,
+    PGInfo,
+    PGLog,
+    find_best_info,
+    needs_backfill,
+)
+
+PG_META = "_pgmeta_"
+LOG_PREFIX = "_log/"
+OBJ_PREFIX = "o_"
+# cache-tier object state attr (object_info_t dirty flag role): set
+# by every client mutation on a writeback cache pool, cleared (value
+# b"0") after the agent flushes the object to the base pool
+TIER_DIRTY = "t_dirty"
+INFO_ATTR = "pginfo"
+# snapshots: clones are stored as "<OBJ_PREFIX><oid>@<snapid>" (the
+# clone-object naming of hobject_t snaps); "@" is reserved in oids.
+# "sn_born" records the pool snap_seq at object creation so reads at
+# snaps older than the object's birth resolve to -ENOENT.
+BORN_ATTR = "sn_born"
+
+
+def _log_oid(version: tuple[int, int]) -> str:
+    return f"{LOG_PREFIX}{version[0]:010d}.{version[1]:020d}"
+
+
+def _interval_json(interval: tuple) -> list:
+    """The (acting, primary) interval in its JSON round-trip shape
+    (the watermark comparison must survive tuple→list decoding)."""
+    return [list(interval[0]), interval[1]]
+
+
+def _encode_entry(entry: LogEntry) -> bytes:
+    e = Encoder()
+    entry.encode(e)
+    return e.getvalue()
+
+
+def _decode_entry(blob: bytes) -> LogEntry:
+    return LogEntry.decode(Decoder(blob))
+
+
+def _encode_info(info: PGInfo) -> bytes:
+    e = Encoder()
+    info.encode(e)
+    return e.getvalue()
+
+
+def _decode_info(blob: bytes) -> PGInfo:
+    return PGInfo.decode(Decoder(blob))
+
+
+class PG:
+    """One placement group's local state (PG/PeeringState role)."""
+
+    def __init__(self, pgid: str, pool_id: int):
+        self.pgid = pgid
+        self.pool_id = pool_id
+        self.cid = f"pg_{pgid}"
+        self.log = PGLog()
+        self.info = PGInfo(pgid=pgid)
+        self.state = "initial"  # initial|peering|active|replica|stray
+        self.acting: list[int] = []
+        self.primary: int = -1
+        self.seq = 0  # op counter feeding eversions
+        # epoch of the last MPGActivate applied here (0 = never in
+        # this incarnation); replicas refuse rep-ops until activated
+        self.activated_epoch = 0
+        # the (acting, primary) interval last peered, so unrelated
+        # epoch bumps don't trigger a re-peering RPC storm
+        self.peered_interval: tuple | None = None
+        # the interval last OBSERVED by the map walk (set whether or
+        # not peering succeeded): interval-death detection compares
+        # against this — comparing against peered_interval would
+        # read every unpeered pass as a "change" and abort the very
+        # RecoveryOp the previous pass just started
+        self.current_interval: tuple | None = None
+        # recently applied client reqids → (version, outdata) (the
+        # pg log dups role): outlives trimmed entries so a late retry
+        # still dedups AND replays its original result
+        self.reqid_cache: dict[str, tuple] = {}
+        # objects THIS osd (as primary) adopted log entries for but
+        # could not pull yet (the primary's own missing set,
+        # PeeringState::needs_recovery role): the stale local copy is
+        # dropped on the failed pull, and the peering pass retries
+        # until the hole closes — the interval stays unpeered
+        self.self_missing: dict[str, tuple] = {}
+        # erasure pools: cached (key, ECStore, conns) view over the
+        # acting set; rebuilt when the interval/up-set/conns change
+        self.ec_view: tuple | None = None
+        # True while every repop since the last successful peering
+        # committed on every live replica: the EC stripe-range RMW
+        # path requires it (a range write applied over a stale shard
+        # would corrupt it silently; the full-shard txn it replaces
+        # converged lagging replicas by construction).  Any
+        # primary-visible replica failure clears it until re-peering
+        # pushes the divergent objects.
+        self.repop_clean = False
+        # scrub scheduling state (PG::ScrubberPasskey stamps,
+        # src/osd/PG.h:231-240): last completed stamps + findings
+        # (the findings also persist in the ScrubStore omap)
+        self.last_scrub = 0.0
+        self.last_deep_scrub = 0.0
+        self.scrub_errors: list[dict] = []
+        # deep-scrub omap-cardinality findings (LARGE_OMAP_OBJECTS):
+        # object names whose omap key count crossed the threshold at
+        # the last deep scrub; only a deep scrub re-judges them
+        self.large_omap: list[str] = []
+
+
+@dataclass
+class _RecoveryOp:
+    """One peer's in-flight async recovery (RecoveryOp,
+    src/osd/ECBackend.h:249 reduced): push items drain through the
+    scheduler; the last one activates the peer and releases both
+    reservations.
+
+    ``interval`` pins the (acting, primary) this op was planned
+    against — the generation check every push re-validates, so an
+    interval death mid-recovery aborts the remaining pushes instead
+    of landing stale shards on a peer whose position moved.
+    ``versions`` records the exact version each push carries and
+    ``pushed`` the completed ones — the persisted backfill watermark,
+    so an interrupted recovery resumes without re-pushing."""
+
+    pg: "PG"
+    epoch: int
+    osd: int
+    since: tuple
+    conn: Connection
+    remaining: set
+    interval: tuple = ()
+    versions: dict = dc_field(default_factory=dict)
+    pushed: dict = dc_field(default_factory=dict)
+    failed: bool = False
+
+
+def build_osd_perf(whoami: int):
+    """The OSD's counter schema (the l_osd_* declaration block,
+    OSD.cc:9681) — module-level so tools/check_metrics.py can lint
+    it without constructing a daemon."""
+    return (
+        PerfCountersBuilder(f"osd.{whoami}")
+        .add_u64_counter("op", "client ops")
+        .add_u64_counter("op_r", "client reads")
+        .add_u64_counter("op_w", "client mutations")
+        .add_time_avg("op_latency", "client op latency")
+        .add_u64_gauge("numpg", "hosted pgs")
+        .add_u64_gauge("recovery_active", "in-flight recovery pushes")
+        # recovery-storm plane (the l_osd_recovery_* block,
+        # ROADMAP open item 2): push/byte totals, coalesced
+        # decode-from-survivors batches, and the survivor-read
+        # fan-in the LRC locality claim is measured from
+        .add_u64_counter("recovery_pushes", "recovery pushes completed")
+        .add_u64_counter(
+            "recovery_push_bytes", "object bytes pushed by recovery"
+        )
+        .add_u64_counter(
+            "recovery_batches",
+            "coalesced decode-from-survivors rebuild dispatches",
+        )
+        .add_u64_counter(
+            "recovery_batch_ops",
+            "recovery pushes served from coalesced rebuilds",
+        )
+        .add_u64_counter(
+            "recovery_survivor_shards",
+            "helper shards consulted to rebuild pushed objects "
+            "(the recovery-read fan-in)",
+        )
+        .add_u64_counter(
+            "recovery_helper_bytes",
+            "helper shard bytes read to rebuild pushed objects",
+        )
+        .add_u64_counter(
+            "recovery_failed",
+            "recovery ops that ended failed (the tick re-peers)",
+        )
+        .add_u64_counter("tier_flush", "cache-tier agent flushes")
+        .add_u64_counter("tier_evict", "cache-tier agent evictions")
+        .add_u64_gauge(
+            "slow_ops", "in-flight ops past the complaint time"
+        )
+        # scrub plane (the l_osd_scrub* block): errors is the live
+        # inconsistency count across this OSD's primary PGs, chunks/
+        # deep_bytes are progress counters, last_age the staleness of
+        # the oldest primary PG's scrub stamp
+        .add_u64_gauge("scrub_errors", "open scrub inconsistencies")
+        .add_u64_gauge("scrubs_active", "scrubs in flight")
+        .add_u64_counter("scrub_chunks", "scrub chunks processed")
+        .add_u64_counter(
+            "scrub_deep_bytes", "object bytes deep-scrubbed"
+        )
+        .add_u64_gauge(
+            "scrub_last_age",
+            "seconds since the stalest primary pg was scrubbed",
+        )
+        # fullness plane (the l_osd stat_bytes family): the same
+        # numbers the stat reports carry to the mon
+        .add_u64_gauge("stat_bytes", "store capacity bytes")
+        .add_u64_gauge("stat_bytes_used", "store bytes used")
+        .add_u64_gauge("stat_bytes_avail", "store bytes available")
+        .add_u64_gauge(
+            "backoffs_active", "client backoffs currently blocked"
+        )
+        .create_perf_counters()
+    )
+
+
+# The errors a coalesced device call (the write-coalescing batch encode,
+# the batched recovery rebuild) may raise for a reason of its own — a
+# code the batch route cannot serve, a missing or unreachable shard —
+# and after which each op redoes its work alone.  Anything else (a
+# RuntimeError from a kernel or from CUDA) propagates.
+BATCH_ERRORS = (ErasureCodeError, StoreError, MessageError, OSError)
+
+
+class OSD(Dispatcher):
+    def __init__(
+        self,
+        whoami: int,
+        store: ObjectStore | None = None,
+        tick_interval: float = 0.5,
+        heartbeat_grace: float = 2.0,
+        scrub_interval: float = 0.0,
+        deep_scrub_interval: float | None = None,
+        osd_max_scrubs: int | None = None,
+        scrub_auto_repair: bool | None = None,
+        max_backfills: int = 2,
+        admin_socket_path: str | None = None,
+        client_message_cap: int = 256 << 20,
+        op_queue: str = "wpq",
+        qos_profiles: dict | None = None,
+        shared_services: bool | None = None,
+        wal_dir: str | None = None,
+        device: str = "cuda",
+    ):
+        """``device`` (default ``cuda``) is where this daemon computes:
+        its pools' erasure codecs (and the ECStores mounted over them),
+        its scrub maps, crcs and compares, and the WAL's replay verify.
+        A pool's stored profile is never changed; the codec reads it
+        with this device.
+
+        ``scrub_interval`` > 0 arms tick-driven scrub scheduling
+        (osd_scrub_min_interval); ``deep_scrub_interval`` spaces the
+        payload-checksum passes (osd_deep_scrub_interval — None makes
+        every scheduled scrub deep); ``osd_max_scrubs`` caps
+        concurrent scrubs on BOTH sides of the scrub reservation
+        handshake; ``scrub_auto_repair`` overrides the
+        osd_scrub_auto_repair config; ``max_backfills`` caps
+        concurrent per-(pg, peer) recoveries on BOTH sides of the
+        reservation protocol (osd_max_backfills) — individual pushes
+        serialize through the op scheduler's RECOVERY class.
+
+        ``shared_services`` (default CEPH_TPU_SHARED_SERVICES, off)
+        moves this daemon's worker/tick/mgr-report threads onto the
+        shared NetworkStack (a serial strand for the op queue, stack
+        timers for the periodic loops): per-daemon thread cost drops
+        to ZERO, which is what lets tests/scale.py run 100 OSDs in
+        one process with a thread count independent of daemon
+        count."""
+        import os as _os
+
+        self.whoami = whoami
+        self.device = device
+        if shared_services is None:
+            shared_services = (
+                _os.environ.get("CEPH_TPU_SHARED_SERVICES", "0")
+                == "1"
+            )
+        self.shared_services = bool(shared_services)
+        self._service_timers: list = []
+        self._op_strand = None
+        self._workq_kicked = False
+        self._workq_kick_lock = threading.Lock()
+        self.store = store or MemStore()
+        self.messenger = Messenger(f"osd.{whoami}")
+        self.messenger.add_dispatcher(self)
+        self.monc = MonClient(
+            self.messenger, on_map=self._on_map, whoami=whoami
+        )
+        self.pgs: dict[str, PG] = {}
+        self._pg_lock = lockdep.RMutex("osd.pg")
+        # the op worker drains a QoS-classed scheduler, not a FIFO:
+        # peering/map events are strict, client ops and background
+        # work (scrub, splits) share by weight or by dmclock QoS
+        # (osd_op_queue: wpq | mclock_scheduler)
+        if op_queue in ("mclock", "mclock_scheduler"):
+            self._workq = MClockQueue()
+            # per-tenant QoS classes (the mclock client profiles):
+            # {class: (reservation, weight, limit)} in cost-units/sec
+            # — client ops naming a registered class schedule under
+            # its triple; unknown classes fall back to CLASS_CLIENT
+            for klass, triple in (qos_profiles or {}).items():
+                self._workq.set_profile(klass, triple)
+        elif op_queue == "wpq":
+            self._workq = WeightedPriorityQueue()
+            for klass, triple in (qos_profiles or {}).items():
+                # wpq has no reservations: the profile's weight seat
+                # (middle of the triple, or a bare number) applies
+                w = triple[1] if isinstance(triple, (tuple, list)) else triple
+                self._workq.set_weight(klass, int(w))
+        else:
+            raise ValueError(
+                f"unknown op_queue {op_queue!r} (wpq | mclock)"
+            )
+        # client-message admission control (osd_client_message_size_
+        # cap role): over-budget ops are bounced with -EAGAIN (the
+        # objecter retries), so one firehose client cannot queue the
+        # daemon into the ground
+        self.client_throttle = Throttle(
+            f"osd.{whoami}.client-bytes", client_message_cap
+        )
+        self._worker: threading.Thread | None = None
+        self._ticker: threading.Thread | None = None
+        self._stop = threading.Event()
+        # osd id → (addr, lossless-peer SessionConnection)
+        self._conns: dict[int, tuple] = {}
+        self._conn_lock = lockdep.Mutex("osd.conn")
+        self.hb = HeartbeatTracker(whoami, grace=heartbeat_grace)
+        self.tick_interval = tick_interval
+        # EC pool support: cached codecs per profile + a shard-serving
+        # delegate answering MECSubRead/MECSubWrite from our store
+        # (the handle_sub_read/handle_sub_write role)
+        self._ec_codecs: dict[tuple, ECCodec] = {}
+        # op tracking with span ids (TrackedOp/OpTracker + the
+        # blkin/ZTracer seat): every client op registers under its
+        # reqid; every sub-op carries that reqid as its trace, so
+        # dump_historic_ops on two daemons correlates one op
+        from ..common import AdminSocket, Config, OpTracker
+        from ..common.config import ConfigError
+
+        self.config = Config()
+        try:
+            self.config.parse_env()
+        except ConfigError as e:
+            # a stray CEPH_TPU_* env var must not kill the daemon
+            dout("osd", 0, f"osd.{whoami}: ignoring bad env config: {e}")
+        # WAL front: wrap the concrete store so
+        # small writes ack at WAL append and adjacent commits share
+        # one group barrier; commit_latency_ms then measures the new
+        # ack point because _commit_and_replicate times
+        # queue_transaction end-to-end
+        self._own_wal = False
+        if wal_dir is not None:
+            from ..store.wal_store import WALStore
+
+            self.store = WALStore(
+                self.store,
+                wal_dir,
+                prefer_deferred_size=int(
+                    self.config.get("wal_prefer_deferred_size")
+                ),
+                max_group_txc=int(
+                    self.config.get("wal_max_group_txc")
+                ),
+                flush_interval_ms=float(
+                    self.config.get("wal_flush_interval_ms")
+                ),
+                checkpoint_bytes=int(
+                    self.config.get("wal_checkpoint_bytes")
+                ),
+                device=self.device,
+            )
+            self._own_wal = True
+        self.op_tracker = OpTracker()
+        # write coalescing: the worker drains up to
+        # this many queued same-pool full-object writes per dispatch
+        # and encodes them as ONE batched device call (1 disables)
+        self.osd_tpu_batch_max = int(
+            self.config.get("osd_tpu_batch_max")
+        )
+        # recovery coalescing: the worker drains up
+        # to this many queued same-peer recovery pushes per dispatch
+        # and rebuilds them as ONE batched decode-from-survivors
+        # device call (1 disables)
+        self.osd_recovery_batch_max = int(
+            self.config.get("osd_recovery_batch_max")
+        )
+        # distributed tracing (common/tracing.py): per-stage spans
+        # under the client reqid, drained onto the MMgrReport push
+        self.tracer = tracing.Tracer(
+            f"osd.{whoami}",
+            max_spans=int(self.config.get("tracing_max_spans")),
+        )
+        self.admin = None
+        if admin_socket_path:
+            self.admin = AdminSocket(
+                str(admin_socket_path), config=self.config
+            )
+            # the OSD's own grids merge into the admin-socket `perf
+            # histogram dump` (deferred: the commit grid is built a
+            # few lines below; the hook only runs at command time)
+            self.op_tracker.register_admin_commands(
+                self.admin,
+                extra_histograms=lambda: {
+                    "osd": self.whoami,
+                    "commit_latency_histogram": (
+                        self._commit_grid.dump()
+                    ),
+                },
+            )
+            self.tracer.register_admin_commands(self.admin)
+            # fault plane: `ceph daemon osd.N fault set/clear/list`
+            self.messenger.faults.register_admin_commands(self.admin)
+            self.admin.register_command(
+                "dump_backoffs",
+                lambda args: self.dump_backoffs(),
+                "dump client backoffs this OSD holds",
+            )
+            # device-dispatch flight recorder (ops/profiler.py): the
+            # raw ring and the per-kind rollup — process-global, like
+            # the kernel counters above
+            self.admin.register_command(
+                "dispatch history",
+                lambda args: self._dispatch_history(args),
+                "raw device-dispatch flight-recorder ring "
+                "(kind=<k> limit=<n> filter)",
+            )
+            self.admin.register_command(
+                "dispatch summary",
+                lambda args: self._dispatch_summary(args),
+                "per-kind device-dispatch rollup "
+                "(time split, occupancy, residency)",
+            )
+            self.admin.start()
+        self._shard_server = ShardServer(
+            self.store, whoami,
+            tracker=self.op_tracker, tracer=self.tracer,
+        )
+        # watch/notify (PrimaryLogPG watchers + Notify machinery):
+        # watchers are in-memory per primary — clients re-register via
+        # Objecter linger on every new interval (documented deviation
+        # from the reference's object_info-persisted watch records)
+        self._watchers: dict[tuple[str, str], dict[int, Connection]] = {}
+        self._watch_lock = lockdep.Mutex("osd.watch")
+        self._notify_seq = itertools.count(1)
+        self._notify_pending: dict[int, dict] = {}
+        # scrub + recovery throttling
+        self.scrub_interval = scrub_interval
+        self.deep_scrub_interval = deep_scrub_interval
+        # None = follow the osd_max_scrubs config option
+        self.osd_max_scrubs = osd_max_scrubs
+        self.scrub_auto_repair = scrub_auto_repair
+        self.max_backfills = max(1, max_backfills)
+        self._recovery_active = 0
+        self.recovery_active_peak = 0  # high-water mark (perf gauge)
+        # daemon perf counters (l_osd_* role): pushed to the mgr as
+        # MMgrReport on the tick (the DaemonServer stats plane)
+        self.perf = build_osd_perf(whoami)
+        # ObjectStore commit latency: the reference-shaped 2D
+        # latency×size grid (src/common/perf_histogram.h, served by
+        # `ceph tell osd.N perf histogram dump`) plus a 1D histogram
+        # whose windowed mean feeds `ceph osd perf` commit_latency_ms
+        self._commit_grid = PerfHistogram2D(
+            name="op_w_latency_in_bytes_histogram"
+        )
+        self._commit_hist = LogHistogram()
+        # (sum, count) at the last stat report — the delta gives the
+        # mean commit latency over the report interval
+        self._commit_last = (0.0, 0)
+        if self.admin is not None:
+            # `perf dump` over the admin socket serves the daemon's
+            # counters AND the process-global device-kernel plane
+            from ..ops.kernel_stats import kernel_stats
+
+            self.admin.perf.add(self.perf)
+            self.admin.perf.add(kernel_stats().perf)
+            self.admin.perf.add(self.messenger.faults.perf)
+        # SLOW_OPS watchdog state (osd_op_complaint_time): last count
+        # reported to the mon + report throttle stamp
+        self._slow_ops_last_report = 0.0
+        self._slow_ops_reported = 0
+        # cluster log (LogClient role): queued here, drained to the
+        # mon as MLog on the tick
+        self._log_client = LogClient(f"osd.{whoami}")
+        self.clog = self._log_client.channel()
+        # crash reports pending delivery to the mgr (piggybacked on
+        # the next MMgrReport push).  Sends are fire-and-forget, so
+        # one "successful" send proves nothing: each report rides
+        # several pushes (the mgr dedupes by crash_id) before we let
+        # go of our only copy
+        self._pending_crashes: deque = deque(maxlen=16)
+        self._crash_sends: dict[str, int] = {}
+        self.CRASH_RESEND_COUNT = 3
+        # how often to re-ask the mon who the active mgr is while
+        # none is known (scale harnesses stretch it: it is O(n) mon
+        # commands per interval across a big cluster)
+        self.mgr_discovery_interval = 5.0
+        self._mgr_addr: str | None = None
+        self._mgr_conn = None
+        self._mgr_addr_checked = 0.0
+        self._splitting: set[str] = set()
+        self._recovery_lock = lockdep.Mutex("osd.recovery")
+        self._scrubbing: set[str] = set()
+        self._tier_running: set[str] = set()
+        # async recovery through the scheduler:
+        # in-flight per-(pg, peer) recovery ops, gated by a TWO-SIDED
+        # reservation — the local reserver caps how many recoveries
+        # this primary runs, the remote one caps how many push INTO
+        # this OSD (osd_max_backfills both sides,
+        # doc/dev/osd_internals/backfill_reservation.rst)
+        self._recovering: dict[tuple[str, int], "_RecoveryOp"] = {}
+        self._retry_walk_queued = False
+        self._local_reservations: set[tuple[str, int]] = set()
+        # remote slots are LEASES: key -> (granted_at, conn) — a
+        # crashed/remapped primary that never releases must not leak
+        # its slot forever (expired leases purge on the next request;
+        # a reset connection drops its leases immediately)
+        self._remote_reservations: dict[tuple[str, int], tuple] = {}
+        self.reservation_timeout = 60.0
+        self.log_keep = 128  # pg_log length bound (osd_min_pg_log_entries role)
+        self.class_handler = default_handler  # ClassHandler role
+        self.addr: tuple[str, int] | None = None
+        # repop sub-op timeout (tests shrink it so chaos partitions
+        # fail fast instead of wedging the worker for 10s per write)
+        self.repop_timeout = 10.0
+        # recovery push call timeout (same role: a chaos-dropped push
+        # must fail the RecoveryOp fast, not wedge the worker)
+        self.recovery_push_timeout = 10.0
+        # RADOS backoff protocol state (the Backoff registry of
+        # src/osd/osd_types.h, session-scoped in the reference;
+        # keyed by id here): id -> {pgid, reason, conn, since}
+        self._backoffs: dict[int, dict] = {}
+        self._backoff_seq = itertools.count(1)
+        self._backoff_lock = threading.Lock()
+        # store statfs is a walk — cache it at ~tick rate
+        self._statfs_cache: tuple[float, dict] | None = None
+        # ~1 Hz stat reports by default; 100-daemon clusters stretch
+        # this (tests/scale.py) so the mon isn't saturated by O(n)
+        # commands per second on one core
+        self.stat_report_interval = 1.0
+        self._stat_report_last = 0.0
+        self._stat_report_inflight = False
+        # the mon's EFFECTIVE full ratio, learned from the stat-report
+        # reply (runtime `ceph config set mon mon_osd_full_ratio`);
+        # None until the first report lands — local config gates then
+        self._mon_full_ratio: float | None = None
+        # peers this OSD has filed failure reports for (to withdraw
+        # with failed_for=-1 when they speak again — send_still_alive)
+        self._reported: set[int] = set()
+        self._cur_op = None  # worker-thread-current TrackedOp
+        # last seen up/down per peer, to reset heartbeat stamps on a
+        # down→up transition (a stale stamp would re-report instantly)
+        self._last_up: dict[int, bool] = {}
+        # the scrub engine (osd/scrub.py): scheduling, reservations,
+        # chunked runs, the ScrubStore, and repair
+        self.scrubber = Scrubber(self)
+        # scrub/repair runs already reported as progress events, so
+        # the final done=True record goes out exactly once when a
+        # run leaves the scrubber (MPGStats events field)
+        self._progress_seen: set[str] = set()
+        self._boot_stamp = time.monotonic()
+
+    # -- lifecycle ---------------------------------------------------------
+    def boot(
+        self,
+        mon_host: str | None = None,
+        mon_port: int | None = None,
+        mon_addrs=None,
+    ) -> None:
+        """bind → load PGs from disk → mon session → announce
+        (OSD::init + start_boot).  ``mon_addrs`` (a list of
+        (host, port)) enables failover across a monitor quorum."""
+        self.addr = self.messenger.bind()
+        self._load_pgs()
+        if self.shared_services:
+            # zero per-daemon threads: the op queue drains through a
+            # serial strand on the stack's offload pool (kicked by
+            # the scheduler's enqueue hook), tick + mgr-report ride
+            # stack timers with overlap guards
+            stack = self._stack()
+            self._op_strand = stack.offload.strand()
+            self._workq.on_enqueue = self._kick_workq
+        else:
+            self._worker = threading.Thread(
+                target=self._work_loop, name=f"osd.{self.whoami}.wq",
+                daemon=True,
+            )
+            self._worker.start()
+        if mon_addrs is not None:
+            self.monc.connect_any(mon_addrs)
+        else:
+            self.monc.connect(mon_host, mon_port)
+        self.monc.boot(self.whoami, addr=f"{self.addr[0]}:{self.addr[1]}")
+        if self.shared_services:
+            stack = self._stack()
+            self._service_timers.append(
+                stack.timers.every(self.tick_interval, self._tick_safe)
+            )
+            self._service_timers.append(
+                stack.timers.every(1.0, self._mgr_report_safe)
+            )
+        else:
+            self._ticker = threading.Thread(
+                target=self._tick_loop, name=f"osd.{self.whoami}.tick",
+                daemon=True,
+            )
+            self._ticker.start()
+            self._mgr_reporter = threading.Thread(
+                target=self._mgr_report_loop,
+                name=f"osd.{self.whoami}.mgrreport",
+                daemon=True,
+            )
+            self._mgr_reporter.start()
+
+    def _stack(self):
+        from ..msg.stack import NetworkStack
+
+        return NetworkStack.instance()
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        for handle in self._service_timers:
+            handle.cancel()
+        self._service_timers = []
+        self._workq.put(None)
+        if self._worker is not None:
+            self._worker.join(timeout=5)
+        if self._op_strand is not None:
+            # let an in-flight drained item finish, then stop feeding
+            deadline = time.monotonic() + 5.0
+            while (
+                not self._op_strand.idle
+                and time.monotonic() < deadline
+            ):
+                time.sleep(0.01)
+            self._workq.on_enqueue = None
+        if self.admin is not None:
+            self.admin.stop()
+        self.messenger.shutdown()
+        if self._own_wal:
+            # flush + stop the WAL threads; the inner store stays
+            # open — restart-with-same-store rewraps it and replays
+            self.store.close(close_inner=False)
+
+    # -- map / PG walk -----------------------------------------------------
+    def _on_map(self, epoch: int) -> None:
+        self._workq.put(("map", epoch))
+
+    def _peer_conn(self, osd: int) -> Connection:
+        """OSD↔OSD links are LOSSLESS PEERS (src/msg/Policy.h): the
+        session survives TCP drops and replays unacked messages on
+        reconnect, so a mid-repop connection loss commits exactly
+        once without a client-visible retry."""
+        osdmap = self.monc.osdmap
+        addr = osdmap.osd_addrs.get(osd, "")
+        with self._conn_lock:
+            cached = self._conns.get(osd)
+            if cached is not None:
+                c_addr, conn = cached
+                if c_addr == addr and not conn._closed:
+                    return conn
+                # peer re-registered at a new address: the old session
+                # is for a dead incarnation
+                conn.close()
+        host, _, port = addr.partition(":")
+        if not port:
+            # peer already marked down (mark_down drops the addr): the
+            # caller treats it like any unreachable peer
+            raise MessageError(f"osd.{osd} has no address")
+        conn = self.messenger.connect_session(
+            host, int(port), f"osd.{self.whoami}-{osd}"
+        )
+        with self._conn_lock:
+            self._conns[osd] = (addr, conn)
+        return conn
+
+    def _load_pgs(self) -> None:
+        """Rebuild PG state from the store (OSD::load_pgs)."""
+        for cid in self.store.list_collections():
+            if not cid.startswith("pg_"):
+                continue
+            pgid = cid[3:]
+            pool_id = int(pgid.split(".")[0])
+            pg = PG(pgid, pool_id)
+            try:
+                pg.info = _decode_info(
+                    self.store.getattr(cid, PG_META, INFO_ATTR)
+                )
+            except StoreError:
+                continue
+            entries = sorted(
+                o for o in self.store.list_objects(cid)
+                if o.startswith(LOG_PREFIX)
+            )
+            pg.log.log_tail = pg.info.log_tail
+            for oid in entries:
+                pg.log.append(_decode_entry(self.store.read(cid, oid)))
+            pg.seq = pg.info.last_update[1]
+            self.pgs[pgid] = pg
+
+    def _walk_pgs(self, epoch: int) -> None:
+        self._retry_walk_queued = False
+        osdmap = self.monc.osdmap
+        if osdmap is None:
+            return
+        # a peer that came back up gets a fresh heartbeat slate
+        for osd in range(osdmap.max_osd):
+            up = osdmap.is_up(osd)
+            if up and not self._last_up.get(osd, False):
+                self.hb.remove_peer(osd)
+                self._reported.discard(osd)
+            self._last_up[osd] = up
+        # snapshot: the MonClient applies incrementals on the loop
+        # thread while this walk runs on the worker
+        for pool_id, pool in list(osdmap.pools.items()):
+            for ps in range(pool.pg_num):
+                up, _upp, acting, primary = osdmap.pg_to_up_acting_osds(
+                    pool_id, ps
+                )
+                pgid = f"{pool_id}.{ps}"
+                if self.whoami not in acting:
+                    pg = self.pgs.get(pgid)
+                    if pg is not None:
+                        pg.state = "stray"
+                        # no longer a member at all: any in-flight
+                        # recovery this (ex-)primary was driving is
+                        # for a dead interval
+                        self._abort_pg_recovery(pgid)
+                    continue
+                pg = self._get_or_create_pg(pgid)
+                if not pool.can_shift_osds() and self._shard_moved(pg, acting):
+                    pg = self._drop_moved_shards(pg)
+                interval = (tuple(acting), primary)
+                with self._pg_lock:
+                    changed = pg.peered_interval != interval
+                    interval_died = (
+                        pg.current_interval is not None
+                        and pg.current_interval != interval
+                    )
+                    pg.current_interval = interval
+                    pg.acting = acting
+                    pg.primary = primary
+                if interval_died:
+                    # interval death (a REAL transition, not just an
+                    # unpeered re-walk): in-flight RecoveryOps were
+                    # planned against the old acting set — abort them
+                    # (queued pushes drain without landing stale
+                    # shards; reservations release on the drain)
+                    self._abort_pg_recovery(pgid)
+                if primary == self.whoami:
+                    # re-peer only on interval change (the reference's
+                    # new-interval test) — an unrelated epoch bump must
+                    # not trigger a cluster-wide RPC storm.  A pass
+                    # with failed recovery pushes leaves the interval
+                    # unpeered so the tick loop retries it.
+                    if changed or pg.state != "active":
+                        if self._peer(pg, epoch):
+                            pg.peered_interval = interval
+                            pg.repop_clean = True
+                        else:
+                            pg.peered_interval = None
+                            pg.repop_clean = False
+                    if (
+                        pg.state == "active"
+                        and self._pg_num_grew(pg)
+                    ):
+                        # pg_num grew: re-home objects whose
+                        # stable_mod slot moved (PG splitting)
+                        self._workq.enqueue(
+                            CLASS_BACKGROUND, 1,
+                            ("split", pg.pgid, epoch),
+                        )
+                else:
+                    if changed:
+                        # new interval: wait for the primary's
+                        # activation before accepting rep-ops
+                        pg.activated_epoch = 0
+                    pg.state = "replica"
+                    pg.peered_interval = interval
+        # snap trimming: clones stranded by removed pool snaps go
+        # through the same logged-delete path as client removals
+        with self._pg_lock:
+            primaries = [
+                pg for pg in self.pgs.values()
+                if pg.primary == self.whoami and pg.state == "active"
+            ]
+        for pg in primaries:
+            try:
+                self._trim_snaps(pg)
+            except StoreError:
+                pass
+
+    def _shard_moved(self, pg: PG, acting) -> bool:
+        """An erasure PG's new acting set puts this OSD at another
+        position than the interval it last saw: the shards it holds
+        are the old position's."""
+        last = pg.current_interval
+        if last is None or self.whoami not in last[0]:
+            return False
+        return list(last[0]).index(self.whoami) != list(acting).index(self.whoami)
+
+    def _drop_moved_shards(self, pg: PG) -> PG:
+        """Empty this OSD's copy of an erasure PG whose position here
+        moved, and start the PG over, so peering backfills it like a
+        new member.  The objects are named alike at every position (no
+        shard id in the name), so a kept shard of the old position
+        would be read as a survivor of the new one — and rebuild wrong
+        bytes wherever an overwrite (RMW) has dropped the HashInfo
+        hashes that would catch it."""
+        with self._pg_lock:
+            names = self.store.list_objects(pg.cid)
+            if names:
+                txn = Transaction()
+                for name in names:
+                    txn.remove(pg.cid, name)
+                self.store.queue_transaction(txn)
+            fresh = PG(pg.pgid, pg.pool_id)
+            fresh.current_interval = pg.current_interval
+            self.pgs[pg.pgid] = fresh
+        self._abort_pg_recovery(pg.pgid)
+        dout(
+            "osd", 1,
+            f"osd.{self.whoami} pg {pg.pgid}: shard position moved, "
+            f"dropped {len(names)} objects for backfill",
+        )
+        return fresh
+
+    def _ensure_coll(self, pg: PG) -> None:
+        try:
+            self.store.queue_transaction(
+                Transaction().create_collection(pg.cid)
+            )
+        except StoreError:
+            pass
+
+    # -- erasure-pool backend (osd/ec_pg.py) --------------------------------
+    def _pool_of(self, pg: PG):
+        return self.monc.osdmap.pools.get(pg.pool_id)
+
+    def _is_ec(self, pg: PG) -> bool:
+        pool = self._pool_of(pg)
+        return pool is not None and not pool.can_shift_osds()
+
+    def _ec_codec(self, pg: PG) -> ECCodec:
+        """The pool's codec, cached per profile contents
+        (the registry factory hop of PGBackend.cc:588)."""
+        pool = self._pool_of(pg)
+        profile = self.monc.osdmap.erasure_code_profiles.get(
+            pool.erasure_code_profile
+        )
+        if profile is None:
+            raise StoreError(
+                f"pool {pg.pool_id}: erasure profile "
+                f"{pool.erasure_code_profile!r} missing (-EINVAL)"
+            )
+        key = (tuple(sorted(profile.items())), self.device)
+        codec = self._ec_codecs.get(key)
+        if codec is None:
+            codec = self._ec_codecs[key] = ECCodec(
+                {**profile, "device": self.device}
+            )
+        return codec
+
+    def _ec_store_for(self, pg: PG) -> ECStore:
+        """Mount the EC machinery over the acting set: my position is
+        my own store, live peers are RemoteStore proxies (MECSubRead
+        sub-op reads), holes/down peers raise like dead shards."""
+        codec = self._ec_codec(pg)
+        if len(pg.acting) != codec.n:
+            raise StoreError(
+                f"pg {pg.pgid}: acting size {len(pg.acting)} != "
+                f"k+m={codec.n} (-EAGAIN)"
+            )
+        osdmap = self.monc.osdmap
+        key = (
+            tuple(pg.acting),
+            tuple(
+                o != CRUSH_ITEM_NONE and osdmap.is_up(o)
+                for o in pg.acting
+            ),
+        )
+        cached = pg.ec_view
+        if (
+            cached is not None
+            and cached[0] == key
+            and all(not c._closed for c in cached[2])
+        ):
+            return cached[1]
+        stores: list[ObjectStore] = []
+        conns: list[Connection] = []
+        for osd in pg.acting:
+            if osd == self.whoami:
+                stores.append(self.store)
+            elif osd == CRUSH_ITEM_NONE or not osdmap.is_up(osd):
+                stores.append(UnreachableStore())
+            else:
+                try:
+                    conn = self._peer_conn(osd)
+                except (MessageError, OSError):
+                    stores.append(UnreachableStore())
+                    continue
+                conns.append(conn)
+                # sub-op reads share the repop SLA: a freshly-dead
+                # peer's session conn BLOCKS (it queues for replay
+                # rather than refusing), so the timeout bounds how
+                # long one dead shard can wedge the worker
+                stores.append(
+                    RemoteStore(
+                        conn, timeout=max(self.repop_timeout, 5.0)
+                    )
+                )
+        ecs = ECStore(
+            ec=codec.ec,
+            stores=stores,
+            cid=pg.cid,
+            stripe_width=codec.sinfo.stripe_width,
+            ensure_collections=False,
+        )
+        pg.ec_view = (key, ecs, conns)
+        return ecs
+
+    # -- peering (primary) -------------------------------------------------
+    def _peer(self, pg: PG, epoch: int) -> bool:
+        """GetInfo → GetLog → GetMissing → Active in one worker pass.
+        Returns False when some peer's recovery could not complete —
+        the caller must leave the interval unpeered so the tick loop
+        retries (a skipped push would otherwise become a permanent
+        shard hole once activation advances the peer's log)."""
+        pg.state = "peering"
+        peers = [
+            o for o in pg.acting
+            if o != self.whoami and o != CRUSH_ITEM_NONE
+        ]
+        infos: dict[int, PGInfo] = {self.whoami: pg.info}
+        peer_logs: dict[int, list[LogEntry]] = {}
+        reachable: list[int] = []
+        for osd in peers:
+            try:
+                # bounded like every sub-op: a chaos-dropped query
+                # (or a freshly-dead peer's queue-for-replay session
+                # conn) must not wedge the worker for the default
+                # call timeout per peer per pass
+                reply = self._peer_conn(osd).call(
+                    MPGQuery(pgid=pg.pgid, epoch=epoch),
+                    timeout=self.repop_timeout,
+                )
+            except (MessageError, OSError):
+                continue
+            if isinstance(reply, MPGNotify) and reply.info_blob:
+                infos[osd] = _decode_info(reply.info_blob)
+                peer_logs[osd] = [
+                    _decode_entry(b) for b in reply.entry_blobs
+                ]
+            elif isinstance(reply, MPGNotify):
+                infos[osd] = PGInfo(pgid=pg.pgid)
+                peer_logs[osd] = []
+            reachable.append(osd)
+
+        best = find_best_info(infos)
+        if best is not None and best != self.whoami:
+            self._get_log(pg, epoch, best, infos[best])
+        # close our OWN holes (failed pulls from this or an earlier
+        # pass — e.g. a half-recovered OSD promoted to primary by a
+        # failover) before recovering peers: a primary serving reads
+        # must not sit on adopted-but-unpulled objects
+        all_ok = self._recover_self_missing(pg, epoch, reachable)
+
+        # primary consistent: rewind+push what each reachable peer
+        # misses, then activate everyone
+        for osd in reachable:
+            peer_info = infos.get(osd, PGInfo(pgid=pg.pgid))
+            rewind = self._divergence_point(
+                pg, peer_info, peer_logs.get(osd, [])
+            )
+            if not self._recover_peer(pg, epoch, osd, peer_info, rewind):
+                all_ok = False
+        pg.state = "active"
+        pg.activated_epoch = epoch
+        pg.info.last_epoch_started = epoch
+        self._persist_info(pg)
+        return all_ok
+
+    def _divergence_point(
+        self, pg: PG, peer_info: PGInfo, peer_entries: list[LogEntry]
+    ) -> tuple[int, int]:
+        """Newest version the peer's log shares with the authoritative
+        log (proc_replica_log): the peer must rewind everything after
+        it.  With no divergence this is the peer's last_update."""
+        if not peer_entries:
+            return min(peer_info.last_update, pg.log.head)
+        own = {
+            e.version: (e.oid, e.op) for e in pg.log.entries
+        }
+        common = pg.log.log_tail
+        for entry in sorted(peer_entries, key=lambda e: e.version):
+            if own.get(entry.version) == (entry.oid, entry.op):
+                common = max(common, entry.version)
+            elif entry.version > pg.log.head or (
+                entry.version in own
+                and own[entry.version] != (entry.oid, entry.op)
+            ) or entry.version > common:
+                break  # first divergent entry ends the shared prefix
+        return common
+
+    def _get_log(self, pg: PG, epoch: int, best: int, best_info: PGInfo):
+        """Adopt the authoritative log and pull missing objects."""
+        since = pg.info.last_update
+        if needs_backfill(best_info, pg.info):
+            since = best_info.log_tail
+        try:
+            reply = self._peer_conn(best).call(
+                MPGLogReq(pgid=pg.pgid, epoch=epoch, since=since),
+                timeout=self.repop_timeout,
+            )
+        except (MessageError, OSError):
+            return
+        if not isinstance(reply, MPGLogReply):
+            return
+        entries = [_decode_entry(b) for b in reply.entry_blobs]
+        missing: dict[str, LogEntry] = {}
+        for entry in entries:
+            if entry.version <= pg.log.head:
+                continue
+            pg.log.append(entry)
+            self._persist_entry(pg, entry)
+            missing[entry.oid] = entry
+        for oid, entry in missing.items():
+            if self._pull_object(pg, epoch, best, oid, entry):
+                pg.self_missing.pop(oid, None)
+            else:
+                # a failed pull must not become a SILENT hole while
+                # the log/info advance past it: record it so the
+                # peering pass retries until the object lands (the
+                # stale divergent copy was already dropped)
+                pg.self_missing[oid] = entry.version
+        pg.info.last_update = pg.log.head
+        pg.seq = max(pg.seq, pg.info.last_update[1])
+        # adopting an authoritative log must not leave this pg over
+        # its bound (the donor may keep a longer log than ours)
+        self._maybe_trim(pg)
+        self._persist_info(pg)
+
+    def _recover_self_missing(
+        self, pg: PG, epoch: int, peers: list[int]
+    ) -> bool:
+        """Close the primary's OWN holes (objects whose authoritative
+        log entries were adopted but whose pull failed — e.g. the
+        serving peer's store view still pointed at a freshly-dead
+        OSD): retry from ANY reachable peer.  Returns True when no
+        hole remains; False keeps the interval unpeered so the tick
+        retries."""
+        for oid in list(pg.self_missing):
+            entry = pg.log.object_op(oid)
+            if (
+                entry is not None
+                and entry.version != pg.self_missing[oid]
+            ):
+                # superseded by a newer write this primary itself
+                # applied: no longer our hole to pull
+                pg.self_missing.pop(oid, None)
+                continue
+            if entry is None:
+                # the entry TRIMMED out of the log — but the object
+                # is still missing locally; dropping the hole here
+                # would permanently serve -ENOENT for bytes every
+                # replica still holds.  Pull by the recorded version
+                # (the entry only gates the DELETE shortcut).
+                entry = LogEntry(
+                    op=MODIFY, oid=oid,
+                    version=pg.self_missing[oid],
+                )
+            pulled = False
+            for osd in peers:
+                if self._pull_object(pg, epoch, osd, oid, entry):
+                    pg.self_missing.pop(oid, None)
+                    pulled = True
+                    break
+            if not pulled:
+                # NO peer could serve this object right now: later
+                # ones will almost surely fail the same way, and
+                # each failed pull holds the worker for a timeout —
+                # stop the sweep; the tick re-peers and retries
+                return False
+        return not pg.self_missing
+
+    def _pull_object(self, pg, epoch, source, oid, entry) -> bool:
+        """Pull one object this OSD's log says it misses; returns
+        True when the object's authoritative state landed locally.
+        On a FAILED pull the stale local copy is dropped — the
+        authoritative log says the object changed past our head, so
+        serving the old bytes would be a read-after-ack violation —
+        and the object becomes honestly missing for the retry."""
+        if entry.op == DELETE:
+            try:
+                self.store.queue_transaction(
+                    Transaction().remove(pg.cid, OBJ_PREFIX + oid)
+                )
+            except StoreError:
+                pass
+            return True
+        shard = -1
+        if self._is_ec(pg):
+            if self.whoami not in pg.acting:
+                return True  # stray: nothing to hold here
+            shard = pg.acting.index(self.whoami)
+        try:
+            reply = self._peer_conn(source).call(
+                MPGPull(
+                    pgid=pg.pgid, epoch=epoch, oid=oid, shard=shard
+                ),
+                timeout=self.repop_timeout,
+            )
+        except (MessageError, OSError):
+            try:
+                self.store.queue_transaction(
+                    Transaction().remove(pg.cid, OBJ_PREFIX + oid)
+                )
+            except StoreError:
+                pass
+            return False
+        if isinstance(reply, MPGPush):
+            # exists=False is an AUTHORITATIVE answer ("the object is
+            # gone everywhere", e.g. a logged CALL removal) — apply
+            # it as the removal it is; treating it as a failed pull
+            # would loop the oid in self_missing forever
+            self._apply_push(pg, reply)
+            return True
+        return False
+
+    def _apply_push(self, pg: PG, push: MPGPush) -> None:
+        txn = Transaction()
+        store_oid = OBJ_PREFIX + push.oid
+        if self.store.exists(pg.cid, store_oid):
+            txn.remove(pg.cid, store_oid)
+        if push.exists:
+            txn.touch(pg.cid, store_oid)
+            if push.data:
+                txn.write(pg.cid, store_oid, 0, push.data)
+            for k, v in push.attrs.items():
+                txn.setattr(pg.cid, store_oid, k, v)
+            if push.omap:
+                txn.omap_setkeys(pg.cid, store_oid, push.omap)
+        if txn.ops:
+            self.store.queue_transaction(txn)
+
+    def _recover_peer(
+        self, pg, epoch, osd, peer_info: PGInfo,
+        rewind: tuple[int, int],
+    ) -> bool:
+        """Recover one peer (the RecoveryOp state machine seat,
+        ECBackend.h:249): a peer with NOTHING missing activates
+        immediately; a peer with missing objects starts an ASYNC
+        recovery — reservation-gated (two-sided, see max_backfills)
+        push work items flow through the op scheduler's RECOVERY
+        class, interleaving with client ops by QoS weight, and the
+        activation ships when the last push lands.  Returns False
+        while recovery is pending/deferred so the tick re-peers and
+        confirms completion."""
+        since = rewind
+        if needs_backfill(pg.info, peer_info) or since < pg.log.log_tail:
+            since = pg.log.log_tail
+        missing = pg.log.missing_since(since)
+        try:
+            conn = self._peer_conn(osd)
+        except (MessageError, OSError):
+            return False
+
+        interval = (tuple(pg.acting), pg.primary)
+        prior_pushed: dict[str, tuple] = {}
+        if not missing:
+            # recovery confirmed complete for this interval: any
+            # watermark left behind by an interrupted run is done
+            self._clear_watermark(pg, osd)
+        else:
+            # persisted backfill watermark: pushes a PRIOR interrupted
+            # run of this same (interval, since) completed carry their
+            # exact version — skip re-pushing an object whose current
+            # version already landed (a newer write re-pushes)
+            wm = self._load_watermark(pg, osd)
+            if wm is not None:
+                if (
+                    wm.get("interval") == _interval_json(interval)
+                    and tuple(wm.get("since", ())) == tuple(since)
+                ):
+                    prior_pushed = {
+                        oid: tuple(v)
+                        for oid, v in wm.get("pushed", {}).items()
+                    }
+                    missing = {
+                        oid: v
+                        for oid, v in missing.items()
+                        if prior_pushed.get(oid) != tuple(v)
+                    }
+                else:
+                    # interval (or rewind point) died with the run
+                    # that wrote it: the watermark is meaningless now
+                    self._clear_watermark(pg, osd)
+
+        if missing:
+            key = (pg.pgid, osd)
+            with self._recovery_lock:
+                if key in self._recovering:
+                    return False  # already in flight; confirm later
+                # local reservation (AsyncReserver, primary side)
+                if (
+                    key not in self._local_reservations
+                    and len(self._local_reservations)
+                    >= self.max_backfills
+                ):
+                    return False  # local slots busy; tick retries
+                self._local_reservations.add(key)
+            # remote reservation (the replica's osd_max_backfills)
+            granted = False
+            try:
+                reply = conn.call(
+                    MRecoveryReserve(
+                        tid=self.messenger.new_tid(), op="request",
+                        pgid=pg.pgid, epoch=epoch,
+                        from_osd=self.whoami,
+                    ),
+                    timeout=5.0,
+                )
+                granted = (
+                    isinstance(reply, MRecoveryReserve)
+                    and reply.op == "grant"
+                )
+            except (MessageError, OSError):
+                pass
+            if not granted:
+                with self._recovery_lock:
+                    self._local_reservations.discard(key)
+                return False  # peer busy/unreachable; tick retries
+            state = _RecoveryOp(
+                pg=pg, epoch=epoch, osd=osd, since=since,
+                conn=conn, remaining=set(missing),
+                interval=interval, versions=dict(missing),
+                pushed=dict(prior_pushed),
+            )
+            with self._recovery_lock:
+                self._recovering[key] = state
+            for oid in missing:
+                try:
+                    cost = self.store.stat(pg.cid, OBJ_PREFIX + oid)
+                except StoreError:
+                    cost = 4096
+                self._workq.enqueue(
+                    CLASS_RECOVERY, max(cost, 4096),
+                    ("recover_push", key, oid),
+                )
+            return False  # activation follows the last push
+
+        self._activate_peer(pg, epoch, conn, since)
+        return True
+
+    def _activate_peer(self, pg, epoch, conn, since) -> None:
+        suffix = [
+            _encode_entry(e) for e in pg.log.entries_after(since)
+        ]
+        try:
+            # fire-and-forget: blocking here can cross-deadlock two
+            # primaries whose workers are each peering a PG the other
+            # replicates (activation acks are async in the reference
+            # too); an unactivated replica simply NAKs rep-ops until
+            # its queued activation lands
+            conn.send(
+                MPGActivate(
+                    tid=self.messenger.new_tid(),
+                    pgid=pg.pgid, epoch=epoch,
+                    info_blob=_encode_info(pg.info),
+                    rewind_to=since,
+                    entry_blobs=suffix,
+                )
+            )
+        except (MessageError, OSError):
+            pass
+
+    def _recovery_interval_ok(self, state: "_RecoveryOp") -> bool:
+        """The generation check every push re-validates: the interval
+        this RecoveryOp was planned against must still be current
+        (same acting set, same primary, and that primary is us) —
+        otherwise a push would land a shard computed for a position
+        assignment that no longer exists (a stale shard the next
+        peering would silently trust)."""
+        pg = state.pg
+        return (
+            pg.primary == self.whoami
+            and (tuple(pg.acting), pg.primary) == state.interval
+        )
+
+    def _abort_pg_recovery(self, pgid: str) -> None:
+        """Interval death: fail every in-flight RecoveryOp for this
+        PG so the queued pushes drain WITHOUT touching peers and
+        _finish_recovery releases both reservations promptly."""
+        with self._recovery_lock:
+            for (pid, _osd), state in self._recovering.items():
+                if pid == pgid:
+                    state.failed = True
+
+    def _coalesce_recovery_items(self, item) -> list:
+        """After dequeuing a recovery push, drain up to
+        ``osd_recovery_batch_max - 1`` more CONSECUTIVE pushes for
+        the SAME (pg, peer) RecoveryOp: they ride one coalesced
+        decode-from-survivors dispatch while every push still sends,
+        completes, and watermarks individually, in queue order —
+        the repair-side twin of _coalesce_op_items."""
+        if self.osd_recovery_batch_max <= 1:
+            return []
+        key = item[1]
+
+        def matches(it) -> bool:
+            # cheap + lock-free: runs under the scheduler lock
+            return (
+                isinstance(it, tuple)
+                and len(it) == 3
+                and it[0] == "recover_push"
+                and it[1] == key
+            )
+
+        return self._workq.drain_class(
+            CLASS_RECOVERY, matches, self.osd_recovery_batch_max - 1
+        )
+
+    def _do_recover_push_batch(self, items: list) -> None:
+        """Serve a coalesced recovery batch: ONE batched
+        decode-from-survivors dispatch rebuilds every drained
+        object's shard (ECStore.reconstruct_shards_batch through the
+        per-PG store view — survivor shards upload once, outputs
+        device-born), then each push runs its normal per-op path with
+        its MPGPush precomputed — send/reply/watermark/completion
+        semantics unchanged, and a batch failure degrades every push
+        to its own per-op rebuild."""
+        key = items[0][1]
+        with self._recovery_lock:
+            state = self._recovering.get(key)
+        pre: dict[str, MPGPush] = {}
+        if (
+            state is not None
+            and not state.failed
+            and self._recovery_interval_ok(state)
+            and self._is_ec(state.pg)
+            and state.osd in state.pg.acting
+            and len(items) > 1
+        ):
+            try:
+                pos = state.pg.acting.index(state.osd)
+                pre = self._ec_push_batch(
+                    state.pg, state.epoch,
+                    [it[2] for it in items], pos,
+                )
+            except BATCH_ERRORS:
+                # coalescing is an optimization: a batch failure
+                # degrades every push to the per-op rebuild, never
+                # drops one
+                pre = {}
+            except BaseException:
+                # a kernel or CUDA error is no batching failure: fail
+                # the op (the drained pushes complete it without
+                # touching the peer; the tick re-peers) and let the
+                # error reach the worker's crash report
+                state.failed = True
+                for it in items:
+                    self._do_recover_push(key, it[2])
+                raise
+        for it in items:
+            self._do_recover_push(key, it[2], pre_push=pre.get(it[2]))
+
+    def _do_recover_push(
+        self, key: tuple[str, int], oid: str, pre_push=None
+    ) -> None:
+        """One scheduler-drained recovery push; the LAST one (or a
+        failure) completes the RecoveryOp.  ``pre_push`` carries the
+        MPGPush a coalesced batch dispatch already rebuilt."""
+        with self._recovery_lock:
+            state = self._recovering.get(key)
+        if state is None:
+            return
+        pg, epoch, osd = state.pg, state.epoch, state.osd
+        with self._recovery_lock:
+            self._recovery_active += 1
+            self.recovery_active_peak = max(
+                self.recovery_active_peak, self._recovery_active
+            )
+        try:
+            if not state.failed and not self._recovery_interval_ok(
+                state
+            ):
+                # the interval died under this op (second failure,
+                # remap, primary change): abort — a push computed for
+                # the dead interval must never land
+                state.failed = True
+            if not state.failed:
+                # once one push failed the rest of the queue DRAINS
+                # without touching the peer: each blocking call
+                # would otherwise hold the worker for a full timeout
+                # per remaining item
+                if pre_push is not None:
+                    push = pre_push
+                elif self._is_ec(pg):
+                    pos = pg.acting.index(osd)
+                    push = self._ec_push_for(pg, epoch, oid, pos)
+                else:
+                    push = self._push_for(pg, epoch, oid)
+                state.conn.call(
+                    push, timeout=self.recovery_push_timeout
+                )
+                self.perf.inc("recovery_pushes")
+                self.perf.inc("recovery_push_bytes", len(push.data))
+                version = state.versions.get(oid)
+                if version is not None:
+                    with self._recovery_lock:
+                        state.pushed[oid] = tuple(version)
+                        # amortized: the blob rewrites the whole
+                        # pushed map, so persisting EVERY push would
+                        # be O(n^2) bytes over a big storm — and the
+                        # watermark is an optimization (a subset is
+                        # still a valid resume point).  Small ops
+                        # persist per push (the blob is tiny and the
+                        # resume granularity matters most there);
+                        # big ones stride
+                        persist = (
+                            len(state.versions) <= 32
+                            or len(state.pushed) % 8 == 0
+                            or len(state.remaining) <= 1
+                        )
+                    if persist:
+                        self._persist_watermark(pg, osd, state)
+        except Exception:  # noqa: BLE001 — ANY failure (unreachable
+            # peer, missing shards, an epoch change yanking the osd
+            # from pg.acting) must fail the op: completing anyway
+            # would activate the peer past an object it never got,
+            # an invisible permanent hole.  The tick re-peers.
+            state.failed = True
+        finally:
+            with self._recovery_lock:
+                self._recovery_active -= 1
+                state.remaining.discard(oid)
+                done = not state.remaining
+                if done:
+                    self._recovering.pop(key, None)
+            if done:
+                self._finish_recovery(key, state)
+
+    def _finish_recovery(self, key, state: "_RecoveryOp") -> None:
+        if state.failed:
+            self.perf.inc("recovery_failed")
+        try:
+            if not state.failed:
+                self._activate_peer(
+                    state.pg, state.epoch, state.conn, state.since
+                )
+        finally:
+            with self._recovery_lock:
+                self._local_reservations.discard(key)
+            try:
+                state.conn.send(
+                    MRecoveryReserve(
+                        tid=self.messenger.new_tid(), op="release",
+                        pgid=state.pg.pgid, epoch=state.epoch,
+                        from_osd=self.whoami,
+                    )
+                )
+            except (MessageError, OSError):
+                pass
+
+    # -- backfill watermark (persisted recovery progress) ------------------
+    @staticmethod
+    def _wm_key(osd: int) -> str:
+        return f"rwm_{osd}"
+
+    def _load_watermark(self, pg: PG, osd: int) -> dict | None:
+        """The persisted per-(pg, peer) push progress: {interval,
+        since, pushed: {oid: version}} — valid only while both the
+        interval and the rewind point it was computed for hold."""
+        try:
+            raw = self.store.omap_get(pg.cid, PG_META).get(
+                self._wm_key(osd)
+            )
+        except StoreError:
+            return None
+        if not raw:
+            return None
+        try:
+            wm = json.loads(raw)
+        except ValueError:
+            return None
+        return wm if isinstance(wm, dict) else None
+
+    def _persist_watermark(
+        self, pg: PG, osd: int, state: "_RecoveryOp"
+    ) -> None:
+        """One omap row per completed push: a restarted or
+        re-peered primary resumes instead of re-pushing objects the
+        interrupted run already landed (version-exact, so a client
+        write after the push re-pushes)."""
+        blob = json.dumps(
+            {
+                "interval": _interval_json(state.interval),
+                "since": list(state.since),
+                "pushed": {
+                    o: list(v) for o, v in state.pushed.items()
+                },
+            }
+        ).encode()
+        try:
+            txn = Transaction()
+            txn.touch(pg.cid, PG_META)
+            txn.omap_setkeys(
+                pg.cid, PG_META, {self._wm_key(osd): blob}
+            )
+            self.store.queue_transaction(txn)
+        except StoreError:
+            pass
+
+    def _clear_watermark(self, pg: PG, osd: int) -> None:
+        try:
+            self.store.queue_transaction(
+                Transaction().omap_rmkeys(
+                    pg.cid, PG_META, [self._wm_key(osd)]
+                )
+            )
+        except StoreError:
+            pass
+
+    def _push_for(self, pg: PG, epoch: int, oid: str) -> MPGPush:
+        """One object's recovery push, attrs + omap included
+        (prep_push)."""
+        entry = pg.log.object_op(oid)
+        exists = entry is None or entry.op != DELETE
+        data = b""
+        attrs: dict[str, bytes] = {}
+        omap: dict[str, bytes] = {}
+        if exists:
+            try:
+                data = self.store.read(pg.cid, OBJ_PREFIX + oid)
+                attrs = self.store.list_attrs(pg.cid, OBJ_PREFIX + oid)
+                omap = self.store.omap_get(pg.cid, OBJ_PREFIX + oid)
+            except StoreError:
+                exists = False
+        return MPGPush(
+            pgid=pg.pgid, epoch=epoch, oid=oid,
+            exists=exists, data=data, attrs=attrs, omap=omap,
+            entry_blob=_encode_entry(entry) if entry else b"",
+        )
+
+    def _ec_push_for(
+        self, pg: PG, epoch: int, oid: str, pos: int
+    ) -> MPGPush:
+        """Recovery push for an erasure pool: RECONSTRUCT position
+        ``pos``'s shard from the minimum helper set (CLAY profiles read
+        fractional chunks) and ship it with its HashInfo + user/class
+        attrs (ECBackend RecoveryOp READING→WRITING with
+        minimum_to_decode reads, ECBackend.cc:1630)."""
+        entry = pg.log.object_op(oid)
+        store_oid = OBJ_PREFIX + oid
+        push = MPGPush(
+            pgid=pg.pgid, epoch=epoch, oid=oid, exists=False,
+            entry_blob=_encode_entry(entry) if entry else b"",
+        )
+        if entry is not None and entry.op == DELETE:
+            return push
+        # pin the authoritative HashInfo from our own shard when we
+        # hold it — a rewinding peer may still expose stale hinfo
+        meta = None
+        try:
+            meta = json.loads(
+                self.store.getattr(pg.cid, store_oid, HINFO_KEY)
+            )
+        except StoreError:
+            pass
+        ecs = self._ec_store_for(pg)
+        try:
+            data, reads, meta = ecs.reconstruct_shard(
+                store_oid, pos, meta
+            )
+        except ErasureCodeError:
+            if meta is None and not self.store.exists(pg.cid, store_oid):
+                # object gone everywhere (e.g. a logged CALL removal)
+                return push
+            raise
+        self.perf.inc("recovery_helper_bytes", reads)
+        return self._ec_push_assemble(pg, push, data, meta, ecs, pos)
+
+    def _ec_push_assemble(
+        self, pg: PG, push: MPGPush, data: bytes, meta: dict,
+        ecs: ECStore, pos: int,
+    ) -> MPGPush:
+        """Attach the rebuilt shard + its HashInfo + the replicated
+        user/class attrs and omap to a push — the ONE assembly both
+        the per-op and the coalesced rebuild paths share (byte
+        identity between them rests on there being a single copy)."""
+        store_oid = OBJ_PREFIX + push.oid
+        attrs = {HINFO_KEY: json.dumps(meta).encode()}
+        # user/class attrs and omap replicate on every shard — take
+        # them from our copy, or any reachable shard when ours is gone
+        src_attrs = None
+        src_omap: dict[str, bytes] = {}
+        if self.store.exists(pg.cid, store_oid):
+            src_attrs = self.store.list_attrs(pg.cid, store_oid)
+            src_omap = self._omap_of(pg, store_oid)
+        else:
+            for i, st in enumerate(ecs.stores):
+                if i == pos:
+                    continue
+                try:
+                    src_attrs = st.list_attrs(pg.cid, store_oid)
+                    src_omap = st.omap_get(pg.cid, store_oid)
+                    break
+                except StoreError:
+                    continue
+        if src_attrs:
+            attrs.update(
+                {
+                    k: v
+                    for k, v in src_attrs.items()
+                    if k.startswith(("u_", "c_"))
+                }
+            )
+        push.exists = True
+        push.data = data
+        push.attrs = attrs
+        push.omap = src_omap
+        return push
+
+    def _ec_push_batch(
+        self, pg: PG, epoch: int, oids: list, pos: int
+    ) -> dict[str, MPGPush]:
+        """Rebuild position ``pos``'s shard for MANY objects in ONE
+        coalesced decode-from-survivors dispatch
+        (ECStore.reconstruct_shards_batch over the per-PG store view:
+        survivor reads honor minimum_to_decode — LRC repairs touch
+        k_local helpers — local survivors ride the residency cache,
+        reconstructed shards come back device-born) and assemble each
+        object's MPGPush exactly like the per-op path.  Objects the
+        batch cannot serve are simply absent from the result — the
+        caller's per-op path rebuilds them."""
+        out: dict[str, MPGPush] = {}
+        base: dict[str, MPGPush] = {}
+        alive: list[str] = []
+        metas: dict[str, dict] = {}
+        for oid in oids:
+            entry = pg.log.object_op(oid)
+            push = MPGPush(
+                pgid=pg.pgid, epoch=epoch, oid=oid, exists=False,
+                entry_blob=_encode_entry(entry) if entry else b"",
+            )
+            if entry is not None and entry.op == DELETE:
+                out[oid] = push
+                continue
+            base[oid] = push
+            store_oid = OBJ_PREFIX + oid
+            try:
+                # pin the authoritative HashInfo from our own shard
+                # when we hold it (a rewinding peer may expose stale
+                # hinfo), like the per-op path
+                metas[store_oid] = json.loads(
+                    self.store.getattr(pg.cid, store_oid, HINFO_KEY)
+                )
+            except StoreError:
+                pass
+            alive.append(oid)
+        if not alive:
+            return out
+        ecs = self._ec_store_for(pg)
+        results, _fallback, stats = ecs.reconstruct_shards_batch(
+            [OBJ_PREFIX + oid for oid in alive], pos, metas
+        )
+        self.perf.inc(
+            "recovery_survivor_shards", stats["survivor_shards"]
+        )
+        self.perf.inc("recovery_helper_bytes", stats["read_bytes"])
+        served = 0
+        for oid in alive:
+            got = results.get(OBJ_PREFIX + oid)
+            if got is None:
+                continue  # per-op fallback rebuilds (and verifies) it
+            payload, meta = got
+            data = (
+                payload.host()
+                if hasattr(payload, "host")
+                else bytes(payload)
+            )
+            out[oid] = self._ec_push_assemble(
+                pg, base[oid], data, meta, ecs, pos
+            )
+            served += 1
+        if served > 1:
+            self.perf.inc("recovery_batches")
+            self.perf.inc("recovery_batch_ops", served)
+        return out
+
+    # -- persistence -------------------------------------------------------
+    def _persist_entry(self, pg: PG, entry: LogEntry, txn=None) -> None:
+        own = txn is None
+        txn = txn or Transaction()
+        txn.touch(pg.cid, _log_oid(entry.version))
+        txn.write(pg.cid, _log_oid(entry.version), 0, _encode_entry(entry))
+        if own:
+            self.store.queue_transaction(txn)
+
+    def _persist_info(self, pg: PG, txn=None) -> None:
+        own = txn is None
+        txn = txn or Transaction()
+        # touch is idempotent and MUST be unconditional: the same
+        # transaction ships verbatim to replicas whose store may not
+        # have PG_META yet (a conditional guard against the PRIMARY's
+        # store would abort the whole replicated txn there)
+        txn.touch(pg.cid, PG_META)
+        txn.setattr(pg.cid, PG_META, INFO_ATTR, _encode_info(pg.info))
+        if own:
+            self.store.queue_transaction(txn)
+
+    # -- client op path (primary) ------------------------------------------
+    # scheduler classes a CLIENT may never name: strict would bypass
+    # QoS outright, and recovery/background would let a tenant ride
+    # the recovery reservation while starving real recovery traffic
+    _QOS_INTERNAL = frozenset(
+        {CLASS_STRICT, CLASS_RECOVERY, CLASS_BACKGROUND}
+    )
+
+    def _qos_class_of(self, msg: MOSDOp) -> str:
+        """The scheduler class this op rides: its named QoS class
+        when a profile is registered AND the name is not an internal
+        scheduler class, else the default client class (an unknown or
+        reserved class must degrade, not bypass, QoS)."""
+        qos = sanitize_class(msg.qos, default=CLASS_CLIENT)
+        if qos in self._QOS_INTERNAL:
+            return CLASS_CLIENT
+        if qos != CLASS_CLIENT and not self._workq.known_class(qos):
+            return CLASS_CLIENT
+        return qos
+
+    @staticmethod
+    def _op_type_of(op: int) -> str:
+        if op in (
+            OSD_OP_READ, OSD_OP_STAT, OSD_OP_GETXATTR, OSD_OP_OMAPGET,
+        ):
+            return "read"
+        if op == OSD_OP_LIST:
+            return "list"
+        return "write"
+
+    def _handle_op(
+        self, conn: Connection, msg: MOSDOp, pre_encoded=None
+    ) -> None:
+        t0 = time.perf_counter()
+        qos_class = self._qos_class_of(msg)
+        op_type = self._op_type_of(msg.op)
+        top = self.op_tracker.create_op(
+            f"osd_op({msg.reqid} {msg.pgid} {msg.oid} op={msg.op})",
+            trace=msg.reqid,
+            op_type=op_type,
+            qos_class=qos_class,
+        )
+        top.mark_event("started")
+        self._cur_op = top
+        # primary-side span under the client's trace (= reqid): the
+        # `with` installs it as this worker thread's ambient, so the
+        # store layers' per-stage spans attach as children; qos_class
+        # rides the tags so the mgr tracing module filters per class
+        span = self.tracer.start_span(
+            "osd_op",
+            trace_id=msg.reqid or "",
+            role=tracing.ROLE_PRIMARY,
+            tags={
+                "pgid": msg.pgid, "oid": msg.oid, "op": msg.op,
+                "qos_class": qos_class,
+            },
+        )
+        try:
+            with span:
+                self._handle_op_inner(conn, msg, pre_encoded)
+        finally:
+            self._cur_op = None
+            top.finish()
+            self.perf.inc("op")
+            if msg.op in (
+                OSD_OP_READ, OSD_OP_STAT, OSD_OP_GETXATTR,
+                OSD_OP_OMAPGET, OSD_OP_LIST,
+            ):
+                self.perf.inc("op_r")
+            else:
+                self.perf.inc("op_w")
+            self.perf.tinc("op_latency", time.perf_counter() - t0)
+
+    def _client_blocklisted(self, reqid: str) -> bool:
+        """The reqid's leading field is the objecter's client id —
+        the entity-addr analog the blocklist keys on."""
+        osdmap = self.monc.osdmap
+        if osdmap is None or not osdmap.blocklist:
+            return False
+        return osdmap.is_blocklisted(reqid.rsplit(".", 1)[0])
+
+    def _handle_op_inner(
+        self, conn: Connection, msg: MOSDOp, pre_encoded=None
+    ) -> None:
+        epoch = self.monc.epoch
+        pg = self.pgs.get(msg.pgid)
+        reply = MOSDOpReply(tid=msg.tid, epoch=epoch)
+        if msg.reqid and self._client_blocklisted(msg.reqid):
+            # fencing (OSDMap::is_blocklisted, OSD.cc op admission):
+            # a blocklisted client gets a hard reject on EVERY op —
+            # this is what makes break-lock and MDS failover safe
+            # against a partitioned-but-alive previous owner
+            reply.ok = False
+            reply.error = "client is blocklisted (-EBLOCKLISTED)"
+            conn.send(reply)
+            return
+        if (
+            pg is not None
+            and pg.primary == self.whoami
+            and pg.state == "peering"
+        ):
+            # the PG cannot take ops while peering (e.g. after an
+            # injected partition changed the interval): send a block
+            # backoff so the objecter PARKS the op instead of
+            # hammering resends (MOSDBackoff, the reference's PG
+            # backoff on a not-yet-active primary)
+            self._send_block(conn, msg, pg.pgid, "peering")
+            return
+        if pg is None or pg.primary != self.whoami or pg.state not in (
+            "active",
+        ):
+            reply.ok = False
+            reply.error = f"not primary for pg {msg.pgid} (-EAGAIN)"
+            conn.send(reply)
+            return
+        pool = self._pool_of(pg)
+        if pool is not None and 0 < msg.epoch < pool.last_change:
+            # the pool changed (e.g. pg_num split) after the client's
+            # map: a misdirected write would land in a PG the rest of
+            # the cluster no longer consults for this object
+            # (OSD::handle_op's misdirected check)
+            reply.ok = False
+            reply.error = (
+                f"client map epoch {msg.epoch} predates pool change "
+                f"{pool.last_change}; refresh map (-EAGAIN)"
+            )
+            conn.send(reply)
+            return
+        if (
+            self._op_is_write(msg)
+            and not (msg.flags & OSD_FLAG_FULL_TRY)
+            and self._check_full()
+        ):
+            # full-space degradation (the OSD_FULL write-blocking
+            # path): reads keep serving, writes park on backoff until
+            # space frees; FULL_TRY (repair/delete traffic) bypasses
+            self._send_block(conn, msg, pg.pgid, "full")
+            return
+        store_oid = OBJ_PREFIX + msg.oid
+        is_ec = self._is_ec(pg)
+        tiered = (
+            pool is not None
+            and pool.tier_of >= 0
+            and pool.cache_mode == "writeback"
+            and not is_ec
+        )
+        try:
+            if tiered and not msg.reqid.startswith("tier-"):
+                self._tier_front(pg, pool, epoch, msg, store_oid)
+            if msg.op in (
+                OSD_OP_READ, OSD_OP_STAT, OSD_OP_GETXATTR,
+                OSD_OP_OMAPGET,
+            ) and msg.snapid:
+                # reads at a snap serve from the covering clone
+                store_oid = self._resolve_snap_read(
+                    pg, msg.oid, msg.snapid
+                )
+            if msg.op == OSD_OP_READ:
+                if is_ec:
+                    whole = self._ec_store_for(pg).get(store_oid)
+                    if msg.length < 0:
+                        reply.data = whole[msg.offset :]
+                    else:
+                        reply.data = whole[
+                            msg.offset : msg.offset + msg.length
+                        ]
+                else:
+                    reply.data = self.store.read(
+                        pg.cid, store_oid, msg.offset, msg.length
+                    )
+            elif msg.op == OSD_OP_STAT:
+                if is_ec:
+                    reply.size = self._ec_store_for(pg).size(store_oid)
+                else:
+                    reply.size = self.store.stat(pg.cid, store_oid)
+            elif msg.op == OSD_OP_GETXATTR:
+                reply.data = self.store.getattr(
+                    pg.cid, store_oid, "u_" + msg.attr
+                )
+            elif msg.op in (OSD_OP_WATCH, OSD_OP_UNWATCH):
+                self._handle_watch(pg, conn, msg)
+            elif msg.op == OSD_OP_NOTIFY:
+                acks = self._notify_watchers(pg, msg.oid, msg.data)
+                reply.data = json.dumps(acks).encode()
+            elif msg.op == OSD_OP_CALL:
+                cls_name, _, method = msg.attr.partition(".")
+                flags = self.class_handler.flags_of(cls_name, method)
+                if flags & CLS_WR:
+                    reply.data = self._mutate(pg, epoch, msg, store_oid)
+                else:
+                    ctx = self._cls_ctx(pg, store_oid)
+                    reply.data = self._cls_call(
+                        cls_name, method, ctx, msg.data
+                    )
+            elif msg.op == OSD_OP_OMAPGET:
+                # omap replicates on every replica/shard: serve local
+                kv = self.store.omap_get_vals(
+                    pg.cid, store_oid,
+                    start_after=msg.attr,
+                    max_return=msg.length,
+                )
+                e = Encoder()
+                e.map(
+                    kv,
+                    lambda e2, k: e2.string(k),
+                    lambda e2, v: e2.bytes(v),
+                )
+                reply.data = e.getvalue()
+            elif msg.op == OSD_OP_LIST:
+                # heads only: snap clones ("@"-suffixed) stay hidden
+                reply.names = sorted(
+                    o[len(OBJ_PREFIX):]
+                    for o in self.store.list_objects(pg.cid)
+                    if o.startswith(OBJ_PREFIX) and "@" not in o
+                )
+            else:
+                self._mutate(
+                    pg, epoch, msg, store_oid, pre_encoded=pre_encoded
+                )
+                if (
+                    tiered
+                    and msg.op == OSD_OP_DELETE
+                    and not msg.reqid.startswith("tier-")
+                ):
+                    # writeback deletes propagate to the base
+                    # SYNCHRONOUSLY (deviation from the reference's
+                    # whiteout objects — correctness over latency)
+                    self._tier_base_op(
+                        pool, msg.oid, OSD_OP_DELETE,
+                        reqid=f"tier-del.{msg.reqid}",
+                        ignore_enoent=True,
+                    )
+        except (StoreError, ClassError, ErasureCodeError) as e:
+            reply.ok = False
+            reply.error = str(e)
+        conn.send(reply)
+
+    def _cls_call(self, cls_name, method, ctx, indata) -> bytes:
+        """Run a stored procedure, converting ANY method exception to
+        ClassError — methods execute arbitrary code on
+        client-controlled bytes and must never kill the op path or
+        leave the client without a reply."""
+        try:
+            return self.class_handler.call(cls_name, method, ctx, indata)
+        except ClassError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            raise ClassError(
+                f"{cls_name}.{method} failed: {type(e).__name__}: {e}"
+            )
+
+    def _omap_of(self, pg: PG, store_oid: str) -> dict[str, bytes]:
+        try:
+            return self.store.omap_get(pg.cid, store_oid)
+        except StoreError:
+            return {}
+
+    # -- snapshots (make_writeable / SnapSet resolution) -------------------
+    def _born_at(self, pg: PG, store_oid: str) -> int:
+        try:
+            return int(
+                self.store.getattr(pg.cid, store_oid, BORN_ATTR)
+            )
+        except (StoreError, ValueError):
+            return 0
+
+    def _commit_internal(
+        self,
+        pg: PG,
+        epoch: int,
+        oid: str,
+        txn: Transaction,
+        op=None,
+        prior_version=(1, 0),
+    ) -> None:
+        """One internally-generated mutation through the SAME logged
+        replication path client ops ride (clone preservation, snap
+        trims, watch records)."""
+        pg.seq += 1
+        entry = LogEntry(
+            op=MODIFY if op is None else op,
+            oid=oid,
+            version=(epoch, pg.seq),
+            reqid="",
+            prior_version=prior_version,
+        )
+        targets = {
+            osd: txn
+            for osd in pg.acting
+            if osd != CRUSH_ITEM_NONE
+            and (osd == self.whoami or self.monc.osdmap.is_up(osd))
+        }
+        self._commit_and_replicate(
+            pg, epoch, types.SimpleNamespace(reqid=""), entry,
+            targets, b"",
+        )
+
+    def _maybe_clone(
+        self, pg: PG, epoch: int, oid: str, existed: bool,
+        writer_seq: int = 0,
+    ) -> None:
+        """Clone-on-first-write-after-snap (PrimaryLogPG::
+        make_writeable): before a mutation lands on an object that
+        predates the pool's newest snap, preserve the head as
+        "<oid>@<snap_seq>" — ONE store-local clone op riding a logged
+        transaction of its own, so clones replicate, recover, and
+        reconstruct exactly like any object on both backends."""
+        pool = self._pool_of(pg)
+        named = (
+            max(
+                (s for s, name in pool.snaps.items() if name),
+                default=0,
+            )
+            if pool is not None
+            else 0
+        )
+        # per-op writer SnapContext (make_writeable,
+        # PrimaryLogPG.cc:1209): a writer's self-managed seq drives
+        # its clones, so two images in one pool snapshot
+        # independently; a NAMED pool snap newer than the writer's
+        # context still wins (a stale writer must not overwrite a
+        # snapshot the admin just took), and bystanders without a
+        # context follow named snaps only
+        snapc = max(writer_seq, named)
+        if not existed or snapc <= 0:
+            return
+        head = OBJ_PREFIX + oid
+        clone_store = OBJ_PREFIX + f"{oid}@{snapc}"
+        if self.store.exists(pg.cid, clone_store):
+            return  # already preserved for this snap context
+        if self._born_at(pg, head) >= snapc:
+            return  # object born after the newest snap: nothing owed
+        txn = Transaction().clone(pg.cid, head, clone_store)
+        self._commit_internal(
+            pg, epoch, f"{oid}@{snapc}", txn,
+            prior_version=EV_ZERO,
+        )
+
+    def _resolve_snap_read(self, pg: PG, oid: str, snapid: int) -> str:
+        """Map (oid, snapid) to the store object serving that snap:
+        the oldest clone whose id >= snapid, else the head — provided
+        the serving object was born BEFORE the snap (SnapSet clone
+        lookup, PrimaryLogPG::find_object_context)."""
+        head = OBJ_PREFIX + oid
+        if snapid <= 0:
+            return head
+        pool = self._pool_of(pg)
+        live = sorted(s for s in (pool.snaps if pool else {}) if s >= snapid)
+        for c in live:
+            clone_store = OBJ_PREFIX + f"{oid}@{c}"
+            if self.store.exists(pg.cid, clone_store):
+                if self._born_at(pg, clone_store) >= snapid:
+                    break  # born after the snap: didn't exist then
+                return clone_store
+        if (
+            self.store.exists(pg.cid, head)
+            and self._born_at(pg, head) < snapid
+        ):
+            return head
+        raise StoreError(
+            f"no object {oid} at snap {snapid} (-ENOENT)"
+        )
+
+    def _trim_snaps(self, pg: PG, limit: int = 32) -> None:
+        """Remove clones stranded by deleted pool snaps (the snap
+        trimmer role): a clone @c is removable once no live snap falls
+        in the interval it covers, (next-lower clone or birth, c]."""
+        if pg.primary != self.whoami or pg.state != "active":
+            return
+        pool = self._pool_of(pg)
+        if pool is None:
+            return
+        live = set(pool.snaps)
+        epoch = self.monc.epoch
+        try:
+            names = self.store.list_objects(pg.cid)
+        except StoreError:
+            return
+        clones: dict[str, list[int]] = {}
+        for n in names:
+            if not n.startswith(OBJ_PREFIX) or "@" not in n:
+                continue
+            base, _, c = n[len(OBJ_PREFIX):].rpartition("@")
+            try:
+                clones.setdefault(base, []).append(int(c))
+            except ValueError:
+                continue
+        done = 0
+        for base, ids in clones.items():
+            ids.sort()
+            for i, c in enumerate(ids):
+                if c in live:
+                    continue
+                clone_store = OBJ_PREFIX + f"{base}@{c}"
+                lower = ids[i - 1] if i else self._born_at(
+                    pg, clone_store
+                )
+                if any(lower < s <= c for s in live):
+                    continue  # still serves a live snap
+                txn = (
+                    Transaction()
+                    .touch(pg.cid, clone_store)
+                    .remove(pg.cid, clone_store)
+                )
+                try:
+                    self._commit_internal(
+                        pg, epoch, f"{base}@{c}", txn, op=DELETE
+                    )
+                except StoreError:
+                    return
+                done += 1
+                if done >= limit:
+                    return
+
+    # -- watch/notify (PrimaryLogPG watchers / Notify) ---------------------
+    WATCH_ATTR = "w_"
+
+    def _handle_watch(self, pg: PG, conn: Connection, msg: MOSDOp):
+        key = (pg.pgid, msg.oid)
+        store_oid = OBJ_PREFIX + msg.oid
+        with self._watch_lock:
+            if msg.op == OSD_OP_WATCH:
+                self._watchers.setdefault(key, {})[msg.offset] = conn
+            else:
+                watchers = self._watchers.get(key, {})
+                watchers.pop(msg.offset, None)
+                if not watchers:
+                    self._watchers.pop(key, None)
+        # persist the watch record in object metadata (watch_info in
+        # object_info_t, src/osd/osd_types.h) through the SAME logged
+        # path as any mutation, so the record survives primary
+        # failover and the NEW primary holds notifies for this
+        # watcher until its linger re-attaches
+        attr = self.WATCH_ATTR + str(msg.offset)
+        try:
+            have = attr in self.store.list_attrs(pg.cid, store_oid)
+        except StoreError:
+            # watch on a nonexistent object: reject like the
+            # reference (-ENOENT) — a memory-only watch would lose
+            # exactly the failover guarantee the record provides
+            if msg.op == OSD_OP_WATCH:
+                with self._watch_lock:
+                    ws = self._watchers.get(key, {})
+                    ws.pop(msg.offset, None)
+                    if not ws:
+                        self._watchers.pop(key, None)
+                raise StoreError(
+                    f"no object {msg.oid} to watch (-ENOENT)"
+                )
+            return
+        epoch = self.monc.epoch
+        if msg.op == OSD_OP_WATCH and not have:
+            txn = Transaction().touch(pg.cid, store_oid)
+            txn.setattr(pg.cid, store_oid, attr, b"1")
+        elif msg.op == OSD_OP_UNWATCH and have:
+            txn = Transaction().touch(pg.cid, store_oid)
+            txn.rmattr(pg.cid, store_oid, attr)
+        else:
+            return  # re-register / already gone: record is current
+        try:
+            self._commit_internal(pg, epoch, msg.oid, txn)
+        except StoreError:
+            pass  # record update retries on the client's next linger
+
+    def _persisted_watchers(self, pg: PG, oid: str) -> set[int]:
+        try:
+            return {
+                int(a[len(self.WATCH_ATTR):])
+                for a in self.store.list_attrs(
+                    pg.cid, OBJ_PREFIX + oid
+                )
+                if a.startswith(self.WATCH_ATTR)
+            }
+        except (StoreError, ValueError):
+            return set()
+
+    def _notify_watchers(
+        self, pg: PG, oid: str, payload: bytes, timeout: float = 2.0
+    ) -> list[dict]:
+        """Fan a notify to every watcher and gather acks (Notify's
+        completion gathering with a timeout for dead watchers).
+
+        The watcher set is the union of live connections and the
+        PERSISTED records in object metadata: after a primary
+        failover the new primary has records but no connections yet —
+        a notify posted in that window waits for the watchers'
+        lingers to re-attach (instead of being silently lost) and
+        delivers within the timeout."""
+        key = (pg.pgid, oid)
+        want = set(self._persisted_watchers(pg, oid))
+        with self._watch_lock:
+            want |= set(self._watchers.get(key, {}))
+        # a blocklisted client's watches are dead to the cluster: its
+        # persisted records neither receive notifies nor hold up the
+        # ack gather (Watch::is_discardable via is_blocklisted)
+        osdmap = self.monc.osdmap
+        if osdmap is not None and osdmap.blocklist:
+            want = {
+                c for c in want
+                if not osdmap.is_blocklisted(f"{c >> 16:012x}")
+            }
+        if not want:
+            return []
+        notify_id = next(self._notify_seq)
+        state = {
+            "want": set(want),
+            "acks": {},
+            "event": threading.Event(),
+        }
+        self._notify_pending[notify_id] = state
+        sent: set[int] = set()
+        deadline = time.monotonic() + max(timeout, 0.0)
+        while True:
+            with self._watch_lock:
+                connected = dict(self._watchers.get(key, {}))
+            for cookie in state["want"] - sent:
+                conn = connected.get(cookie)
+                if conn is None:
+                    continue  # awaiting the linger re-attach
+                sent.add(cookie)
+                try:
+                    conn.send(
+                        MWatchNotify(
+                            tid=self.messenger.new_tid(),
+                            oid=oid, notify_id=notify_id,
+                            cookie=cookie, payload=payload,
+                        )
+                    )
+                except (MessageError, OSError):
+                    # re-send when the linger re-attaches this cookie
+                    sent.discard(cookie)
+                    with self._watch_lock:
+                        self._watchers.get(key, {}).pop(cookie, None)
+            if set(state["acks"]) >= state["want"]:
+                break
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            state["event"].wait(min(remaining, 0.1))
+        self._notify_pending.pop(notify_id, None)
+        return [
+            {
+                "cookie": cookie,
+                "acked": cookie in state["acks"],
+                "reply": state["acks"].get(cookie, b"").decode(
+                    "latin-1"
+                ),
+            }
+            for cookie in sorted(state["want"])
+        ]
+
+    def _handle_notify_ack(self, msg: MWatchNotifyAck) -> None:
+        state = self._notify_pending.get(msg.notify_id)
+        if state is None:
+            return
+        state["acks"][msg.cookie] = msg.reply
+        if set(state["acks"]) >= state["want"]:
+            state["event"].set()
+
+    def _cls_ctx(self, pg: PG, store_oid: str) -> MethodContext:
+        exists = self.store.exists(pg.cid, store_oid)
+        attrs = {}
+        if exists:
+            attrs = {
+                k[2:]: v
+                for k, v in self.store.list_attrs(
+                    pg.cid, store_oid
+                ).items()
+                if k.startswith("c_")
+            }
+        omap_fn = lambda: self._omap_of(pg, store_oid)  # noqa: E731
+        if self._is_ec(pg):
+            # class attrs and omap replicate on every shard, so the
+            # local reads stand; the DATA read decodes across shards
+            ecs = self._ec_store_for(pg)
+            return MethodContext(
+                read_fn=lambda: ecs.get(store_oid),
+                attrs=attrs,
+                exists=exists,
+                omap_fn=omap_fn,
+            )
+        return MethodContext(
+            read_fn=lambda: self.store.read(pg.cid, store_oid),
+            attrs=attrs,
+            exists=exists,
+            omap_fn=omap_fn,
+        )
+
+    def _mutate(
+        self,
+        pg: PG,
+        epoch: int,
+        msg: MOSDOp,
+        store_oid: str,
+        pre_encoded=None,
+    ):
+        """Append a log entry + apply data in ONE transaction, fan the
+        same transaction to the acting peers (issue_repop).  Raises
+        StoreError to surface op errors; replica failures surface as
+        -EAGAIN so the client retries after the interval changes.
+        ``pre_encoded`` is a coalesced-dispatch (shards, meta) pair
+        for this op's payload (EC WRITEFULL only)."""
+        if self._is_ec(pg):
+            return self._mutate_ec(
+                pg, epoch, msg, store_oid, pre_encoded=pre_encoded
+            )
+        if msg.reqid and msg.reqid in pg.reqid_cache:
+            # retried op already applied (osd_reqid_t dedup; the cache
+            # outlives log trimming, like the log's dups) — replay the
+            # original outdata so retried CALLs keep their result
+            return pg.reqid_cache[msg.reqid][1]
+        existed = self.store.exists(pg.cid, store_oid)
+        if msg.op == OSD_OP_DELETE and not existed:
+            # only the SAME client op retried is idempotent; a fresh
+            # delete of a missing object is -ENOENT (rados semantics)
+            raise StoreError(f"no object {msg.oid} (-ENOENT)")
+        # snap context: preserve the pre-mutation head if the pool has
+        # a snap this object has not been cloned for (make_writeable)
+        self._maybe_clone(
+            pg, epoch, msg.oid, existed, msg.snap_seq
+        )
+        ctx = None
+        outdata = b""
+        if msg.op == OSD_OP_CALL:
+            # run the stored procedure BEFORE any state advances: a
+            # method failure must leave no trace (no seq bump, no log
+            # entry, no transaction)
+            cls_name, _, method = msg.attr.partition(".")
+            ctx = self._cls_ctx(pg, store_oid)
+            outdata = self._cls_call(cls_name, method, ctx, msg.data)
+        pg.seq += 1
+        version = (epoch, pg.seq)
+        op = DELETE if (
+            msg.op == OSD_OP_DELETE
+        ) else MODIFY
+        prior = pg.log.object_op(msg.oid)
+        entry = LogEntry(
+            op=op, oid=msg.oid, version=version, reqid=msg.reqid,
+            # the OBJECT's previous version: EV_ZERO means it did not
+            # exist before this op (drives divergent rollback); if the
+            # log no longer says, (1, 0) marks "existed, version
+            # unknown" — still nonzero, still rolls back via re-pull
+            prior_version=(
+                prior.version if prior is not None
+                else ((1, 0) if existed else EV_ZERO)
+            ),
+        )
+        txn = Transaction()
+        if msg.op == OSD_OP_WRITEFULL:
+            if existed:
+                txn.remove(pg.cid, store_oid)
+            txn.touch(pg.cid, store_oid)
+            if msg.data:
+                txn.write(pg.cid, store_oid, 0, msg.data)
+        elif msg.op == OSD_OP_WRITE:
+            txn.write(pg.cid, store_oid, msg.offset, msg.data)
+        elif msg.op == OSD_OP_APPEND:
+            # offset resolved HERE, inside the primary's per-PG op
+            # stream — that is what makes append atomic
+            size = self.store.stat(pg.cid, store_oid) if existed else 0
+            if not existed:
+                txn.touch(pg.cid, store_oid)
+            txn.write(pg.cid, store_oid, size, msg.data)
+        elif msg.op == OSD_OP_SETXATTR:
+            txn.touch(pg.cid, store_oid)
+            txn.setattr(pg.cid, store_oid, "u_" + msg.attr, msg.data)
+        elif msg.op == OSD_OP_OMAPSET:
+            kv = Decoder(msg.data).map(
+                lambda d: d.string(), lambda d: d.bytes()
+            )
+            txn.touch(pg.cid, store_oid)
+            txn.omap_setkeys(pg.cid, store_oid, kv)
+        elif msg.op == OSD_OP_OMAPRM:
+            keys = Decoder(msg.data).list(lambda d: d.string())
+            txn.touch(pg.cid, store_oid)
+            txn.omap_rmkeys(pg.cid, store_oid, keys)
+        elif msg.op == OSD_OP_OMAPCLEAR:
+            txn.touch(pg.cid, store_oid)
+            txn.omap_clear(pg.cid, store_oid)
+        elif msg.op == OSD_OP_CALL:
+            # fold the staged mutations into THIS logged, replicated
+            # transaction (do_osd_ops CEPH_OSD_OP_CALL)
+            if ctx.removed:
+                if existed:
+                    txn.remove(pg.cid, store_oid)
+            else:
+                surviving: dict[str, bytes] = {}
+                surviving_omap: dict[str, bytes] = {}
+                if ctx.new_data is not None:
+                    if existed:
+                        # a rewrite must not destroy the object's
+                        # OTHER attrs or its omap —
+                        # cls_cxx_write_full keeps them
+                        surviving = self.store.list_attrs(
+                            pg.cid, store_oid
+                        )
+                        surviving_omap = self._omap_of(pg, store_oid)
+                        txn.remove(pg.cid, store_oid)
+                    txn.touch(pg.cid, store_oid)
+                    if ctx.new_data:
+                        txn.write(pg.cid, store_oid, 0, ctx.new_data)
+                else:
+                    # idempotent: the same txn must apply on a lagging
+                    # replica that does not hold the object yet
+                    txn.touch(pg.cid, store_oid)
+                for k, v in surviving.items():
+                    if not (
+                        k.startswith("c_") and k[2:] in ctx.new_attrs
+                    ):
+                        txn.setattr(pg.cid, store_oid, k, v)
+                if surviving_omap:
+                    txn.omap_setkeys(
+                        pg.cid, store_oid, surviving_omap
+                    )
+                for k, v in ctx.new_attrs.items():
+                    txn.setattr(pg.cid, store_oid, "c_" + k, v)
+                if ctx.rm_omap:
+                    txn.omap_rmkeys(
+                        pg.cid, store_oid, sorted(ctx.rm_omap)
+                    )
+                if ctx.new_omap:
+                    txn.omap_setkeys(pg.cid, store_oid, ctx.new_omap)
+        elif msg.op == OSD_OP_DELETE:
+            txn.remove(pg.cid, store_oid)
+        if (
+            not existed
+            and msg.op != OSD_OP_DELETE
+            and not (ctx is not None and ctx.removed)
+        ):
+            # birth stamp: reads at snaps older than creation resolve
+            # to -ENOENT (the clone/head born-before-snap check)
+            pool = self._pool_of(pg)
+            txn.setattr(
+                pg.cid, store_oid, BORN_ATTR,
+                str(pool.snap_seq if pool else 0).encode(),
+            )
+        tpool = self._pool_of(pg)
+        if (
+            tpool is not None
+            and tpool.tier_of >= 0
+            and tpool.cache_mode == "writeback"
+            and msg.op != OSD_OP_DELETE
+            and not (ctx is not None and ctx.removed)
+            and not msg.reqid.startswith("tier-")
+        ):
+            # writeback bookkeeping (maybe_handle_cache_detail's
+            # dirty tracking): the agent flushes b"1" objects to the
+            # base pool; internal tier- ops (promotions) stay clean
+            txn.setattr(pg.cid, store_oid, TIER_DIRTY, b"1")
+        txn_by_osd = {
+            osd: txn
+            for osd in pg.acting
+            if osd != CRUSH_ITEM_NONE
+        }
+        out = self._commit_and_replicate(
+            pg, epoch, msg, entry, txn_by_osd, outdata
+        )
+        if msg.op == OSD_OP_WRITEFULL:
+            # the committed payload IS the object's full content:
+            # register it device-resident so a deep scrub digests it
+            # without a second host→device upload (ops/residency.py;
+            # any later txn on the object invalidates by generation)
+            from ..ops.residency import residency_cache
+
+            residency_cache().put_committed(
+                self.store, pg.cid, store_oid, data=msg.data,
+                device=self.device,
+            )
+        if ctx is not None:
+            for payload in ctx.notifies:
+                # post-commit, fire-and-forget (cls_cxx_notify)
+                self._notify_watchers(pg, msg.oid, payload, timeout=0)
+        return out
+
+    def _commit_and_replicate(
+        self,
+        pg: PG,
+        epoch: int,
+        msg: MOSDOp,
+        entry: LogEntry,
+        txn_by_osd: dict[int, "Transaction"],
+        outdata: bytes,
+    ):
+        """Shared commit tail for both backends (issue_repop): stamp
+        the log entry + advanced info into every transaction, apply
+        our own with rollback-on-failure, dedup-cache, fan the rest
+        out as MOSDRepOp, and surface live replica failures as
+        -EAGAIN.  Replicated pools pass ONE shared Transaction for all
+        targets; erasure pools pass a distinct per-position one."""
+        version = entry.version
+        # advance pg.info inside the txn, but only adopt it in memory
+        # once the local apply succeeded — a failed transaction must
+        # not leave a phantom entry in the in-memory log
+        saved_last = pg.info.last_update
+        pg.info.last_update = version
+        for txn in {id(t): t for t in txn_by_osd.values()}.values():
+            self._persist_entry(pg, entry, txn)
+            self._persist_info(pg, txn)
+        commit_t0 = time.perf_counter()
+        try:
+            self.store.queue_transaction(txn_by_osd[self.whoami])
+        except StoreError:
+            pg.info.last_update = saved_last
+            pg.seq -= 1
+            raise
+        # commit latency × request size into the per-OSD grid (the
+        # PerfHistogram seat `ceph tell osd.N perf histogram dump`
+        # serves) and the 1D histogram `ceph osd perf` windows
+        commit_lat = time.perf_counter() - commit_t0
+        txn_bytes = sum(
+            len(op[4])
+            for op in txn_by_osd[self.whoami].ops
+            if op[0] == "write"
+        )
+        self._commit_grid.add(commit_lat, float(max(txn_bytes, 1)))
+        self._commit_hist.add(commit_lat)
+        pg.log.append(entry)
+        if msg.reqid:
+            pg.reqid_cache[msg.reqid] = (version, outdata)
+            while len(pg.reqid_cache) > 4 * self.log_keep:
+                pg.reqid_cache.pop(next(iter(pg.reqid_cache)))
+        entry_blob = _encode_entry(entry)
+        failed: list[int] = []
+        for osd, txn in txn_by_osd.items():
+            if osd == self.whoami:
+                continue
+            if self._cur_op is not None:
+                self._cur_op.mark_event(f"sub_op_sent osd.{osd}")
+            tracing.current_span().mark_event(
+                f"sub_op_sent osd.{osd}"
+            )
+            try:
+                ack = self._peer_conn(osd).call(
+                    MOSDRepOp(
+                        pgid=pg.pgid, epoch=epoch, txn=txn,
+                        entry_blob=entry_blob, trace=msg.reqid,
+                    ),
+                    timeout=self.repop_timeout,
+                )
+                if isinstance(ack, MOSDRepOpReply) and not ack.ok:
+                    failed.append(osd)
+                else:
+                    if self._cur_op is not None:
+                        self._cur_op.mark_event(
+                            f"sub_op_commit_rec osd.{osd}"
+                        )
+                    tracing.current_span().mark_event(
+                        f"sub_op_commit_rec osd.{osd}"
+                    )
+            except (MessageError, OSError):
+                failed.append(osd)
+        live_failures = [
+            osd for osd in failed if self.monc.osdmap.is_up(osd)
+        ]
+        if live_failures:
+            pg.repop_clean = False
+            # an up replica missed the write: re-peer to push it, and
+            # make the client retry rather than acking a write that is
+            # not on the full acting set (the reference blocks the op
+            # until every acting replica commits).  Clearing the
+            # peered interval defeats the unchanged-interval skip so
+            # the walk really re-peers (a lost fire-and-forget
+            # activation would otherwise NAK forever).
+            pg.peered_interval = None
+            self._workq.put(("map", epoch))
+            raise StoreError(
+                f"replicas {live_failures} missed the write (-EAGAIN)"
+            )
+        self._maybe_trim(pg)
+        return outdata
+
+    def _mutate_ec(
+        self,
+        pg: PG,
+        epoch: int,
+        msg: MOSDOp,
+        store_oid: str,
+        pre_encoded=None,
+    ):
+        """Erasure-pool mutation: encode the new logical object and fan
+        one per-position transaction (shard + HashInfo + log entry +
+        info) down the same MOSDRepOp path replicated pools use
+        (ECBackend::submit_transaction under PrimaryLogPG,
+        ECBackend.cc:1502).  Partial writes and appends go through the
+        stripe-granular RMW pipeline (ec_pg.rmw_write_txns wrapping
+        the shared ec/stripe.rmw_encode plan): only the covered
+        stripe range is read/encoded/shipped, gated on pg.repop_clean
+        so a range write can never land on a replica whose shard may
+        be stale."""
+        if msg.reqid and msg.reqid in pg.reqid_cache:
+            return pg.reqid_cache[msg.reqid][1]
+        osdmap = self.monc.osdmap
+        pool = self._pool_of(pg)
+        codec = self._ec_codec(pg)
+        ecs = self._ec_store_for(pg)
+        present = [
+            (pos, osd)
+            for pos, osd in enumerate(pg.acting)
+            if osd != CRUSH_ITEM_NONE
+            and (osd == self.whoami or osdmap.is_up(osd))
+        ]
+        if len(present) < max(codec.k, pool.min_size):
+            # the reference refuses writes below min_size (undersized)
+            raise StoreError(
+                f"pg {pg.pgid} undersized: {len(present)} shards < "
+                f"min_size {max(codec.k, pool.min_size)} (-EAGAIN)"
+            )
+        try:
+            old_meta = ecs.meta(store_oid)
+        except ErasureCodeError:
+            old_meta = None
+        existed = old_meta is not None
+        if msg.op == OSD_OP_DELETE and not existed:
+            raise StoreError(f"no object {msg.oid} (-ENOENT)")
+        # snap context (make_writeable): the clone op copies each
+        # position's LOCAL shard, so one logged txn preserves the
+        # erasure-coded head too
+        self._maybe_clone(
+            pg, epoch, msg.oid, existed, msg.snap_seq
+        )
+        ctx = None
+        outdata = b""
+        if msg.op == OSD_OP_CALL:
+            # method runs BEFORE any state advances (failure must
+            # leave no trace), same contract as the replicated path
+            cls_name, _, method = msg.attr.partition(".")
+            ctx = self._cls_ctx(pg, store_oid)
+            outdata = self._cls_call(cls_name, method, ctx, msg.data)
+
+        def read_old() -> bytes:
+            try:
+                return ecs.get(store_oid) if existed else b""
+            except ErasureCodeError as e:
+                raise StoreError(str(e))
+
+        txns: dict[int, Transaction] = {}
+        my_shard: list = []  # [bytes] when a full encode ran
+
+        def encode_all(new_data: bytes, extra_attrs=None) -> None:
+            if (
+                pre_encoded is not None
+                and msg.op == OSD_OP_WRITEFULL
+                and new_data is msg.data
+            ):
+                # coalesced dispatch already encoded this payload
+                # (byte-identical to encode_object; tests prove it)
+                shards, meta = pre_encoded
+            else:
+                shards, meta = codec.encode_object(new_data)
+            for pos, _osd in present:
+                txns[pos] = shard_write_txn(
+                    pg.cid, store_oid, shards[pos], meta, extra_attrs
+                )
+                if _osd == self.whoami:
+                    my_shard[:] = [shards[pos]]
+
+        def remove_all() -> None:
+            for pos, _osd in present:
+                # touch-then-remove applies cleanly whether or not the
+                # replica holds the object (a lagging shard must still
+                # accept the logged removal)
+                txns[pos] = (
+                    Transaction()
+                    .touch(pg.cid, store_oid)
+                    .remove(pg.cid, store_oid)
+                )
+
+        if msg.op == OSD_OP_WRITEFULL:
+            encode_all(msg.data)
+        elif msg.op in (OSD_OP_WRITE, OSD_OP_APPEND):
+            old_size = old_meta["size"] if existed else 0
+            # append IS a write at old_size — one branch, one gate
+            offset = (
+                old_size if msg.op == OSD_OP_APPEND else msg.offset
+            )
+            end = offset + len(msg.data)
+            partial = existed and (offset > 0 or end < old_size)
+            if (
+                partial
+                and offset <= old_size
+                and msg.data
+                and pg.repop_clean
+            ):
+                # stripe-granular RMW (ECBackend.cc:1858): only the
+                # covered stripe range is read/encoded/shipped, not
+                # the whole object
+                txns.update(
+                    rmw_write_txns(
+                        codec, ecs, pg.cid, store_oid,
+                        offset, msg.data,
+                        [pos for pos, _osd in present],
+                        old_size,
+                    )
+                )
+            else:
+                old = read_old()
+                buf = bytearray(max(len(old), end))
+                buf[: len(old)] = old
+                buf[offset:end] = msg.data
+                encode_all(bytes(buf))
+        elif msg.op == OSD_OP_SETXATTR:
+            if existed:
+                # touch first: the txn must apply unconditionally on a
+                # lagging shard that does not hold the object yet
+                for pos, _osd in present:
+                    txns[pos] = (
+                        Transaction()
+                        .touch(pg.cid, store_oid)
+                        .setattr(
+                            pg.cid, store_oid, "u_" + msg.attr,
+                            msg.data,
+                        )
+                    )
+            else:
+                encode_all(b"", {"u_" + msg.attr: msg.data})
+        elif msg.op == OSD_OP_DELETE:
+            remove_all()
+        elif msg.op in (OSD_OP_OMAPSET, OSD_OP_OMAPRM, OSD_OP_OMAPCLEAR):
+            # omap replicates identically on every shard (attr-like);
+            # an omap write on a fresh object first creates the empty
+            # encoded object so meta/stat stay coherent
+            if not existed:
+                if msg.op != OSD_OP_OMAPSET:
+                    raise StoreError(f"no object {msg.oid} (-ENOENT)")
+                encode_all(b"")
+            for pos, _osd in present:
+                txn = txns.setdefault(
+                    pos, Transaction().touch(pg.cid, store_oid)
+                )
+                if msg.op == OSD_OP_OMAPSET:
+                    kv = Decoder(msg.data).map(
+                        lambda d: d.string(), lambda d: d.bytes()
+                    )
+                    txn.omap_setkeys(pg.cid, store_oid, kv)
+                elif msg.op == OSD_OP_OMAPRM:
+                    keys = Decoder(msg.data).list(lambda d: d.string())
+                    txn.omap_rmkeys(pg.cid, store_oid, keys)
+                else:
+                    txn.omap_clear(pg.cid, store_oid)
+        elif msg.op == OSD_OP_CALL:
+            if ctx.removed:
+                if existed:
+                    remove_all()
+            else:
+                new_attrs = {
+                    "c_" + k: v for k, v in ctx.new_attrs.items()
+                }
+                if ctx.new_data is not None:
+                    # shard rewrites truncate in place, so the object's
+                    # other attrs and omap survive (cls_cxx_write_full
+                    # keeps them)
+                    encode_all(ctx.new_data, new_attrs)
+                elif new_attrs and existed:
+                    for pos, _osd in present:
+                        txn = Transaction().touch(pg.cid, store_oid)
+                        for k, v in new_attrs.items():
+                            txn.setattr(pg.cid, store_oid, k, v)
+                        txns[pos] = txn
+                elif not existed:
+                    encode_all(b"", new_attrs)
+                if ctx.rm_omap or ctx.new_omap:
+                    for pos, _osd in present:
+                        txn = txns.setdefault(
+                            pos,
+                            Transaction().touch(pg.cid, store_oid),
+                        )
+                        if ctx.rm_omap:
+                            txn.omap_rmkeys(
+                                pg.cid, store_oid, sorted(ctx.rm_omap)
+                            )
+                        if ctx.new_omap:
+                            txn.omap_setkeys(
+                                pg.cid, store_oid, ctx.new_omap
+                            )
+        else:
+            raise StoreError(f"op {msg.op} unsupported on EC (-EOPNOTSUPP)")
+        if (
+            not existed
+            and msg.op != OSD_OP_DELETE
+            and not (ctx is not None and ctx.removed)
+        ):
+            born = str(pool.snap_seq if pool else 0).encode()
+            for pos, _osd in present:
+                txn = txns.setdefault(
+                    pos, Transaction().touch(pg.cid, store_oid)
+                )
+                txn.setattr(pg.cid, store_oid, BORN_ATTR, born)
+
+        pg.seq += 1
+        version = (epoch, pg.seq)
+        op = DELETE if msg.op == OSD_OP_DELETE else MODIFY
+        prior = pg.log.object_op(msg.oid)
+        entry = LogEntry(
+            op=op, oid=msg.oid, version=version, reqid=msg.reqid,
+            prior_version=(
+                prior.version if prior is not None
+                else ((1, 0) if existed else EV_ZERO)
+            ),
+        )
+        txn_by_osd = {
+            osd: txns.setdefault(pos, Transaction())
+            for pos, osd in present
+        }
+        out = self._commit_and_replicate(
+            pg, epoch, msg, entry, txn_by_osd, outdata
+        )
+        if my_shard:
+            # our position's freshly committed shard stays resident:
+            # the deep-scrub crc32c and the re-encode verify of this
+            # object consume it without re-paying the link
+            # (generation-invalidated by any later txn)
+            from ..ops.residency import residency_cache
+
+            residency_cache().put_committed(
+                self.store, pg.cid, store_oid, data=my_shard[0],
+                device=self.device,
+            )
+        if ctx is not None:
+            for payload in ctx.notifies:
+                self._notify_watchers(pg, msg.oid, payload, timeout=0)
+        return out
+
+    def _maybe_trim(self, pg: PG) -> None:
+        """Bound the pg log (PGLog::trim), removing the trimmed
+        entries' persisted objects and recording the new tail."""
+        if len(pg.log.entries) <= self.log_keep:
+            return
+        cut = pg.log.entries[: len(pg.log.entries) - self.log_keep]
+        pg.log.trim(self.log_keep)
+        pg.info.log_tail = pg.log.log_tail
+        txn = Transaction()
+        for entry in cut:
+            txn.remove(pg.cid, _log_oid(entry.version))
+        self._persist_info(pg, txn)
+        try:
+            self.store.queue_transaction(txn)
+        except StoreError:
+            pass
+
+    # -- replica-side inline handlers --------------------------------------
+    def _handle_rep_op(self, conn: Connection, msg: MOSDRepOp) -> None:
+        pg = self.pgs.get(msg.pgid)
+        reply = MOSDRepOpReply(tid=msg.tid, from_osd=self.whoami)
+        top = self.op_tracker.create_op(
+            f"rep_op({msg.trace} {msg.pgid})", trace=msg.trace
+        )
+        span = self.tracer.start_span(
+            "rep_op",
+            trace_id=msg.trace or "",
+            role=tracing.ROLE_REPLICA,
+            tags={"pgid": msg.pgid},
+        )
+        if pg is None or pg.activated_epoch == 0:
+            # an unactivated replica must not splice mid-stream
+            # entries into an empty log (its hole-filled log could
+            # later win find_best_info's tie-break)
+            reply.ok = False
+            reply.error = "pg not activated (-EAGAIN)"
+            top.mark_event("rejected: pg not activated")
+            top.finish()
+            span.mark_event("rejected: pg not activated")
+            span.finish()
+            conn.send(reply)
+            return
+        try:
+            self.store.queue_transaction(msg.txn)
+            entry = _decode_entry(msg.entry_blob)
+            if entry.version > pg.log.head:
+                pg.log.append(entry)
+            pg.info.last_update = pg.log.head
+            pg.seq = max(pg.seq, entry.version[1])
+            # replicas bound their logs too (the primary's trim txn is
+            # local; unbounded replica logs would grow forever)
+            self._maybe_trim(pg)
+        except StoreError as e:
+            reply.ok = False
+            reply.error = str(e)
+        top.mark_event("applied" if reply.ok else "failed")
+        top.finish()
+        span.mark_event("applied" if reply.ok else "failed")
+        span.finish()
+        conn.send(reply)
+
+    def _handle_query(self, conn: Connection, msg: MPGQuery) -> None:
+        pg = self.pgs.get(msg.pgid)
+        notify = MPGNotify(tid=msg.tid, from_osd=self.whoami)
+        if pg is not None:
+            notify.info_blob = _encode_info(pg.info)
+            # recent suffix so the primary can locate the divergence
+            # point (proc_replica_log input)
+            notify.entry_blobs = [
+                _encode_entry(e) for e in pg.log.entries[-64:]
+            ]
+        conn.send(notify)
+
+    def _handle_log_req(self, conn: Connection, msg: MPGLogReq) -> None:
+        pg = self.pgs.get(msg.pgid)
+        reply = MPGLogReply(tid=msg.tid, from_osd=self.whoami)
+        if pg is not None:
+            reply.info_blob = _encode_info(pg.info)
+            since = max(msg.since, pg.log.log_tail)
+            reply.entry_blobs = [
+                _encode_entry(e) for e in pg.log.entries_after(since)
+            ]
+        conn.send(reply)
+
+    def _handle_pull(self, conn: Connection, msg: MPGPull) -> None:
+        pg = self.pgs.get(msg.pgid)
+        if pg is None:
+            push = MPGPush(
+                tid=msg.tid, pgid=msg.pgid, oid=msg.oid, exists=False
+            )
+        elif msg.shard >= 0:
+            # erasure pull: reconstruct the requester's shard (runs on
+            # the worker — the gather is nested sub-op RPC)
+            try:
+                push = self._ec_push_for(
+                    pg, msg.epoch, msg.oid, msg.shard
+                )
+            except (StoreError, ErasureCodeError, MessageError, OSError):
+                push = MPGPush(
+                    tid=msg.tid, pgid=msg.pgid, oid=msg.oid,
+                    exists=False,
+                )
+            push.tid = msg.tid
+        elif self._is_ec(pg):
+            # whole-object pulls are meaningless on an erasure pool
+            push = MPGPush(
+                tid=msg.tid, pgid=msg.pgid, oid=msg.oid, exists=False
+            )
+        else:
+            push = self._push_for(pg, msg.epoch, msg.oid)
+            push.tid = msg.tid
+            if not self.store.exists(pg.cid, OBJ_PREFIX + msg.oid):
+                push.exists = False
+        conn.send(push)
+
+    def _get_or_create_pg(self, pgid: str) -> PG:
+        with self._pg_lock:
+            pg = self.pgs.get(pgid)
+            if pg is None:
+                pg = PG(pgid, int(pgid.split(".")[0]))
+                self._ensure_coll(pg)
+                self.pgs[pgid] = pg
+            return pg
+
+    def _handle_push(self, conn: Connection, msg: MPGPush) -> None:
+        """Recovery push: apply the object DATA only.  The log entry
+        deliberately does NOT splice in here — the authoritative
+        suffix arrives with MPGActivate, whose rewind point was
+        computed from this peer's pre-recovery log; appending pushed
+        entries early would make that rewind classify them as
+        divergent and roll back the objects just pushed."""
+        pg = self._get_or_create_pg(msg.pgid)
+        self._apply_push(pg, msg)
+        conn.send(MPGPushReply(tid=msg.tid, from_osd=self.whoami))
+
+    def _apply_activate(self, conn: Connection, msg: MPGActivate):
+        """Worker-side activation: rewind divergent entries (removing
+        their objects, re-pulling survivors from the primary over the
+        SAME connection), adopt the authoritative suffix, go active
+        (PGLog::rewind_divergent_log + merge_log).  Runs on the worker
+        because the re-pulls are nested RPC."""
+        pg = self._get_or_create_pg(msg.pgid)
+        if msg.epoch < pg.activated_epoch or (
+            pg.primary == self.whoami
+            and pg.state == "active"
+            and msg.epoch <= self.monc.epoch
+        ):
+            # stale activation (generation check): an older epoch is
+            # a dead interval's late send, and an ACTING PRIMARY
+            # never applies one from an epoch it has already seen —
+            # the failover storm exposed a dead primary's queued
+            # activation rewinding the NEW primary's freshly adopted
+            # log (same epoch, so the epoch test alone cannot catch
+            # it).  An activation from a FUTURE epoch still applies:
+            # it means our own primacy knowledge is the stale side
+            # (a newer interval's primary is activating us before
+            # our map walk caught up).  Ack and drop.
+            try:
+                conn.send(
+                    MPGPushReply(tid=msg.tid, from_osd=self.whoami)
+                )
+            except (MessageError, OSError):
+                pass
+            return
+        divergent = pg.log.truncate_after(msg.rewind_to)
+        # an entry the authoritative suffix carries too (same version,
+        # object and op) is not divergent: this replica already holds
+        # its object.  A second activation of one interval (the
+        # primary's tick re-peers from this replica's info before the
+        # first activation has landed, so both rewind to the same
+        # point) must not remove the objects the recovery pushed in
+        # between — an object born after the rewind point has no prior
+        # version and would never be pulled back
+        authoritative = {
+            (e.version, e.oid, e.op)
+            for e in map(_decode_entry, msg.entry_blobs)
+        }
+        repull: set[str] = set()
+        for entry in divergent:  # newest first
+            if (entry.version, entry.oid, entry.op) in authoritative:
+                continue
+            txn = Transaction()
+            store_oid = OBJ_PREFIX + entry.oid
+            if self.store.exists(pg.cid, store_oid):
+                txn.remove(pg.cid, store_oid)
+            txn.remove(pg.cid, _log_oid(entry.version))
+            try:
+                self.store.queue_transaction(txn)
+            except StoreError:
+                pass
+            if entry.prior_version != EV_ZERO:
+                # the object existed before the divergent op: its
+                # authoritative state must come back from the primary
+                repull.add(entry.oid)
+        shard = -1
+        if self._is_ec(pg):
+            # my acting position from the authoritative map (this PG
+            # may be freshly created here with no acting cached yet)
+            osdmap = self.monc.osdmap
+            ps = int(pg.pgid.split(".")[1])
+            acting = []
+            if osdmap is not None and pg.pool_id in osdmap.pools:
+                _u, _up, acting, _p = osdmap.pg_to_up_acting_osds(
+                    pg.pool_id, ps
+                )
+            if self.whoami in acting:
+                shard = acting.index(self.whoami)
+            else:
+                repull = set()  # stray shard: next peering re-places it
+        for oid in sorted(repull):
+            try:
+                # bounded: an activating primary that died right
+                # after sending must not wedge this worker for the
+                # full default call timeout PER OBJECT
+                reply = conn.call(
+                    MPGPull(
+                        pgid=pg.pgid, epoch=msg.epoch, oid=oid,
+                        shard=shard,
+                    ),
+                    timeout=self.repop_timeout,
+                )
+            except (MessageError, OSError):
+                # the primary is gone: every further pull on this
+                # conn eats another timeout — stop; the objects stay
+                # missing and the NEXT interval's primary pushes them
+                break
+            if isinstance(reply, MPGPush):
+                self._apply_push(pg, reply)
+        for blob in msg.entry_blobs:
+            entry = _decode_entry(blob)
+            if entry.version > pg.log.head:
+                pg.log.append(entry)
+                self._persist_entry(pg, entry)
+        pg.info = _decode_info(msg.info_blob)
+        pg.info.last_update = pg.log.head
+        # the primary encodes info_blob before bumping its own
+        # last_epoch_started; activation IS the epoch start, so stamp
+        # it here too or replicas carry a stale les forever and
+        # find_best_info's les-first ordering compares garbage
+        pg.info.last_epoch_started = max(
+            pg.info.last_epoch_started, msg.epoch
+        )
+        pg.seq = max(pg.seq, pg.info.last_update[1])
+        pg.state = "replica"
+        pg.activated_epoch = msg.epoch
+        # the adopted suffix counts against the log bound like any
+        # other appends (rep-ops trim; activation must too)
+        self._maybe_trim(pg)
+        self._persist_info(pg)
+        conn.send(MPGPushReply(tid=msg.tid, from_osd=self.whoami))
+
+    # -- dispatch ----------------------------------------------------------
+    def ms_dispatch(self, conn: Connection, msg: Message) -> bool:
+        if isinstance(msg, MOSDOp):
+            # nested RPC needed → worker queue (enqueue_op), as a
+            # weighted CLIENT-class item costed by payload size;
+            # admission-controlled by the client throttle
+            cost = len(msg.data) + 1024
+            if not self.client_throttle.get_or_fail(cost):
+                reply = MOSDOpReply(
+                    tid=msg.tid, ok=False,
+                    error="client throttle full (-EAGAIN)",
+                )
+                try:
+                    conn.send(reply)
+                except (MessageError, OSError):
+                    pass
+                return True
+            self._workq.enqueue(
+                self._qos_class_of(msg), cost, ("op", conn, msg, cost)
+            )
+            return True
+        if isinstance(msg, MOSDRepOp):
+            self._handle_rep_op(conn, msg)
+            return True
+        if isinstance(msg, MPGQuery):
+            self._handle_query(conn, msg)
+            return True
+        if isinstance(msg, MPGLogReq):
+            self._handle_log_req(conn, msg)
+            return True
+        if isinstance(msg, MPGPull):
+            if msg.shard >= 0:
+                # erasure reconstruct = nested sub-op RPC → worker
+                # recovery traffic shares by weight; strict-queueing
+                # it would starve queued client ops behind a
+                # sustained pull stream
+                self._workq.enqueue(
+                    CLASS_RECOVERY, 4096, ("pull", conn, msg)
+                )
+            else:
+                self._handle_pull(conn, msg)
+            return True
+        if isinstance(msg, (MECSubRead, MECSubWrite)):
+            # shard-side sub-op service (handle_sub_read/-write,
+            # ECBackend.cc:934,1010): pure store access, serve inline
+            return self._shard_server.ms_dispatch(conn, msg)
+        if isinstance(msg, MWatchNotifyAck):
+            self._handle_notify_ack(msg)
+            return True
+        if isinstance(msg, MPGPush):
+            self._handle_push(conn, msg)
+            return True
+        if isinstance(msg, MRecoveryReserve):
+            key = (msg.pgid, msg.from_osd)
+            if msg.op == "request":
+                now = time.monotonic()
+                with self._recovery_lock:
+                    for k, (t0, _c) in list(
+                        self._remote_reservations.items()
+                    ):
+                        if now - t0 > self.reservation_timeout:
+                            del self._remote_reservations[k]
+                    if (
+                        key in self._remote_reservations
+                        or len(self._remote_reservations)
+                        < self.max_backfills
+                    ):
+                        self._remote_reservations[key] = (now, conn)
+                        verdict = "grant"
+                    else:
+                        verdict = "deny"
+                try:
+                    conn.send(MRecoveryReserve(
+                        tid=msg.tid, op=verdict, pgid=msg.pgid,
+                        epoch=msg.epoch, from_osd=self.whoami,
+                    ))
+                except (MessageError, OSError):
+                    pass
+            elif msg.op == "release":
+                with self._recovery_lock:
+                    self._remote_reservations.pop(key, None)
+            return True
+        if isinstance(msg, MRepScrub):
+            if msg.op in ("reserve", "release"):
+                self._handle_rep_scrub(conn, msg)
+            else:
+                threading.Thread(
+                    target=self._handle_rep_scrub,
+                    args=(conn, msg),
+                    name=f"osd.{self.whoami}.scrubscan",
+                    daemon=True,
+                ).start()
+            return True
+        if isinstance(msg, MScrubCommand):
+            self._handle_scrub_command(conn, msg)
+            return True
+        if isinstance(msg, MCommand):
+            self._handle_tell(conn, msg)
+            return True
+        if isinstance(msg, MPGActivate):
+            # rollback may re-pull objects (nested RPC) → worker queue
+            self._workq.put(("activate", conn, msg))
+            return True
+        if isinstance(msg, MPing):
+            if msg.is_reply:
+                self.hb.handle_ping(msg.from_osd, time.monotonic())
+                if msg.from_osd in self._reported:
+                    self._reported.discard(msg.from_osd)
+                    try:
+                        self.monc.report_failure(msg.from_osd, -1.0)
+                    except (MessageError, OSError):
+                        pass
+            else:
+                conn.send(
+                    MPing(
+                        tid=msg.tid, from_osd=self.whoami,
+                        stamp=msg.stamp, is_reply=True,
+                    )
+                )
+            return True
+        return False
+
+    # -- backoff protocol + full-space degradation -------------------------
+    _READ_OPS = frozenset(
+        (
+            OSD_OP_READ, OSD_OP_STAT, OSD_OP_GETXATTR,
+            OSD_OP_OMAPGET, OSD_OP_LIST,
+        )
+    )
+
+    def _op_is_write(self, msg: MOSDOp) -> bool:
+        """True for ops that consume the mutation path (fullness
+        gates these; watch/notify bookkeeping and reads pass)."""
+        if msg.op in self._READ_OPS or msg.op in (
+            OSD_OP_WATCH, OSD_OP_UNWATCH, OSD_OP_NOTIFY,
+        ):
+            return False
+        if msg.op == OSD_OP_CALL:
+            cls_name, _, method = msg.attr.partition(".")
+            try:
+                return bool(
+                    self.class_handler.flags_of(cls_name, method)
+                    & CLS_WR
+                )
+            except Exception:  # noqa: BLE001 — unknown method: the
+                # op will fail anyway; classify conservatively
+                return True
+        return True
+
+    def statfs(self) -> dict:
+        """Store statfs, cached at ~tick granularity (the walk is
+        O(objects); the op path consults this per mutation)."""
+        now = time.monotonic()
+        cached = self._statfs_cache
+        if cached is not None and now - cached[0] < 0.5:
+            return cached[1]
+        stats = self.store.statfs()
+        self._statfs_cache = (now, stats)
+        return stats
+
+    def _check_full(self) -> bool:
+        stats = self.statfs()
+        total = stats["total"]
+        if total <= 0:
+            return False
+        ratio = (
+            self._mon_full_ratio
+            if self._mon_full_ratio is not None
+            else float(self.config.get("mon_osd_full_ratio"))
+        )
+        return stats["used"] / total >= ratio
+
+    def _send_block(
+        self, conn: Connection, msg: MOSDOp, pgid: str, reason: str
+    ) -> None:
+        """Answer the op with a tid-paired BLOCK backoff and record
+        it; the tick loop unblocks when the condition clears.  One
+        logical backoff per (conn, pgid): a parked client's bounded
+        re-probes re-use the existing id instead of growing the
+        registry for the life of the condition."""
+        with self._backoff_lock:
+            existing = next(
+                (
+                    b for b in self._backoffs.values()
+                    if b["conn"] is conn and b["pgid"] == pgid
+                ),
+                None,
+            )
+            if existing is not None:
+                existing["reason"] = reason
+                bid = existing["id"]
+            else:
+                bid = next(self._backoff_seq)
+                self._backoffs[bid] = {
+                    "id": bid,
+                    "pgid": pgid,
+                    "reason": reason,
+                    "conn": conn,
+                    "since": time.monotonic(),
+                }
+        try:
+            conn.send(
+                MOSDBackoff(
+                    tid=msg.tid, op=BACKOFF_OP_BLOCK, pgid=pgid,
+                    id=bid, reason=reason, epoch=self.monc.epoch,
+                )
+            )
+        except (MessageError, OSError):
+            with self._backoff_lock:
+                self._backoffs.pop(bid, None)
+
+    def _release_backoffs(self) -> None:
+        """Tick-driven unblock: a backoff whose condition cleared
+        (space freed, PG finished peering) releases the client's
+        parked ops; dead connections drop theirs."""
+        with self._backoff_lock:
+            snapshot = list(self._backoffs.values())
+        if not snapshot:
+            return
+        full = self._check_full()
+        for b in snapshot:
+            conn = b["conn"]
+            if getattr(conn, "is_closed", False):
+                with self._backoff_lock:
+                    self._backoffs.pop(b["id"], None)
+                continue
+            if b["reason"] == "full":
+                release = not full
+            else:  # peering
+                pg = self.pgs.get(b["pgid"])
+                release = (
+                    pg is None
+                    or pg.primary != self.whoami
+                    or pg.state == "active"
+                )
+            if not release:
+                continue
+            with self._backoff_lock:
+                self._backoffs.pop(b["id"], None)
+            try:
+                conn.send(
+                    MOSDBackoff(
+                        # even tid space: an accepting-side send must
+                        # never collide with the client's in-flight
+                        # odd call tids (it would be consumed as that
+                        # op's reply and the release lost)
+                        tid=self.messenger.new_even_tid(),
+                        op=BACKOFF_OP_UNBLOCK,
+                        pgid=b["pgid"], id=b["id"],
+                        reason=b["reason"], epoch=self.monc.epoch,
+                    )
+                )
+            except (MessageError, OSError):
+                pass  # the client's map-change fallback unparks it
+
+    def dump_backoffs(self) -> list[dict]:
+        now = time.monotonic()
+        with self._backoff_lock:
+            return [
+                {
+                    "id": b["id"],
+                    "pgid": b["pgid"],
+                    "reason": b["reason"],
+                    "age": round(now - b["since"], 3),
+                }
+                for b in self._backoffs.values()
+            ]
+
+    def _report_stats(self, now: float) -> None:
+        """Push kb/kb_used/kb_avail to the mon (~1 Hz) — the
+        osd_stat_t report feeding OSD_NEARFULL/OSD_FULL.  The command
+        round-trip runs OFF the tick thread (at most one in flight):
+        a partitioned mon must not stall the heartbeat path — ticks
+        blocked behind a 2s command timeout would make THIS OSD file
+        spurious failure reports for every reachable peer."""
+        if now - self._stat_report_last < self.stat_report_interval:
+            return
+        self._stat_report_last = now
+        stats = self.statfs()
+        self.perf.set("stat_bytes", stats["total"])
+        self.perf.set("stat_bytes_used", stats["used"])
+        self.perf.set("stat_bytes_avail", stats["avail"])
+        if self._stat_report_inflight:
+            return
+        self._stat_report_inflight = True
+        if self.shared_services:
+            # ride the shared offload pool: no short-lived thread per
+            # report at 100-daemon scale
+            self._stack().offload.submit(
+                lambda: self._send_stat_report(stats)
+            )
+        else:
+            threading.Thread(
+                target=self._send_stat_report,
+                args=(stats,),
+                name=f"osd.{self.whoami}.statrep",
+                daemon=True,
+            ).start()
+
+    def _commit_latency_ms(self) -> float:
+        """Mean commit latency since the last stat report (the
+        osd_stat_t commit_latency_ms seat `ceph osd perf` serves)."""
+        snap = self._commit_hist.snapshot()
+        psum, pcount = self._commit_last
+        dsum = snap["sum"] - psum
+        dcount = snap["count"] - pcount
+        self._commit_last = (snap["sum"], snap["count"])
+        return round(1000.0 * dsum / dcount, 3) if dcount > 0 else 0.0
+
+    def _send_stat_report(self, stats: dict) -> None:
+        try:
+            reply = self.monc.command(
+                {
+                    "prefix": "osd stat report",
+                    "osd": self.whoami,
+                    "kb": stats["total"] // 1024,
+                    "kb_used": stats["used"] // 1024,
+                    "kb_avail": stats["avail"] // 1024,
+                    # our store has no journal/apply split: apply
+                    # mirrors commit (documented deviation)
+                    "commit_latency_ms": self._commit_latency_ms(),
+                },
+                timeout=2.0,
+            )
+            if reply.rc == 0 and reply.outb:
+                ratio = json.loads(reply.outb).get("full_ratio")
+                if ratio is not None:
+                    self._mon_full_ratio = float(ratio)
+        except (MessageError, OSError, ValueError, TypeError):
+            pass  # the next tick's report retries
+        finally:
+            self._stat_report_inflight = False
+
+    def _dispatch_history(self, args: dict) -> dict:
+        """`dispatch history` (tell + admin socket): the raw
+        flight-recorder ring — process-global, like the kernel
+        counters it feeds."""
+        from ..ops.profiler import dispatch_profiler
+
+        try:
+            limit = int(args.get("limit", 0) or 0)
+        except (TypeError, ValueError):
+            limit = 0
+        return dispatch_profiler().history(
+            kind=str(args.get("kind", "") or "") or None,
+            limit=limit,
+        )
+
+    def _dispatch_summary(self, args: dict) -> dict:
+        """`dispatch summary` (tell + admin socket): per-kind
+        rollup with the derived time-split/occupancy/residency
+        ratios."""
+        from ..ops.profiler import dispatch_profiler
+
+        return dispatch_profiler().summary(
+            kind=str(args.get("kind", "") or "") or None
+        )
+
+    def _handle_tell(self, conn: Connection, msg: MCommand) -> None:
+        """`ceph tell osd.N ...` service (MCommand): the fault-plane
+        commands and dump_backoffs, answered inline."""
+        from ..msg.message import MMonCommandReply
+
+        reply = MMonCommandReply(tid=msg.tid)
+        try:
+            cmd = json.loads(msg.cmd)
+            prefix = str(cmd.get("prefix", ""))
+            if prefix.startswith("fault"):
+                op = prefix.split(" ", 1)[1] if " " in prefix else ""
+                args = {
+                    k: v for k, v in cmd.items() if k != "prefix"
+                }
+                args["op"] = op or args.get("op", "list")
+                reply.outb = json.dumps(
+                    self.messenger.faults.command(args)
+                )
+            elif prefix == "dump_backoffs":
+                reply.outb = json.dumps(self.dump_backoffs())
+            elif prefix == "perf dump":
+                from ..msg.stack import stack_perf_dump
+
+                dump = dict(self.perf.dump())
+                dump.update(self.messenger.faults.perf.dump())
+                dump.update(stack_perf_dump())
+                wal_perf = getattr(self.store, "wal_perf", None)
+                if wal_perf is not None:
+                    dump.update(wal_perf.dump())
+                reply.outb = json.dumps(dump)
+            elif prefix == "perf histogram dump":
+                # the `ceph daemonperf`/`perf histogram dump` tell
+                # surface: raw grids, not rollups — per-(qos, type)
+                # completion + per-stage gaps + the commit grid
+                out = self.op_tracker.dump_histograms()
+                out["osd"] = self.whoami
+                out["commit_latency_histogram"] = (
+                    self._commit_grid.dump()
+                )
+                reply.outb = json.dumps(out)
+            elif prefix == "dump_historic_slow_ops":
+                reply.outb = json.dumps(
+                    self.op_tracker.dump_historic_slow_ops(
+                        float(cmd.get("threshold", 0.0)),
+                        str(cmd.get("qos_class", "")),
+                    )
+                )
+            elif prefix == "dispatch history":
+                reply.outb = json.dumps(self._dispatch_history(cmd))
+            elif prefix == "dispatch summary":
+                reply.outb = json.dumps(self._dispatch_summary(cmd))
+            else:
+                reply.rc = -22
+                reply.outs = f"unknown tell command {prefix!r}"
+        except (ValueError, TypeError, KeyError) as e:
+            reply.rc = -22
+            reply.outs = f"{type(e).__name__}: {e}"
+        try:
+            conn.send(reply)
+        except (MessageError, OSError):
+            pass
+
+    # -- scrub plane (osd/scrub.py drives; these are the wire ends) --------
+    def _handle_rep_scrub(self, conn: Connection, msg: MRepScrub):
+        """Acting-set member side of one scrub round: reservation
+        verdicts answer inline; ``ls``/``scan`` are local store reads
+        plus one batched digest pass — they run on a side thread so a
+        long digest can stall neither the messenger loop (heartbeats)
+        nor the worker (whose own in-flight scrub may be waiting on
+        THIS osd, the classic cross-scrub deadlock)."""
+        reply = MScrubMap(
+            tid=msg.tid, pgid=msg.pgid, from_osd=self.whoami
+        )
+        pg = self.pgs.get(msg.pgid)
+        try:
+            if msg.op == "reserve":
+                reply.ok = self.scrubber.handle_reserve(
+                    msg.pgid, msg.from_osd
+                )
+            elif msg.op == "release":
+                self.scrubber.handle_release(msg.pgid, msg.from_osd)
+            elif pg is None:
+                reply.ok = False
+                reply.error = f"pg {msg.pgid} unknown here"
+            elif msg.op == "ls":
+                names = [
+                    o
+                    for o in self.store.list_objects(pg.cid)
+                    if o.startswith(OBJ_PREFIX)
+                ]
+                reply.map_json = json.dumps(sorted(names))
+            elif msg.op == "scan":
+                reply.map_json = json.dumps(
+                    build_scrub_map(
+                        self.store, pg.cid, msg.oids, msg.deep,
+                        with_hinfo=self._is_ec(pg), device=self.device,
+                    )
+                )
+            else:
+                reply.ok = False
+                reply.error = f"unknown scrub op {msg.op!r}"
+        except StoreError as e:
+            reply.ok = False
+            reply.error = str(e)
+        try:
+            conn.send(reply)
+        except (MessageError, OSError):
+            pass
+
+    def _handle_scrub_command(self, conn: Connection, msg: MScrubCommand):
+        """On-demand scrub plane (`ceph pg (deep-)scrub/repair`,
+        `rados list-inconsistent-obj`): the mon names this primary,
+        the client dispatches here.  Orders are acknowledged when
+        QUEUED (the reference's "instructing pg ..." contract);
+        list-inconsistent serves the persisted ScrubStore records."""
+        from ..msg.message import MMonCommandReply
+
+        reply = MMonCommandReply(tid=msg.tid)
+        pg = self.pgs.get(msg.pgid)
+        if (
+            pg is None
+            or pg.primary != self.whoami
+            or pg.state != "active"
+        ):
+            reply.rc = -11
+            reply.outs = f"not primary for pg {msg.pgid} (-EAGAIN)"
+        elif msg.op == "list-inconsistent-obj":
+            reply.outb = json.dumps(
+                {
+                    "epoch": self.monc.epoch,
+                    "inconsistents": ScrubStore.load(
+                        self.store, pg.cid
+                    ),
+                }
+            )
+        elif msg.op in ("scrub", "deep-scrub", "repair"):
+            self.scrubber.request(
+                msg.pgid,
+                deep=msg.op != "scrub",
+                repair=msg.op == "repair",
+            )
+            reply.outs = (
+                f"instructing pg {msg.pgid} on osd.{self.whoami} "
+                f"to {msg.op}"
+            )
+        else:
+            reply.rc = -22
+            reply.outs = f"unknown scrub command {msg.op!r}"
+        try:
+            conn.send(reply)
+        except (MessageError, OSError):
+            pass
+
+    def ms_handle_reset(self, conn: Connection) -> None:
+        """A dead client connection takes its watches with it
+        (watch_disconnect_t without the grace timer) — and a dead
+        PRIMARY connection returns its recovery reservation leases."""
+        with self._recovery_lock:
+            for k, (_t0, c) in list(
+                self._remote_reservations.items()
+            ):
+                if c is conn:
+                    del self._remote_reservations[k]
+        # a dead client takes its backoffs: nothing to unblock
+        with self._backoff_lock:
+            for bid, b in list(self._backoffs.items()):
+                if b["conn"] is conn:
+                    del self._backoffs[bid]
+        with self._watch_lock:
+            for key in list(self._watchers):
+                watchers = self._watchers[key]
+                for cookie, c in list(watchers.items()):
+                    if c is conn:
+                        del watchers[cookie]
+                if not watchers:
+                    del self._watchers[key]
+
+    # -- write coalescing (the batched encode dispatch) ----------------------
+    def _coalesce_op_items(self, item) -> list:
+        """After dequeuing an EC full-object write, drain up to
+        ``osd_tpu_batch_max - 1`` more CONSECUTIVE same-pool
+        WRITEFULLs from the SAME QoS class queue (the reference's
+        op-shard batching shape, OSDMapMapping.h:18's amortize-the-
+        setup lesson applied to the link): they ride one batched
+        encode dispatch while every op still dedups, commits,
+        replicates, traces, and replies individually, in queue order
+        — per-class QoS ordering is untouched because only the head
+        run of the class that was ALREADY being served drains."""
+        if self.osd_tpu_batch_max <= 1:
+            return []
+        msg = item[2]
+        if msg.op != OSD_OP_WRITEFULL or not msg.data:
+            return []
+        pg = self.pgs.get(msg.pgid)
+        if (
+            pg is None
+            or pg.primary != self.whoami
+            or pg.state != "active"
+            or not self._is_ec(pg)
+        ):
+            return []
+        klass = self._workq.last_class()
+        if not klass or klass == CLASS_STRICT:
+            return []
+        pool_prefix = msg.pgid.split(".", 1)[0] + "."
+
+        def matches(it) -> bool:
+            # cheap + lock-free: runs under the scheduler lock
+            return (
+                isinstance(it, tuple)
+                and len(it) == 4
+                and it[0] == "op"
+                and it[2].op == OSD_OP_WRITEFULL
+                and bool(it[2].data)
+                and it[2].pgid.startswith(pool_prefix)
+            )
+
+        return self._workq.drain_class(
+            klass, matches, self.osd_tpu_batch_max - 1
+        )
+
+    def _handle_op_batch(self, items: list) -> None:
+        """Serve a coalesced batch: ONE batched encode dispatch
+        (ECCodec.encode_object_batch → the pipelined device pass with
+        double-buffered transfers), then each op runs its normal
+        per-op path with its shards precomputed — dedup/snap/log/
+        replication/reply semantics unchanged, completions fan back
+        out per op in queue order."""
+        pre: dict[int, tuple] = {}
+        pg = self.pgs.get(items[0][2].pgid)
+        if pg is not None:
+            try:
+                codec = self._ec_codec(pg)
+                encs = codec.encode_object_batch(
+                    [it[2].data for it in items]
+                )
+                pre = {
+                    id(it[2]): enc for it, enc in zip(items, encs)
+                }
+            except BATCH_ERRORS:
+                # coalescing is an optimization: a batch-encode
+                # failure degrades every op to its own per-op encode,
+                # never drops it
+                pre = {}
+            except BaseException:
+                # a kernel or CUDA error is no batching failure: give
+                # back the drained ops' throttle tickets and let it
+                # reach the worker's crash report
+                for it in items:
+                    self.client_throttle.put(it[3])
+                raise
+        for it in items:
+            try:
+                self._handle_op(
+                    it[1], it[2], pre_encoded=pre.get(id(it[2]))
+                )
+            except Exception as e:  # noqa: BLE001 — one op's death
+                # must not drop the rest of the drained batch (their
+                # clients would never get a reply) nor leak their
+                # throttle tickets; capture it exactly like the
+                # worker loop's catch-all does
+                import traceback
+
+                traceback.print_exc()
+                crash_util.capture(
+                    f"osd.{self.whoami}",
+                    e,
+                    sink=self._pending_crashes,
+                    clog=self.clog,
+                    extra_meta={"work_item": "op(coalesced)"},
+                )
+            finally:
+                self.client_throttle.put(it[3])
+
+    # -- worker / ticker ---------------------------------------------------
+    def _work_loop(self) -> None:
+        while not self._stop.is_set():
+            item = self._workq.get()
+            if item is None:
+                return
+            self._process_work_item(item)
+
+    # -- shared-services drain (strand-kicked, no dedicated thread) --------
+    def _kick_workq(self) -> None:
+        with self._workq_kick_lock:
+            if self._workq_kicked:
+                return
+            self._workq_kicked = True
+        self._op_strand.submit(self._drain_workq)
+
+    def _drain_workq(self) -> None:
+        """Drain the op scheduler until empty on the offload strand —
+        serial per daemon (the exact single-worker-thread semantics),
+        but on a shared pool thread only while there is work."""
+        with self._workq_kick_lock:
+            self._workq_kicked = False
+        while not self._stop.is_set():
+            try:
+                item = self._workq.get(timeout=0)
+            except TimeoutError:
+                if self._workq.qlen() > 0:
+                    # heads exist but are rate-limited (mclock tags
+                    # not yet due): come back shortly instead of
+                    # parking a pool thread on the condvar
+                    self._stack().timers.after(0.01, self._kick_workq)
+                return
+            if item is None:
+                return  # draining for shutdown
+            self._process_work_item(item)
+
+    def _tick_safe(self) -> None:
+        if self._stop.is_set():
+            return
+        try:
+            self._tick()
+        except Exception as e:  # noqa: BLE001 — same containment as
+            # the dedicated tick thread: a tick crash is reportable,
+            # the timer keeps firing
+            crash_util.capture(
+                f"osd.{self.whoami}",
+                e,
+                sink=self._pending_crashes,
+                clog=self.clog,
+                extra_meta={"thread": "tick"},
+            )
+
+    def _mgr_report_safe(self) -> None:
+        if self._stop.is_set():
+            return
+        try:
+            self._report_to_mgr()
+        except Exception:  # noqa: BLE001 — reporting best-effort
+            pass
+
+    def _process_work_item(self, item) -> None:
+        kind = item[0]
+        try:
+            if kind == "map":
+                self._walk_pgs(item[1])
+            elif kind == "op":
+                extra = self._coalesce_op_items(item)
+                if extra:
+                    self._handle_op_batch([item] + extra)
+                else:
+                    try:
+                        self._handle_op(item[1], item[2])
+                    finally:
+                        self.client_throttle.put(item[3])
+            elif kind == "activate":
+                self._apply_activate(item[1], item[2])
+            elif kind == "pull":
+                self._handle_pull(item[1], item[2])
+            elif kind == "recover_push":
+                extra = self._coalesce_recovery_items(item)
+                if extra:
+                    self._do_recover_push_batch([item] + extra)
+                else:
+                    self._do_recover_push(item[1], item[2])
+            elif kind == "split":
+                pg = self.pgs.get(item[1])
+                if (
+                    pg is not None
+                    and pg.primary == self.whoami
+                    and pg.state == "active"
+                    and item[1] not in self._splitting
+                ):
+                    # the scan blocks on PEER primaries (who may
+                    # be splitting toward us at the same moment):
+                    # a side thread keeps this worker serving ops,
+                    # breaking the mutual-starvation cycle; local
+                    # mutations marshal back via _on_worker
+                    self._splitting.add(item[1])
+
+                    def run(pg=pg, epoch=item[2], pgid=item[1]):
+                        try:
+                            self._split_scan(pg, epoch)
+                        finally:
+                            self._splitting.discard(pgid)
+
+                    threading.Thread(
+                        target=run,
+                        name=f"osd.{self.whoami}.split",
+                        daemon=True,
+                    ).start()
+            elif kind == "splitcall":
+                _k, fn, fut = item
+                try:
+                    fut.set_result(fn())
+                except Exception as e:  # noqa: BLE001
+                    fut.set_exception(e)
+            elif kind == "tier_agent":
+                pg = self.pgs.get(item[1])
+                try:
+                    if pg is not None:
+                        self._tier_agent(pg)
+                finally:
+                    self._tier_running.discard(item[1])
+            elif kind == "scrub":
+                pg = self.pgs.get(item[1])
+                if pg is None:
+                    self._scrubbing.discard(item[1])
+                else:
+                    # one CHUNK per work item: the scrubber
+                    # re-enqueues itself until done, so client
+                    # ops interleave between chunks (scrub
+                    # preemption); it owns the _scrubbing guard
+                    self.scrubber.run(pg, item[2], item[3])
+        except Exception as e:  # noqa: BLE001 — worker must
+            # survive, but the death of the op IS a daemon crash:
+            # capture traceback + dout tail for the mgr crash
+            # module and announce it on the cluster log
+            import traceback
+
+            traceback.print_exc()
+            crash_util.capture(
+                f"osd.{self.whoami}",
+                e,
+                sink=self._pending_crashes,
+                clog=self.clog,
+                extra_meta={"work_item": str(kind)},
+            )
+
+    def _peers_of_interest(self) -> set[int]:
+        peers: set[int] = set()
+        with self._pg_lock:
+            for pg in self.pgs.values():
+                if pg.state in ("active", "replica", "peering"):
+                    peers.update(pg.acting)
+        peers.discard(self.whoami)
+        peers.discard(CRUSH_ITEM_NONE)  # EC holes are not peers
+        return peers
+
+    def collect_pg_stats(self) -> list[dict]:
+        """Per-PG pg_stat_t-analog dicts for the PGs this OSD leads
+        (src/osd/PG.cc publish_stats_to_osd role): state string with
+        qualifiers, object/byte counts from the store, and the
+        degraded/misplaced/unfound accounting the mgr PGMap digest
+        rolls up.  Primary-only — exactly one report per PG cluster-
+        wide, like the reference."""
+        osdmap = self.monc.osdmap
+        with self._pg_lock:
+            pgs = [
+                pg for pg in self.pgs.values()
+                if pg.primary == self.whoami
+                and pg.state in ("active", "peering", "initial")
+            ]
+        recovering = list(self._recovering.items())
+        out: list[dict] = []
+        for pg in pgs:
+            pool = osdmap.pools.get(pg.pool_id)
+            if pool is None:
+                continue
+            try:
+                ps = int(pg.pgid.split(".")[1])
+                up, _upp, _a, _p = osdmap.pg_to_up_acting_osds(
+                    pg.pool_id, ps
+                )
+            except (ValueError, IndexError, KeyError):
+                up = []
+            live_acting = [
+                o for o in pg.acting if o != CRUSH_ITEM_NONE
+            ]
+            holes = max(pool.size - len(live_acting), 0)
+            num_objects = 0
+            num_bytes = 0
+            try:
+                for o in self.store.list_objects(pg.cid):
+                    if not o.startswith(OBJ_PREFIX) or "@" in o:
+                        continue
+                    num_objects += 1
+                    num_bytes += self.store.stat(pg.cid, o)
+            except StoreError:
+                pass  # collection racing a remap/removal
+            ops = [
+                op for (pid, _osd), op in recovering
+                if pid == pg.pgid and not op.failed
+            ]
+            remaining = sum(len(op.remaining) for op in ops)
+            pushed = sum(len(op.pushed) for op in ops)
+            degraded = (
+                num_objects * holes
+                + remaining
+                + len(pg.self_missing)
+            )
+            misplaced = num_objects * sum(
+                1 for o in live_acting if o not in up
+            )
+            unfound = len(pg.self_missing)
+            quals = []
+            if pg.state != "active":
+                base = "peering"
+            else:
+                base = "active"
+                if holes:
+                    quals.append("undersized")
+                if degraded:
+                    quals.append("degraded")
+                if list(up) != list(pg.acting):
+                    quals.append("remapped")
+                if ops:
+                    quals.append(
+                        "backfilling"
+                        if any(op.since == (0, 0) for op in ops)
+                        else "recovering"
+                    )
+                if pg.scrub_errors:
+                    quals.append("inconsistent")
+                if not quals:
+                    quals.append("clean")
+            state = "+".join([base] + quals)
+            out.append({
+                "pgid": pg.pgid,
+                "state": state,
+                "num_objects": num_objects,
+                "num_bytes": num_bytes,
+                "num_objects_degraded": degraded,
+                "num_objects_misplaced": misplaced,
+                "num_objects_unfound": unfound,
+                "recovery": {
+                    "planned": remaining + pushed,
+                    "pushed": pushed,
+                },
+                "up": list(up),
+                "acting": list(pg.acting),
+                "reported_epoch": osdmap.epoch,
+            })
+        return out
+
+    def collect_progress_events(self) -> list[dict]:
+        """Progress events for this OSD's long-running local work —
+        currently scrub/repair runs (fraction = chunk index over the
+        run's object list).  A run that leaves the scrubber emits a
+        final done=True record exactly once (``_progress_seen``), so
+        the mgr progress module can retire the bar."""
+        events: list[dict] = []
+        live: set[str] = set()
+        for pgid, run in list(self.scrubber._runs.items()):
+            kind = (
+                "repair" if run.repair
+                else "deep-scrub" if run.deep
+                else "scrub"
+            )
+            eid = f"{kind} pg {pgid} (osd.{self.whoami})"
+            live.add(eid)
+            events.append({
+                "id": eid,
+                "message": eid,
+                "fraction": min(
+                    run.idx / max(len(run.oids), 1), 1.0
+                ),
+                "done": False,
+            })
+        for eid in list(self._progress_seen):
+            if eid not in live:
+                self._progress_seen.discard(eid)
+                events.append({
+                    "id": eid,
+                    "message": eid,
+                    "fraction": 1.0,
+                    "done": True,
+                })
+        self._progress_seen |= live
+        return events
+
+    def _mgr_report_loop(self) -> None:
+        """Dedicated thread: mgr discovery + MMgrReport pushes must
+        never stall the tick (a slow/unreachable mgr would otherwise
+        delay heartbeat pings past the grace and flap this OSD)."""
+        while not self._stop.wait(1.0):
+            try:
+                self._report_to_mgr()
+            except Exception:  # noqa: BLE001 — reporting best-effort
+                pass
+
+    def _report_to_mgr(self) -> None:
+        """Push a perf dump to the mgr (MMgrReport): discover the
+        active mgr through the monitor at a slow cadence, keep one
+        cached connection, drop it on any failure."""
+        now = time.monotonic()
+        gate = self.mgr_discovery_interval
+        if self._mgr_addr is None and now - self._mgr_addr_checked < gate:
+            return
+        try:
+            if self._mgr_addr is None or now - self._mgr_addr_checked > gate:
+                self._mgr_addr_checked = now
+                # SHORT timeout: discovery is periodic best-effort —
+                # at 100-daemon scale a backlogged mon must not hold
+                # one offload thread per OSD for the default 15 s
+                reply = self.monc.command(
+                    {"prefix": "mgr stat"}, timeout=3.0
+                )
+                active = (
+                    json.loads(reply.outb).get("active")
+                    if reply.rc == 0
+                    else None
+                )
+                addr = active["addr"] if active else None
+                if addr != self._mgr_addr:
+                    self._mgr_addr = addr
+                    self._mgr_conn = None
+            if self._mgr_addr is None:
+                return
+            self.perf.set("numpg", len(self.pgs))
+            self.perf.set("recovery_active", self._recovery_active)
+            # last-scrubbed age: the STALEST primary PG (feeds the
+            # ceph_osd_scrub_last_age_seconds prometheus family).  A
+            # never-scrubbed PG counts from daemon boot — reading 0
+            # there would make "never scrubbed" look like "just
+            # scrubbed", the one state a staleness alert exists for
+            mono = time.monotonic()
+            with self._pg_lock:
+                ages = [
+                    mono - (pg.last_scrub or self._boot_stamp)
+                    for pg in self.pgs.values()
+                    if pg.primary == self.whoami
+                    and pg.state == "active"
+                ]
+            self.perf.set(
+                "scrub_last_age", int(max(ages)) if ages else 0
+            )
+            if self._mgr_conn is None or self._mgr_conn.is_closed:
+                host, _, port = self._mgr_addr.rpartition(":")
+                self._mgr_conn = self.messenger.connect(
+                    host, int(port), timeout=5.0
+                )
+            # device-kernel counters (ops/kernel_stats.py) merge into
+            # the same flat dump, so `l_tpu_*` series ride the
+            # existing perf dump → MMgrReport → /metrics pipeline
+            from ..ops.kernel_stats import kernel_stats
+
+            with self._backoff_lock:
+                self.perf.set("backoffs_active", len(self._backoffs))
+            dump = dict(self.perf.dump())
+            dump.update(kernel_stats().dump())
+            # fault-plane counters (l_msgr_fault_*) ride the same
+            # perf → MMgrReport → prometheus pipe
+            dump.update(self.messenger.faults.perf.dump())
+            # shared-stack worker telemetry (l_msgr_worker_*):
+            # process-global like kernel_stats, merged the same way
+            from ..msg.stack import stack_perf_dump
+
+            dump.update(stack_perf_dump())
+            # WAL-plane counters (l_os_wal_*) ride the same perf →
+            # MMgrReport → prometheus pipe when the store is wrapped
+            wal_perf = getattr(self.store, "wal_perf", None)
+            if wal_perf is not None:
+                dump.update(wal_perf.dump())
+            # latency histograms (op_hist.<qos>.<type> + the commit
+            # distribution): the mgr slo module merges these
+            # cluster-wide; the exporter renders native histogram
+            # families from the same entries
+            dump.update(self.op_tracker.histogram_perf_entries())
+            dump["commit_lat_hist"] = self._commit_hist.snapshot()
+            spans = (
+                self.tracer.drain()
+                if self.config.get("tracing_enabled")
+                else []
+            )
+            # crash reports ride the same push (MMgrReport piggyback).
+            # send() is fire-and-forget — an exception-free send does
+            # NOT prove delivery — so each report rides
+            # CRASH_RESEND_COUNT pushes before we drop our only copy
+            # (the mgr dedupes repeats by crash_id); removal targets
+            # the exact objects sent because capture() may append (or
+            # overflow-evict) concurrently
+            crashes = list(self._pending_crashes)
+            self._mgr_conn.send(
+                MMgrReport(
+                    daemon=f"osd.{self.whoami}",
+                    perf=json.dumps(dump),
+                    spans=json.dumps(spans),
+                    crashes=json.dumps(crashes),
+                )
+            )
+            for sent in crashes:
+                cid = sent.get("crash_id", "")
+                sends = self._crash_sends.get(cid, 0) + 1
+                if sends < self.CRASH_RESEND_COUNT:
+                    self._crash_sends[cid] = sends
+                    continue
+                self._crash_sends.pop(cid, None)
+                try:
+                    self._pending_crashes.remove(sent)
+                except ValueError:
+                    pass  # evicted by overflow while we sent
+            # drop send-counts for reports overflow evicted mid-cycle
+            # (they will never hit the resend threshold)
+            live = {c.get("crash_id") for c in self._pending_crashes}
+            for cid in [
+                c for c in self._crash_sends if c not in live
+            ]:
+                del self._crash_sends[cid]
+            # the PG-stats plane rides the same tick/connection: one
+            # MPGStats per push with this OSD's primary-PG stat dicts
+            # plus local progress events (scrub/repair)
+            self._mgr_conn.send(
+                MPGStats(
+                    osd=self.whoami,
+                    epoch=self.monc.osdmap.epoch,
+                    stats=json.dumps(self.collect_pg_stats()),
+                    events=json.dumps(
+                        self.collect_progress_events()
+                    ),
+                )
+            )
+        except (MessageError, OSError, ValueError):
+            self._mgr_conn = None
+
+    def _on_worker(self, fn):
+        """Run ``fn`` on the op worker (PG mutations are serialized
+        there) and wait for the result — used by split side threads,
+        which must never touch PG state directly."""
+        import concurrent.futures as _f
+
+        fut: _f.Future = _f.Future()
+        self._workq.put(("splitcall", fn, fut))
+        return fut.result(30.0)
+
+    def _pg_num_grew(self, pg: PG) -> bool:
+        """True when the pool's pg_num grew past what this PG last
+        split against (persisted on PG_META; only a COMPLETED split
+        scan advances it, so failures and restarts rescan).  First
+        sight of a PG records the current pg_num — objects written
+        before that are wherever the client put them."""
+        pool = self._pool_of(pg)
+        if pool is None:
+            return False
+        try:
+            seen = int(
+                self.store.getattr(pg.cid, PG_META, "pg_num_seen")
+            )
+        except StoreError:
+            self._record_pg_num_seen(pg, pool.pg_num)
+            return False
+        return pool.pg_num > seen
+
+    def _record_pg_num_seen(self, pg: PG, value: int) -> None:
+        try:
+            txn = Transaction().touch(pg.cid, PG_META)
+            txn.setattr(
+                pg.cid, PG_META, "pg_num_seen", str(value).encode()
+            )
+            self.store.queue_transaction(txn)
+        except StoreError:
+            pass
+
+    def _split_scan(self, pg: PG, epoch: int) -> None:
+        """Re-home objects whose stable_mod slot moved to a child PG
+        after a pg_num increase (PG splitting, OSD::split_pgs role,
+        re-rendered as primary-driven logged migration): read the
+        object here, write it through the child primary's normal op
+        path, then logged-delete it locally — every step rides the
+        replicated machinery, so any acting-set topology works."""
+        from ..osdc.objecter import object_to_pg
+
+        pool = self._pool_of(pg)
+        if pool is None:
+            return
+        try:
+            oids = self.store.list_objects(pg.cid)
+        except StoreError:
+            return
+        failed = 0
+        for store_oid in oids:
+            if not store_oid.startswith(OBJ_PREFIX) or "@" in store_oid:
+                continue
+            oid = store_oid[len(OBJ_PREFIX):]
+            target = object_to_pg(pool, oid)
+            if target == pg.pgid:
+                continue
+            try:
+                self._migrate_object(pg, epoch, oid, store_oid, target)
+            except (
+                StoreError, MessageError, OSError, ErasureCodeError
+            ):
+                failed += 1  # keep going; a later pass rescans
+        if failed == 0:
+            # only a complete pass advances the split watermark
+            self._record_pg_num_seen(pg, pool.pg_num)
+
+    def _migrate_object(
+        self, pg: PG, epoch: int, oid: str, store_oid: str, target: str
+    ) -> None:
+        if self._child_has_object(pg, oid, target):
+            # the child already holds this object: either a client on
+            # the new map wrote a NEWER version there (shipping our
+            # pre-split copy would silently revert it) or an earlier
+            # migration pass completed the write.  Either way the
+            # child copy is authoritative — just retire the parent's.
+            self._split_delete_parent(pg, oid, store_oid)
+            return
+        if self._is_ec(pg):
+            # the local store holds only THIS osd's shard: decode the
+            # whole object across the acting set, then ship it through
+            # the child primary's normal EC write path — shards
+            # re-home positionally under the child's acting set
+            data = bytes(self._ec_store_for(pg).get(store_oid))
+        else:
+            data = self.store.read(pg.cid, store_oid)
+        xattrs = {
+            k: v
+            for k, v in self.store.list_attrs(pg.cid, store_oid).items()
+            if k.startswith("u_")
+        }
+        omap = self.store.omap_get(pg.cid, store_oid)
+        ps = int(target.split(".")[1])
+        deadline = time.monotonic() + 15.0
+        ops = [(OSD_OP_WRITEFULL, data, "", b"")]
+        for name, val in sorted(xattrs.items()):
+            ops.append((OSD_OP_SETXATTR, val, name[2:], b""))
+        if omap:
+            e = Encoder()
+            e.map(
+                omap,
+                lambda e2, k: e2.string(k),
+                lambda e2, v: e2.bytes(v),
+            )
+            ops.append((OSD_OP_OMAPSET, e.getvalue(), "", b""))
+        for i, (op, payload, attr, _x) in enumerate(ops):
+            while True:
+                osdmap = self.monc.osdmap
+                _u, _up, _acting, primary = osdmap.pg_to_up_acting_osds(
+                    pg.pool_id, ps
+                )
+                msg = MOSDOp(
+                    pool=pg.pool_id, pgid=target, oid=oid, op=op,
+                    data=payload, length=-1, attr=attr,
+                    reqid=f"split.{pg.pgid}.{oid}.{i}",
+                    epoch=osdmap.epoch,
+                )
+                try:
+                    if primary == self.whoami:
+                        tpg = self.pgs.get(target)
+                        if tpg is not None and tpg.state == "active":
+                            self._on_worker(
+                                lambda tpg=tpg, msg=msg: self._mutate(
+                                    tpg, self.monc.epoch, msg,
+                                    OBJ_PREFIX + oid,
+                                )
+                            )
+                            break
+                        raise StoreError("child pg not active yet")
+                    conn = self._peer_conn(primary)
+                    reply = conn.call(msg, timeout=5.0)
+                    if getattr(reply, "ok", False):
+                        break
+                    raise StoreError(getattr(reply, "error", "nak"))
+                except (StoreError, MessageError, OSError):
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.2)
+        self._split_delete_parent(pg, oid, store_oid)
+
+    def _child_has_object(self, pg: PG, oid: str, target: str) -> bool:
+        """STAT the child through its primary's op path — the
+        guard against reverting a post-split client write with the
+        parent's stale copy."""
+        ps = int(target.split(".")[1])
+        osdmap = self.monc.osdmap
+        _u, _up, _acting, primary = osdmap.pg_to_up_acting_osds(
+            pg.pool_id, ps
+        )
+        msg = MOSDOp(
+            pool=pg.pool_id, pgid=target, oid=oid, op=OSD_OP_STAT,
+            length=-1, reqid=f"split.{pg.pgid}.{oid}.stat",
+            epoch=osdmap.epoch,
+        )
+        try:
+            if primary == self.whoami:
+                tpg = self.pgs.get(target)
+                if tpg is None or tpg.state != "active":
+                    return False
+                if self._is_ec(tpg):
+                    try:
+                        self._ec_store_for(tpg).size(
+                            OBJ_PREFIX + oid
+                        )
+                        return True
+                    except (StoreError, ErasureCodeError):
+                        return False
+                return self.store.exists(tpg.cid, OBJ_PREFIX + oid)
+            reply = self._peer_conn(primary).call(msg, timeout=5.0)
+            return bool(getattr(reply, "ok", False))
+        except (MessageError, OSError, StoreError):
+            return False
+
+    def _split_delete_parent(
+        self, pg: PG, oid: str, store_oid: str
+    ) -> None:
+        # logged local delete: replicas of the PARENT drop it too.
+        # Current epoch, not the enqueue-time one — a stale epoch
+        # would log a non-monotonic version that peering could judge
+        # divergent and roll back (resurrecting the object)
+        cur_epoch = self.monc.epoch
+        del_msg = MOSDOp(
+            pool=pg.pool_id, pgid=pg.pgid, oid=oid, op=OSD_OP_DELETE,
+            length=-1, reqid=f"split.{pg.pgid}.{oid}.del",
+            epoch=cur_epoch,
+        )
+        self._on_worker(
+            lambda: self._mutate(pg, cur_epoch, del_msg, store_oid)
+        )
+
+    # -- cache tiering (PrimaryLogPG maybe_handle_cache_detail +
+    # TierAgentState, src/osd/PrimaryLogPG.cc:2492,2215 reduced) ------------
+    def _tier_front(
+        self, pg: PG, pool, epoch: int, msg: MOSDOp, store_oid: str
+    ) -> None:
+        """Cache-pool front end for one client op: record recency and
+        PROMOTE the object from the base pool when the op needs its
+        prior state and the cache misses (promote_object's role).
+        WRITEFULL/DELETE overwrite wholesale — no promote needed."""
+        atime = getattr(pg, "tier_atime", None)
+        if atime is None:
+            atime = pg.tier_atime = {}
+        atime[msg.oid] = time.monotonic()
+        if msg.op in (OSD_OP_WRITEFULL, OSD_OP_DELETE):
+            return
+        if self.store.exists(pg.cid, store_oid):
+            return
+        self._tier_promote(pg, pool, epoch, msg.oid)
+
+    def _tier_promote(self, pg: PG, pool, epoch: int, oid: str) -> None:
+        """Copy (data + user attrs + omap) up from the base pool into
+        the cache pg through the normal logged/replicated write path;
+        the promoted copy is CLEAN (tier- reqids skip dirty marking).
+        A base miss is simply a cache miss (the op then sees -ENOENT
+        exactly as it should)."""
+        push = self._tier_base_fetch(pool, epoch, oid)
+        if push is None or not push.exists:
+            return
+        rq = f"tier-promote.{pg.pgid}.{oid}"
+        self._mutate(pg, epoch, MOSDOp(
+            pool=pg.pool_id, pgid=pg.pgid, oid=oid,
+            op=OSD_OP_WRITEFULL, data=push.data, length=-1,
+            reqid=rq + ".d", epoch=self.monc.epoch,
+        ), OBJ_PREFIX + oid)
+        for name, val in sorted(push.attrs.items()):
+            if name.startswith("u_"):
+                self._mutate(pg, epoch, MOSDOp(
+                    pool=pg.pool_id, pgid=pg.pgid, oid=oid,
+                    op=OSD_OP_SETXATTR, attr=name[2:], data=val,
+                    length=-1, reqid=f"{rq}.x.{name}",
+                    epoch=self.monc.epoch,
+                ), OBJ_PREFIX + oid)
+        if push.omap:
+            e = Encoder()
+            e.map(
+                push.omap,
+                lambda e2, k: e2.string(k),
+                lambda e2, v: e2.bytes(v),
+            )
+            self._mutate(pg, epoch, MOSDOp(
+                pool=pg.pool_id, pgid=pg.pgid, oid=oid,
+                op=OSD_OP_OMAPSET, data=e.getvalue(), length=-1,
+                reqid=rq + ".o", epoch=self.monc.epoch,
+            ), OBJ_PREFIX + oid)
+
+    def _tier_base_target(self, pool, oid: str):
+        """(base_pool, base_pgid, primary) for an object's base copy."""
+        from ..osdc.objecter import object_to_pg
+
+        base = self.monc.osdmap.pools.get(pool.tier_of)
+        if base is None:
+            raise StoreError(f"tier base pool {pool.tier_of} gone")
+        pgid = object_to_pg(base, oid)
+        ps = int(pgid.split(".")[1])
+        _u, _up, _a, primary = self.monc.osdmap.pg_to_up_acting_osds(
+            base.pool_id, ps
+        )
+        return base, pgid, primary
+
+    def _tier_base_fetch(self, pool, epoch: int, oid: str):
+        """Whole object (data+attrs+omap) from the base primary — the
+        recovery pull machinery doubles as copy-up (copy_from role)."""
+        base, pgid, primary = self._tier_base_target(pool, oid)
+        if primary == self.whoami:
+            bpg = self.pgs.get(pgid)
+            if bpg is None:
+                return None
+            return self._push_for(bpg, epoch, oid)
+        try:
+            reply = self._peer_conn(primary).call(
+                MPGPull(
+                    pgid=pgid, epoch=epoch, oid=oid, shard=-1
+                ),
+                timeout=10.0,
+            )
+        except (MessageError, OSError) as e:
+            raise StoreError(f"tier base fetch failed: {e} (-EAGAIN)")
+        return reply if isinstance(reply, MPGPush) else None
+
+    def _tier_base_op(
+        self,
+        pool,
+        oid: str,
+        op: int,
+        data: bytes = b"",
+        attr: str = "",
+        reqid: str = "",
+        ignore_enoent: bool = False,
+    ) -> None:
+        """One op against the base pool's primary (flush/delete
+        propagation), targeted DIRECTLY at the base pgid so the
+        overlay redirection cannot bounce it back to us."""
+        base, pgid, primary = self._tier_base_target(pool, oid)
+        msg = MOSDOp(
+            pool=base.pool_id, pgid=pgid, oid=oid, op=op, data=data,
+            attr=attr, length=-1, reqid=reqid,
+            epoch=self.monc.epoch,
+        )
+        if primary == self.whoami:
+            bpg = self.pgs.get(pgid)
+            if bpg is None or bpg.state != "active":
+                raise StoreError("base pg not active (-EAGAIN)")
+            try:
+                self._mutate(bpg, self.monc.epoch, msg, OBJ_PREFIX + oid)
+            except StoreError as e:
+                if not (ignore_enoent and "ENOENT" in str(e)):
+                    raise
+            return
+        try:
+            reply = self._peer_conn(primary).call(msg, timeout=10.0)
+        except (MessageError, OSError) as e:
+            raise StoreError(f"tier base op failed: {e} (-EAGAIN)")
+        if not getattr(reply, "ok", False):
+            err = getattr(reply, "error", "nak")
+            if not (ignore_enoent and "ENOENT" in err):
+                raise StoreError(err)
+
+    def _tier_agent(self, pg: PG) -> None:
+        """One agent pass over a cache pg (TierAgentState flush/evict
+        modes): flush every dirty object to the base pool, then evict
+        the least-recently-used CLEAN objects down to the pool's
+        per-pg share of target_max_objects.  A lost clean-marker
+        (failover) merely causes an idempotent re-flush."""
+        pool = self._pool_of(pg)
+        if (
+            pool is None or pool.tier_of < 0
+            or pool.cache_mode != "writeback"
+            or pg.primary != self.whoami or pg.state != "active"
+        ):
+            return
+        try:
+            oids = [
+                o for o in self.store.list_objects(pg.cid)
+                if o.startswith(OBJ_PREFIX) and "@" not in o
+            ]
+        except StoreError:
+            return
+        atime = getattr(pg, "tier_atime", {})
+        for store_oid in oids:
+            oid = store_oid[len(OBJ_PREFIX):]
+            try:
+                dirty = self.store.getattr(
+                    pg.cid, store_oid, TIER_DIRTY
+                ) == b"1"
+            except StoreError:
+                dirty = False
+            if not dirty:
+                continue
+            try:
+                self._tier_flush_object(pg, pool, oid, store_oid)
+                self.perf.inc("tier_flush")
+            except (StoreError, MessageError, OSError):
+                pass  # next pass retries
+        if pool.target_max_objects <= 0:
+            return
+        budget = max(1, pool.target_max_objects // max(pool.pg_num, 1))
+        live = [
+            o for o in oids
+            if self.store.exists(pg.cid, o)
+        ]
+        if len(live) <= budget:
+            return
+        # evict clean LRU first (hit-set recency, in-memory deviation)
+        def last_access(store_oid):
+            return atime.get(store_oid[len(OBJ_PREFIX):], 0.0)
+
+        for store_oid in sorted(live, key=last_access):
+            if len(live) <= budget:
+                break
+            try:
+                if self.store.getattr(
+                    pg.cid, store_oid, TIER_DIRTY
+                ) == b"1":
+                    continue  # never evict unflushed data
+            except StoreError:
+                pass
+            oid = store_oid[len(OBJ_PREFIX):]
+            try:
+                self._mutate(pg, self.monc.epoch, MOSDOp(
+                    pool=pg.pool_id, pgid=pg.pgid, oid=oid,
+                    op=OSD_OP_DELETE, length=-1,
+                    reqid=f"tier-evict.{pg.pgid}.{oid}",
+                    epoch=self.monc.epoch,
+                ), store_oid)
+                live.remove(store_oid)
+                atime.pop(oid, None)
+                self.perf.inc("tier_evict")
+            except StoreError:
+                pass
+
+    def _tier_flush_object(
+        self, pg: PG, pool, oid: str, store_oid: str
+    ) -> None:
+        """Write the cache copy back to the base pool (agent flush),
+        then mark it clean — locally only: the clean bit is an
+        optimization; a replica's stale dirty bit after failover just
+        re-flushes idempotently."""
+        data = self.store.read(pg.cid, store_oid)
+        attrs = self.store.list_attrs(pg.cid, store_oid)
+        omap = self.store.omap_get(pg.cid, store_oid)
+        rq = f"tier-flush.{pg.pgid}.{oid}"
+        self._tier_base_op(
+            pool, oid, OSD_OP_WRITEFULL, data=data, reqid=rq + ".d"
+        )
+        for name, val in sorted(attrs.items()):
+            if name.startswith("u_"):
+                self._tier_base_op(
+                    pool, oid, OSD_OP_SETXATTR, data=val,
+                    attr=name[2:], reqid=f"{rq}.x.{name}",
+                )
+        if omap:
+            e = Encoder()
+            e.map(
+                omap,
+                lambda e2, k: e2.string(k),
+                lambda e2, v: e2.bytes(v),
+            )
+            self._tier_base_op(
+                pool, oid, OSD_OP_OMAPSET, data=e.getvalue(),
+                reqid=rq + ".o",
+            )
+        try:
+            self.store.queue_transaction(
+                Transaction().setattr(
+                    pg.cid, store_oid, TIER_DIRTY, b"0"
+                )
+            )
+        except StoreError:
+            pass
+
+    def _tick_loop(self) -> None:
+        while not self._stop.wait(self.tick_interval):
+            try:
+                self._tick()
+            except Exception as e:  # noqa: BLE001 — a tick crash is a
+                # daemon crash worth a report, but the ticker (and its
+                # heartbeats) must keep running
+                crash_util.capture(
+                    f"osd.{self.whoami}",
+                    e,
+                    sink=self._pending_crashes,
+                    clog=self.clog,
+                    extra_meta={"thread": "tick"},
+                )
+
+    def _tick(self) -> None:
+        now = time.monotonic()
+        # expired remote recovery leases purge on the TICK, not just
+        # on the next reservation request: a primary that died
+        # without releasing would otherwise pin its slot (and look
+        # like a leak) until some future primary happens to ask
+        with self._recovery_lock:
+            for k, (t0, _c) in list(self._remote_reservations.items()):
+                if now - t0 > self.reservation_timeout:
+                    del self._remote_reservations[k]
+        # retry peering for primary PGs whose recovery pushes
+        # failed (peered_interval cleared) — at tick rate, never
+        # as a hot worker loop.  A PG whose recovery is still running
+        # is not retried (the tick after its last push is), and one retry
+        # walk is queued at a time: the walk is a strict item, so a
+        # walk per tick while a long recovery runs would keep the
+        # RECOVERY-class pushes from the worker for good
+        with self._recovery_lock:
+            recovering = {
+                key[0] for key, op in self._recovering.items()
+                if not op.failed
+            }
+        retry = False
+        with self._pg_lock:
+            for pg in self.pgs.values():
+                if (
+                    pg.primary == self.whoami
+                    and pg.acting
+                    and pg.peered_interval is None
+                    and pg.pgid not in recovering
+                ):
+                    retry = True
+                    break
+        if retry and not self._retry_walk_queued:
+            self._retry_walk_queued = True
+            self._workq.put(("map", self.monc.epoch))
+        # scheduled + on-demand scrub (OSD::sched_scrub's tick path:
+        # interval-due PGs plus `ceph pg (deep-)scrub/repair` orders)
+        for pgid, deep, repair in self.scrubber.due(now):
+            if pgid in self._scrubbing:
+                continue
+            self._scrubbing.add(pgid)
+            self._workq.enqueue(
+                CLASS_BACKGROUND, 1, ("scrub", pgid, deep, repair)
+            )
+        # withdraw/refresh the scrub-error health contribution when
+        # it changed (e.g. a damaged PG remapped away from us)
+        self.scrubber.maybe_report(now)
+        # cache-tier agent (TierAgentState flush/evict, scheduled
+        # like scrub, executed on the worker off the tick thread)
+        with self._pg_lock:
+            tier_due = [
+                pg.pgid
+                for pg in self.pgs.values()
+                if pg.primary == self.whoami
+                and pg.state == "active"
+                and pg.pgid not in self._tier_running
+                and (
+                    (p := self._pool_of(pg)) is not None
+                    and p.tier_of >= 0
+                    and p.cache_mode == "writeback"
+                )
+            ]
+        for pgid in tier_due:
+            self._tier_running.add(pgid)
+            self._workq.enqueue(
+                CLASS_BACKGROUND, 1, ("tier_agent", pgid)
+            )
+        # mon session failover (MonClient reconnect)
+        try:
+            self.monc.ensure_connected()
+        except (MessageError, OSError):
+            pass
+        # re-announce until the map marks us up — a boot report
+        # can be lost while the mon quorum is electing
+        # (OSD::start_boot retries the same way)
+        osdmap = self.monc.osdmap
+        if (
+            osdmap is not None
+            and self.addr is not None
+            and not osdmap.is_up(self.whoami)
+        ):
+            try:
+                self.monc.boot(
+                    self.whoami,
+                    addr=f"{self.addr[0]}:{self.addr[1]}",
+                )
+            except (MessageError, OSError):
+                pass
+        interesting = self._peers_of_interest()
+        # peers that left every acting set (e.g. marked down) stop
+        # being tracked — a stale last-rx stamp would otherwise
+        # keep generating failure reports forever and instantly
+        # re-down a rebooted peer (the reference prunes its
+        # heartbeat_peers on map change too, OSD::maybe_update_heartbeat_peers)
+        for osd in self.hb.peers() - interesting:
+            self.hb.remove_peer(osd)
+        for osd in interesting:
+            if osd not in self.hb.peers():
+                self.hb.add_peer(osd, now)
+            try:
+                self._peer_conn(osd).send(
+                    MPing(
+                        tid=self.messenger.new_tid(),
+                        from_osd=self.whoami,
+                        stamp=now,
+                    )
+                )
+            except (MessageError, OSError, KeyError, ValueError):
+                pass
+        for osd, silent_for in self.hb.failures(now):
+            try:
+                self.monc.report_failure(osd, silent_for)
+                self._reported.add(osd)
+            except (MessageError, OSError):
+                pass
+        self._check_slow_ops(now)
+        # backoff releases (space freed / peering done) + the space
+        # stats that feed the mon's OSD_NEARFULL/OSD_FULL checks
+        self._release_backoffs()
+        self._report_stats(now)
+        self._flush_clog()
+
+    def _flush_clog(self) -> None:
+        self._log_client.flush(self.monc)
+
+    def _check_slow_ops(self, now: float) -> None:
+        """SLOW_OPS watchdog (OSD::check_ops_in_flight →
+        get_health_metrics): in-flight ops older than
+        osd_op_complaint_time degrade mon health; a report of 0
+        clears our complaint.  Reports are throttled to ~1/s and only
+        sent on a change or while nonzero (refreshing the mon's
+        staleness grace)."""
+        if now - self._slow_ops_last_report < 1.0:
+            return
+        try:
+            threshold = float(
+                self.config.get("osd_op_complaint_time")
+            )
+            summary = self.op_tracker.slow_op_summary(threshold)
+            count = summary["num_slow_ops"]
+            self.perf.set("slow_ops", count)
+            if count == 0 and self._slow_ops_reported == 0:
+                return
+            self._slow_ops_last_report = now
+            # bounded like the stat report: this fires exactly when
+            # the cluster is ALREADY slow — the default 15 s timeout
+            # would park one offload thread per complaining OSD on a
+            # backlogged mon
+            self.monc.command(
+                {
+                    "prefix": "osd slow ops",
+                    "daemon": f"osd.{self.whoami}",
+                    "count": count,
+                    "oldest_age": summary["oldest_age"],
+                },
+                timeout=3.0,
+            )
+            # clog the TRANSITIONS (not every refresh), and only
+            # AFTER the mon report succeeded — clogging before it
+            # would requeue one duplicate warn per tick for the whole
+            # length of a mon outage and bury the health timeline
+            if count > 0 and self._slow_ops_reported == 0:
+                self.clog.warn(
+                    f"{count} slow requests (oldest blocked for "
+                    f"{summary['oldest_age']:.0f} sec)"
+                )
+            elif count == 0 and self._slow_ops_reported > 0:
+                self.clog.info("slow requests cleared")
+            self._slow_ops_reported = count
+        except (MessageError, OSError, ValueError):
+            pass

@@ -1,0 +1,445 @@
+"""Objecter — client op targeting and retry (src/osdc/Objecter.cc).
+
+``_calc_target``: object name → ps (ceph_str_hash_rjenkins, the
+pg_pool_t object_hash) → stable pg seed → up/acting/primary via the
+client's OSDMap — exactly OSDMap::object_locator_to_pg +
+pg_to_up_acting_osds (Objecter.cc:_calc_target).
+
+``op_submit`` sends the MOSDOp to the computed primary and retries
+when the target is wrong or gone: a -EAGAIN reply (peering, stale
+primary), a connection reset, or a map epoch advance all re-target
+and resend, the reference's resend-on-map-change contract
+(Objecter::_scan_requests / op_submit retry loop).
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import threading
+import time
+
+from ..common import tracing
+from ..crush.hashing import ceph_str_hash_rjenkins
+from ..msg import (
+    Messenger,
+    MessageError,
+    MOSDBackoff,
+    MOSDOp,
+    MOSDOpReply,
+)
+from ..msg.message import BACKOFF_OP_BLOCK, BACKOFF_OP_UNBLOCK
+from ..msg.messenger import Connection, Dispatcher
+
+
+class RadosError(Exception):
+    """Base for every client-visible error (librados' rados.Error)."""
+
+
+class ObjecterError(RadosError):
+    pass
+
+
+class ObjectNotFound(ObjecterError):
+    pass
+
+
+class BlocklistedError(ObjecterError):
+    """This client has been fenced via the OSDMap blocklist
+    (librados' -EBLOCKLISTED): every op will be rejected until the
+    entry expires or is removed.  Not retried — the fence is the
+    point."""
+
+
+def object_to_pg(pool, oid: str) -> str:
+    """pgid string for an object (object_locator_to_pg)."""
+    raw_ps = ceph_str_hash_rjenkins(oid)
+    ps = pool.raw_pg_to_pg_seed(raw_ps)
+    return f"{pool.pool_id}.{ps}"
+
+
+def build_objecter_perf(name: str = "objecter"):
+    """Client-side op-path counters (the objecter block of
+    ``perf dump``), linted by tools/check_metrics.py."""
+    from ..common.perf_counters import PerfCountersBuilder
+
+    return (
+        PerfCountersBuilder(name)
+        .add_u64_counter(
+            "l_objecter_backoff_parks",
+            "ops parked at least once on an MOSDBackoff BLOCK",
+        )
+        .create_perf_counters()
+    )
+
+
+class Objecter(Dispatcher):
+    def __init__(self, monc, messenger: Messenger, op_timeout: float = 15.0):
+        self.monc = monc
+        self.messenger = messenger
+        self.op_timeout = op_timeout
+        self._conns: dict[int, Connection] = {}
+        # RADOS backoffs (Objecter::_session_backoff role, keyed by
+        # pgid): a BLOCKed pg parks its ops on the event instead of
+        # resending; UNBLOCK (or a primary change) releases them
+        self._backoffs: dict[str, dict] = {}
+        self._backoff_lock = threading.Lock()
+        self.perf = build_objecter_perf()
+        messenger.add_dispatcher(self)  # UNBLOCK arrives un-paired
+        # osd_reqid_t role: a stable id per logical op so retries are
+        # deduped by the primary (append idempotency)
+        self._client_id = os.urandom(6).hex()
+        self._op_seq = itertools.count(1)
+        # linger ops (Objecter::linger_watch): watches re-registered
+        # on every map change so a new primary learns the watchers
+        self._lingers: dict[int, tuple[int, str]] = {}  # cookie → (pool, oid)
+        self._linger_epoch = 0
+        # distributed tracing: the objecter opens the ROOT span of
+        # every logical op (trace id = reqid, the id every sub-op
+        # message already carries); spans buffer here until
+        # flush_spans_to_mgr ships them on the MMgrReport path
+        self.tracer = tracing.Tracer(f"client.{self._client_id}")
+        self._mgr_addr: str | None = None
+
+    def new_identity(self) -> None:
+        """Adopt a fresh client id (the daemon-respawn analog): a
+        blocklist fence keys on the OLD id, so a fenced daemon that
+        is later re-promoted starts clean — exactly as a respawned
+        reference daemon arrives with a new entity addr.  Watches are
+        cookie-keyed to the old id; callers with live watches must
+        re-register them (the MDS holds none)."""
+        self._client_id = os.urandom(6).hex()
+
+    # -- linger (watch re-registration) ------------------------------------
+    def linger_register(self, cookie: int, pool_id: int, oid: str):
+        self._lingers[cookie] = (pool_id, oid)
+
+    def linger_unregister(self, cookie: int) -> None:
+        self._lingers.pop(cookie, None)
+
+    def handle_map_change(self, epoch: int) -> None:
+        """Re-send WATCH for every linger (the watch re-registration
+        after an interval change; watchers are primary-resident)."""
+        from ..msg.message import OSD_OP_WATCH
+
+        if epoch <= self._linger_epoch:
+            return
+        self._linger_epoch = epoch
+        for cookie, (pool_id, oid) in list(self._lingers.items()):
+            try:
+                self.op_submit(
+                    pool_id, oid, OSD_OP_WATCH, offset=cookie
+                )
+            except RadosError:
+                pass  # next epoch retries
+
+    # -- targeting ---------------------------------------------------------
+    def _resolve_tier(self, pool_id: int, write: bool) -> int:
+        """Cache-tier overlay redirection (Objecter::_calc_target's
+        read_tier/write_tier handling): ops on a BASE pool with an
+        overlay route to the cache pool; the cache primary promotes,
+        proxies and flushes behind the scenes."""
+        pool = self.monc.osdmap.pools.get(pool_id)
+        if pool is None:
+            return pool_id
+        tier = pool.write_tier if write else pool.read_tier
+        if tier >= 0 and tier in self.monc.osdmap.pools:
+            return tier
+        return pool_id
+
+    def _target(self, pool_id: int, oid: str) -> tuple[str, int]:
+        osdmap = self.monc.osdmap
+        pool = osdmap.pools.get(pool_id)
+        if pool is None:
+            raise ObjecterError(f"pool {pool_id} does not exist")
+        pgid = object_to_pg(pool, oid)
+        ps = int(pgid.split(".")[1])
+        _up, _upp, _acting, primary = osdmap.pg_to_up_acting_osds(
+            pool_id, ps
+        )
+        return pgid, primary
+
+    # -- backoff protocol (MOSDBackoff client half) -------------------------
+    def ms_dispatch(self, conn, msg) -> bool:
+        if not isinstance(msg, MOSDBackoff):
+            return False
+        # only an UNBLOCK releases — a duplicated or timed-out BLOCK
+        # copy arriving un-paired must NOT wake the parked ops into
+        # the still-blocked PG; and the id must match the backoff we
+        # hold (a stale UNBLOCK for a dead incarnation is ignored —
+        # the bounded re-probe covers truly lost releases)
+        if msg.op != BACKOFF_OP_UNBLOCK:
+            return True
+        with self._backoff_lock:
+            ent = self._backoffs.get(msg.pgid)
+            if ent is None or ent.get("id") not in (0, msg.id):
+                return True
+            del self._backoffs[msg.pgid]
+        ent["event"].set()
+        return True
+
+    def _register_backoff(self, msg: MOSDBackoff, osd: int) -> None:
+        with self._backoff_lock:
+            ent = self._backoffs.get(msg.pgid)
+            if ent is None:
+                ent = self._backoffs[msg.pgid] = {
+                    "event": threading.Event(),
+                    "since": time.monotonic(),
+                }
+            ent.update(
+                {
+                    "id": msg.id,
+                    "reason": msg.reason,
+                    "osd": osd,
+                    "epoch": msg.epoch,
+                }
+            )
+
+    # a lost UNBLOCK (it is a fire-and-forget frame — chaos rules can
+    # drop it) must not park an op until its deadline: after this
+    # long, re-probe with ONE resend (the OSD re-blocks if the
+    # condition still holds)
+    BACKOFF_RECHECK = 3.0
+
+    def _wait_backoff(self, pgid: str, deadline: float) -> None:
+        """PARK until the backoff releases: the unblock event, a
+        primary change (the interval ended — the reference clears
+        session backoffs on map change), a bounded re-probe, or the
+        op deadline.  No sends happen while parked — that is the
+        whole point (no futile resend storm)."""
+        self.perf.inc("l_objecter_backoff_parks")
+        recheck = time.monotonic() + self.BACKOFF_RECHECK
+        while time.monotonic() < deadline:
+            if time.monotonic() >= recheck:
+                with self._backoff_lock:
+                    self._backoffs.pop(pgid, None)
+                return
+            with self._backoff_lock:
+                ent = self._backoffs.get(pgid)
+            if ent is None:
+                return  # unblocked
+            if ent["event"].wait(0.25):
+                return
+            try:
+                if self._pg_primary(pgid) != ent["osd"]:
+                    # the blocking primary is gone: the backoff died
+                    # with its interval — retarget and resend
+                    with self._backoff_lock:
+                        self._backoffs.pop(pgid, None)
+                    return
+            except (ObjecterError, ValueError, KeyError):
+                pass
+        # deadline lapsed while parked: drop the entry so the NEXT
+        # op to this pg sends instead of parking against a backoff
+        # the OSD may no longer hold
+        with self._backoff_lock:
+            self._backoffs.pop(pgid, None)
+
+    @property
+    def backoff_parks(self) -> int:
+        """Compat view over the real counter (the historical int
+        attribute predates the perf block)."""
+        return int(self.perf.dump()["l_objecter_backoff_parks"])
+
+    def dump_backoffs(self) -> list[dict]:
+        """Client-side `dump_backoffs` (objecter_requests' backoff
+        block): the pgs currently parked and why."""
+        now = time.monotonic()
+        with self._backoff_lock:
+            return [
+                {
+                    "pgid": pgid,
+                    "id": ent.get("id", 0),
+                    "reason": ent.get("reason", ""),
+                    "osd": ent.get("osd", -1),
+                    "age": round(now - ent["since"], 3),
+                }
+                for pgid, ent in self._backoffs.items()
+            ]
+
+    def _conn_to(self, osd: int) -> Connection:
+        conn = self._conns.get(osd)
+        if conn is not None and not conn._closed:
+            return conn
+        addr = self.monc.osdmap.osd_addrs.get(osd, "")
+        host, _, port = addr.partition(":")
+        if not port:
+            raise MessageError(f"osd.{osd} has no address")
+        conn = self.messenger.connect(host, int(port))
+        self._conns[osd] = conn
+        return conn
+
+    # -- submit ------------------------------------------------------------
+    def op_submit(
+        self,
+        pool_id: int,
+        oid: str,
+        op: int,
+        offset: int = 0,
+        length: int = -1,
+        data: bytes = b"",
+        attr: str = "",
+        pgid: str | None = None,
+        snapid: int = 0,
+        snap_seq: int = 0,
+        flags: int = 0,
+        qos: str = "",
+    ) -> MOSDOpReply:
+        """Target, send, and retry until acked or timed out.
+        ``qos`` names the dmclock class the primary schedules this op
+        under (empty = the default client class)."""
+        from ..msg.message import (
+            OSD_OP_GETXATTR,
+            OSD_OP_LIST,
+            OSD_OP_OMAPGET,
+            OSD_OP_READ,
+            OSD_OP_STAT,
+        )
+
+        is_read = op in (
+            OSD_OP_READ, OSD_OP_STAT, OSD_OP_GETXATTR,
+            OSD_OP_OMAPGET, OSD_OP_LIST,
+        )
+        deadline = time.monotonic() + self.op_timeout
+        last_err = "no attempt"
+        reqid = f"{self._client_id}.{next(self._op_seq)}"
+        root = self.tracer.start_span(
+            "client_op",
+            trace_id=reqid,
+            role=tracing.ROLE_CLIENT,
+            # qos_class rides every span from the objecter down, so
+            # the mgr tracing module and dump_historic_slow_ops can
+            # filter/aggregate per class
+            tags={
+                "pool": pool_id, "oid": oid, "op": op,
+                "qos_class": qos or "client",
+            },
+        )
+        with root:
+            return self._op_submit_attempts(
+                root, deadline, last_err, reqid, pool_id, oid,
+                op, offset, length, data, attr, pgid, snapid,
+                snap_seq, is_read, flags, qos,
+            )
+
+    def _op_submit_attempts(
+        self, root, deadline, last_err, reqid, pool_id, oid, op,
+        offset, length, data, attr, pgid, snapid, snap_seq, is_read,
+        flags, qos,
+    ) -> MOSDOpReply:
+        from ..msg.message import OSD_OP_LIST
+
+        while time.monotonic() < deadline:
+            try:
+                # re-resolve the tier overlay every attempt: a map
+                # change may add/remove the cache redirection mid-op
+                # LIST stays on the BASE pool: the cache holds only
+                # resident objects (deviation: objects written but
+                # not yet flushed are invisible to listings until the
+                # agent's next pass)
+                eff_pool = (
+                    self._resolve_tier(pool_id, not is_read)
+                    if pgid is None and op != OSD_OP_LIST
+                    else pool_id
+                )
+                tgt_pgid, primary = (
+                    (pgid, self._pg_primary(pgid))
+                    if pgid is not None
+                    else self._target(eff_pool, oid)
+                )
+                if primary < 0:
+                    raise MessageError("pg has no primary (all down?)")
+                root.mark_event(f"send_op osd.{primary} pg {tgt_pgid}")
+                reply = self._conn_to(primary).call(
+                    MOSDOp(
+                        pool=eff_pool, pgid=tgt_pgid, oid=oid, op=op,
+                        offset=offset, length=length, data=data,
+                        attr=attr, reqid=reqid, epoch=self.monc.epoch,
+                        snapid=snapid, snap_seq=snap_seq, flags=flags,
+                        qos=qos,
+                    ),
+                    timeout=min(5.0, self.op_timeout),
+                )
+                if isinstance(reply, MOSDBackoff):
+                    # tid-paired BLOCK: the PG cannot take this op
+                    # (peering / full) — PARK on the backoff instead
+                    # of hammering resends; UNBLOCK (or a primary
+                    # change) releases us back into the loop
+                    if reply.op == BACKOFF_OP_BLOCK:
+                        last_err = (
+                            f"backoff pg {tgt_pgid} ({reply.reason})"
+                        )
+                        root.mark_event(
+                            f"backoff_block pg {tgt_pgid} "
+                            f"({reply.reason})"
+                        )
+                        self._register_backoff(reply, primary)
+                        self._wait_backoff(tgt_pgid, deadline)
+                        root.mark_event("backoff_release")
+                    continue
+                assert isinstance(reply, MOSDOpReply)
+                if reply.ok:
+                    root.mark_event("reply_ok")
+                    return reply
+                if "EAGAIN" in reply.error:
+                    last_err = reply.error
+                    root.mark_event("retry: EAGAIN")
+                    # stale target / peering: wait for map movement
+                    time.sleep(0.1)
+                    continue
+                if "ENOENT" in reply.error or "no object" in reply.error:
+                    raise ObjectNotFound(reply.error)
+                if "EBLOCKLISTED" in reply.error:
+                    raise BlocklistedError(reply.error)
+                raise ObjecterError(reply.error)
+            except (MessageError, OSError) as e:
+                last_err = str(e)
+                time.sleep(0.1)
+                continue
+        raise ObjecterError(
+            f"op on {pool_id}/{oid} timed out: {last_err}"
+        )
+
+    def _pg_primary(self, pgid: str) -> int:
+        pool_id, ps = pgid.split(".")
+        _u, _up, _a, primary = self.monc.osdmap.pg_to_up_acting_osds(
+            int(pool_id), int(ps)
+        )
+        return primary
+
+    # -- span delivery (the client half of the tracing plane) --------------
+    def flush_spans_to_mgr(self) -> int:
+        """Ship buffered client spans to the active mgr as an
+        MMgrReport (perf stays empty — the spans piggyback exactly
+        like the daemons').  Best-effort: no mgr, no spans, no error.
+        Returns the number of spans shipped."""
+        import json
+
+        from ..msg.message import MMgrReport
+
+        spans = self.tracer.drain()
+        if not spans:
+            return 0
+        try:
+            if self._mgr_addr is None:
+                reply = self.monc.command({"prefix": "mgr stat"})
+                active = (
+                    json.loads(reply.outb).get("active")
+                    if reply.rc == 0
+                    else None
+                )
+                self._mgr_addr = active["addr"] if active else None
+            if self._mgr_addr is None:
+                return 0
+            host, _, port = self._mgr_addr.rpartition(":")
+            conn = self.messenger.connect(host, int(port), timeout=5.0)
+            conn.send(
+                MMgrReport(
+                    daemon=f"client.{self._client_id}",
+                    spans=json.dumps(spans),
+                )
+            )
+            return len(spans)
+        except (MessageError, OSError, ValueError, KeyError):
+            self._mgr_addr = None
+            return 0

@@ -1,0 +1,585 @@
+"""librados analog — the public client library
+(src/librados/librados_cxx.cc, RadosClient.cc, IoCtxImpl.cc).
+
+``Rados`` opens a cluster session (mon connect + map subscription,
+the RadosClient role); ``IoCtx`` is the per-pool I/O handle with the
+librados core surface: write_full/write/append/read/remove/stat,
+xattrs, object listing, and aio_* variants returning
+``concurrent.futures.Future`` (the librados completion model).
+
+All data ops route through the Objecter (osdc/) to the PG primary
+with retry-on-map-change; pool management routes through the monitor
+command surface exactly like the reference's pool ops.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import json
+
+from ..common.encoding import Decoder, Encoder
+from ..mon.monitor import MonClient
+from ..msg import Messenger
+from ..msg.message import (
+    OSD_FLAG_FULL_TRY,
+    OSD_OP_APPEND,
+    OSD_OP_CALL,
+    OSD_OP_DELETE,
+    OSD_OP_GETXATTR,
+    OSD_OP_LIST,
+    OSD_OP_NOTIFY,
+    OSD_OP_OMAPCLEAR,
+    OSD_OP_OMAPGET,
+    OSD_OP_OMAPRM,
+    OSD_OP_OMAPSET,
+    OSD_OP_READ,
+    OSD_OP_SETXATTR,
+    OSD_OP_STAT,
+    OSD_OP_UNWATCH,
+    OSD_OP_WATCH,
+    OSD_OP_WRITE,
+    OSD_OP_WRITEFULL,
+)
+from ..osdc import Objecter, ObjecterError, ObjectNotFound, RadosError
+
+__all__ = [
+    "IoCtx",
+    "ObjectNotFound",
+    "Rados",
+    "RadosError",
+]
+
+
+class Rados:
+    """Cluster handle (rados_t / RadosClient)."""
+
+    def __init__(self, name: str = "client"):
+        self.messenger = Messenger(name)
+        self.monc = MonClient(
+            self.messenger, on_map=self._on_map, whoami=-1
+        )
+        self.objecter = Objecter(self.monc, self.messenger)
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=4, thread_name_prefix=f"{name}.aio"
+        )
+        self._connected = False
+        # watch callbacks by cookie (librados watch handles)
+        self._watch_cbs: dict[int, object] = {}
+        self._watch_seq = __import__("itertools").count(1)
+        self.messenger.add_dispatcher(_WatchDispatcher(self))
+
+    def _on_map(self, epoch: int) -> None:
+        # linger re-registration does blocking RPC — never on the
+        # messenger loop thread (the map push arrives there)
+        if self.objecter._lingers:
+            self._pool.submit(self.objecter.handle_map_change, epoch)
+
+    def connect(self, mon_host: str, mon_port: int) -> "Rados":
+        self.monc.connect(mon_host, mon_port)
+        self._connected = True
+        return self
+
+    def connect_any(self, mon_addrs) -> "Rados":
+        """Connect to the first reachable monitor of a quorum; the
+        session fails over between monitors afterwards."""
+        self.monc.connect_any(mon_addrs)
+        self._connected = True
+        return self
+
+    def shutdown(self) -> None:
+        self._pool.shutdown(wait=False)
+        self.messenger.shutdown()
+
+    # -- pool surface (rados_pool_*) ---------------------------------------
+    def pool_lookup(self, name: str) -> int:
+        for pool_id, pname in self.monc.osdmap.pool_names.items():
+            if pname == name:
+                return pool_id
+        raise RadosError(f"pool {name!r} does not exist (-ENOENT)")
+
+    def pool_list(self) -> list[str]:
+        return sorted(self.monc.osdmap.pool_names.values())
+
+    def pool_create(self, name: str, **kwargs) -> int:
+        reply = self.monc.command(
+            {"prefix": "osd pool create", "pool": name, **kwargs}
+        )
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        out = json.loads(reply.outb)
+        # generous: on a loaded box the subscription push carrying
+        # the new pool can trail the command reply by many seconds
+        self.monc.wait_for_epoch(out["epoch"], timeout=30.0)
+        return out["pool_id"]
+
+    def pool_delete(self, name: str) -> None:
+        reply = self.monc.command(
+            {"prefix": "osd pool delete", "pool": name}
+        )
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+
+    def mon_command(self, cmd: dict):
+        """Raw mon command pass-through (rados_mon_command)."""
+        reply = self.monc.command(cmd)
+        return reply.rc, reply.outb, reply.outs
+
+    @property
+    def client_id(self) -> str:
+        """This client's cluster identity — the entity-addr analog
+        the OSDMap blocklist fences on (rados_get_addrs role)."""
+        return self.objecter._client_id
+
+    def blocklist_add(self, client_id: str, expire: float = 3600.0) -> None:
+        """Fence another client (rados_blocklist_add): every OSD
+        rejects its ops once the map propagates."""
+        reply = self.monc.command({
+            "prefix": "osd blocklist", "blocklistop": "add",
+            "addr": client_id, "expire": expire,
+        })
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        self.monc.wait_for_epoch(json.loads(reply.outb)["epoch"])
+
+    # -- scrub plane (the `ceph pg *` / `rados list-inconsistent-*`
+    # surface: mon names the primary, client dispatches to it) -------------
+    def pg_command(self, pgid: str, op: str, timeout: float = 15.0):
+        """Send a scrub-plane command (scrub | deep-scrub | repair |
+        list-inconsistent-obj) to the pg's primary OSD, retrying
+        across -EAGAIN (re-peering / moved primary) like any op."""
+        import time as _time
+
+        from ..msg.message import (
+            MessageError,
+            MMonCommandReply,
+            MScrubCommand,
+        )
+
+        try:
+            pool_id, ps = (int(x) for x in pgid.split("."))
+        except ValueError:
+            raise RadosError(f"bad pgid {pgid!r} (-EINVAL)") from None
+        if pool_id < 0 or ps < 0:
+            raise RadosError(f"bad pgid {pgid!r} (-EINVAL)")
+        deadline = _time.monotonic() + timeout
+        last = "no attempt"
+        while _time.monotonic() < deadline:
+            osdmap = self.monc.osdmap
+            pool = osdmap.pools.get(pool_id)
+            if pool is None:
+                raise RadosError(f"pool {pool_id} dne (-ENOENT)")
+            if ps >= pool.pg_num:
+                # reject immediately, like the mon's pg validation —
+                # retrying a pg that cannot exist would burn the
+                # whole deadline on -EAGAIN noise
+                raise RadosError(f"pg {pgid} dne (-ENOENT)")
+            _u, _upp, _a, primary = osdmap.pg_to_up_acting_osds(
+                pool_id, ps
+            )
+            addr = osdmap.osd_addrs.get(primary, "")
+            if primary < 0 or not addr:
+                last = f"pg {pgid} has no live primary"
+                _time.sleep(0.2)
+                continue
+            host, _, port = addr.rpartition(":")
+            try:
+                conn = self.messenger.connect(host, int(port))
+                reply = conn.call(
+                    MScrubCommand(
+                        tid=self.messenger.new_tid(),
+                        op=op, pgid=pgid,
+                    ),
+                    timeout=max(1.0, deadline - _time.monotonic()),
+                )
+            except (MessageError, OSError) as e:
+                last = str(e)
+                _time.sleep(0.2)
+                continue
+            if isinstance(reply, MMonCommandReply):
+                if reply.rc == -11:
+                    last = reply.outs
+                    _time.sleep(0.2)
+                    continue
+                return reply
+            last = f"unexpected reply {type(reply).__name__}"
+            _time.sleep(0.2)
+        raise RadosError(f"pg {pgid} {op} failed: {last}")
+
+    def pg_scrub(self, pgid: str, deep: bool = False) -> str:
+        """`ceph pg (deep-)scrub` — returns the primary's ack text."""
+        reply = self.pg_command(
+            pgid, "deep-scrub" if deep else "scrub"
+        )
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        return reply.outs
+
+    def pg_repair(self, pgid: str) -> str:
+        """`ceph pg repair` — authoritative-copy repair of recorded
+        inconsistencies, pushed through the recovery path."""
+        reply = self.pg_command(pgid, "repair")
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        return reply.outs
+
+    def list_inconsistent_obj(self, pgid: str) -> list[dict]:
+        """`rados list-inconsistent-obj <pgid>`: the pg's persisted
+        ScrubStore records (structured findings, post-hoc)."""
+        reply = self.pg_command(pgid, "list-inconsistent-obj")
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        return json.loads(reply.outb).get("inconsistents", [])
+
+    def open_ioctx(self, pool_name: str) -> "IoCtx":
+        return IoCtx(self, self.pool_lookup(pool_name))
+
+
+class _WatchDispatcher:
+    """Client-side MWatchNotify delivery: run the watch callback off
+    the loop thread and ack (the librados watch callback contract)."""
+
+    def __init__(self, rados: "Rados"):
+        self.rados = rados
+
+    def ms_dispatch(self, conn, msg) -> bool:
+        from ..msg import MWatchNotify, MWatchNotifyAck
+
+        if not isinstance(msg, MWatchNotify):
+            return False
+        cb = self.rados._watch_cbs.get(msg.cookie)
+
+        def deliver():
+            reply = b""
+            if cb is not None:
+                try:
+                    reply = cb(msg.payload) or b""
+                except Exception:  # noqa: BLE001 — user callback
+                    reply = b""
+            try:
+                conn.send(
+                    MWatchNotifyAck(
+                        tid=self.rados.messenger.new_tid(),
+                        notify_id=msg.notify_id,
+                        cookie=msg.cookie,
+                        reply=bytes(reply),
+                    )
+                )
+            except Exception:  # noqa: BLE001
+                pass
+
+        self.rados._pool.submit(deliver)
+        return True
+
+    def ms_handle_reset(self, conn) -> None:
+        pass
+
+
+class IoCtx:
+    """Per-pool I/O handle (rados_ioctx_t / IoCtxImpl)."""
+
+    def __init__(self, rados: Rados, pool_id: int):
+        self.rados = rados
+        self.pool_id = pool_id
+        # read snapshot context (rados_ioctx_snap_set_read): 0 = head
+        self.read_snap = 0
+        # writer SnapContext seq (rados_ioctx_selfmanaged_snap_
+        # set_write_ctx): 0 = follow the pool's snaps
+        self.write_snap_seq = 0
+        # rados_set_pool_full_try: mutations from this handle carry
+        # OSD_FLAG_FULL_TRY, so repair/delete traffic that FREES
+        # space still lands on a full OSD instead of parking on
+        # backoff
+        self.full_try = False
+        # dmclock QoS class every op from this handle carries (the
+        # mclock client-class tag; empty = the default client class)
+        self.qos_class = ""
+
+    def set_pool_full_try(self, enabled: bool = True) -> None:
+        self.full_try = bool(enabled)
+
+    def set_qos_class(self, qos: str) -> None:
+        """Tag every subsequent op from this handle with a scheduler
+        QoS class; primaries with a registered profile for it apply
+        that (reservation, weight, limit) triple."""
+        self.qos_class = str(qos)
+
+    def _submit(self, *args, **kwargs):
+        kwargs.setdefault("qos", self.qos_class)
+        return self.rados.objecter.op_submit(*args, **kwargs)
+
+    def _mut_flags(self, full_try: bool = False) -> int:
+        return (
+            OSD_FLAG_FULL_TRY
+            if (self.full_try or full_try)
+            else 0
+        )
+
+    # -- sync data ops -----------------------------------------------------
+    def write_full(self, oid: str, data: bytes) -> None:
+        self._submit(
+            self.pool_id, oid, OSD_OP_WRITEFULL, data=bytes(data),
+            snap_seq=self.write_snap_seq, flags=self._mut_flags(),
+        )
+
+    def write(self, oid: str, data: bytes, offset: int = 0) -> None:
+        self._submit(
+            self.pool_id, oid, OSD_OP_WRITE, offset=offset,
+            data=bytes(data), snap_seq=self.write_snap_seq,
+            flags=self._mut_flags(),
+        )
+
+    def append(self, oid: str, data: bytes) -> None:
+        """Atomic append: the offset resolves on the primary inside
+        the PG op stream (a client-side stat+write would race
+        concurrent appenders)."""
+        self._submit(
+            self.pool_id, oid, OSD_OP_APPEND, data=bytes(data),
+            snap_seq=self.write_snap_seq, flags=self._mut_flags(),
+        )
+
+    def read(
+        self,
+        oid: str,
+        length: int = -1,
+        offset: int = 0,
+        snapid: int | None = None,
+    ) -> bytes:
+        """``snapid`` overrides the ioctx read context for ONE call
+        (rbd clone parent reads pin their parent snap this way)."""
+        reply = self._submit(
+            self.pool_id, oid, OSD_OP_READ, offset=offset,
+            length=length,
+            snapid=self.read_snap if snapid is None else snapid,
+        )
+        return reply.data
+
+    def remove(self, oid: str, full_try: bool = False) -> None:
+        """``full_try`` lets THIS delete land on a full OSD
+        (OSD_FLAG_FULL_TRY) without flipping the whole handle —
+        the space-reclaim path out of OSD_FULL."""
+        self._submit(
+            self.pool_id, oid, OSD_OP_DELETE,
+            flags=self._mut_flags(full_try),
+        )
+
+    def stat(self, oid: str) -> int:
+        reply = self._submit(
+            self.pool_id, oid, OSD_OP_STAT, snapid=self.read_snap
+        )
+        return reply.size
+
+    # -- pool snapshots (rados_ioctx_snap_*) -------------------------------
+    def _pool(self):
+        return self.rados.monc.osdmap.pools[self.pool_id]
+
+    def snap_create(self, name: str) -> int:
+        pool_name = self.rados.monc.osdmap.pool_names[self.pool_id]
+        reply = self.rados.monc.command(
+            {"prefix": "osd pool mksnap", "pool": pool_name,
+             "snap": name}
+        )
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        out = json.loads(reply.outb)
+        self.rados.monc.wait_for_epoch(out["epoch"])
+        return out["snapid"]
+
+    def snap_remove(self, name: str) -> None:
+        pool_name = self.rados.monc.osdmap.pool_names[self.pool_id]
+        reply = self.rados.monc.command(
+            {"prefix": "osd pool rmsnap", "pool": pool_name,
+             "snap": name}
+        )
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        self.rados.monc.wait_for_epoch(json.loads(reply.outb)["epoch"])
+
+    def snap_list(self) -> dict[int, str]:
+        return dict(self._pool().snaps)
+
+    # -- self-managed snaps (rados_ioctx_selfmanaged_snap_*) ---------------
+    def set_snap_context(self, seq: int) -> None:
+        """Writer SnapContext for subsequent mutations: the primary's
+        make_writeable clones against THIS seq instead of the pool's
+        (per-op writer snapc, PrimaryLogPG.h:632)."""
+        self.write_snap_seq = int(seq)
+
+    def selfmanaged_snap_create(self) -> int:
+        """Allocate a snap id the CLIENT manages (librbd's snapshot
+        pattern): the pool tracks it as live for clone resolution and
+        trimming, but only writers carrying it in their snapc clone."""
+        pool_name = self.rados.monc.osdmap.pool_names[self.pool_id]
+        reply = self.rados.monc.command(
+            {
+                "prefix": "osd pool selfmanaged-snap create",
+                "pool": pool_name,
+            }
+        )
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        out = json.loads(reply.outb)
+        self.rados.monc.wait_for_epoch(out["epoch"])
+        return out["snapid"]
+
+    def selfmanaged_snap_remove(self, snapid: int) -> None:
+        pool_name = self.rados.monc.osdmap.pool_names[self.pool_id]
+        reply = self.rados.monc.command(
+            {
+                "prefix": "osd pool selfmanaged-snap rm",
+                "pool": pool_name,
+                "snapid": int(snapid),
+            }
+        )
+        if reply.rc != 0:
+            raise RadosError(reply.outs)
+        self.rados.monc.wait_for_epoch(
+            json.loads(reply.outb)["epoch"]
+        )
+
+    def snap_lookup(self, name: str) -> int:
+        for sid, sname in self._pool().snaps.items():
+            if sname == name:
+                return sid
+        raise RadosError(f"snap {name!r} not found (-ENOENT)")
+
+    def snap_set_read(self, snap: int | str) -> None:
+        """Route subsequent reads through a snapshot (0/"" = head)."""
+        if isinstance(snap, str):
+            snap = self.snap_lookup(snap) if snap else 0
+        self.read_snap = int(snap)
+
+    # -- watch/notify (rados_watch3 / rados_notify2) -----------------------
+    def watch(self, oid: str, callback) -> int:
+        """Register ``callback(payload) -> reply_bytes|None`` and
+        return the watch handle (cookie).  The watch lingers: it is
+        re-registered on every map change."""
+        # cookies must be cluster-unique (the reference keys
+        # watch_info by (entity, cookie)): the FULL 48-bit client id
+        # occupies the cookie's high bits — two clients can never
+        # share a persisted w_<cookie> record, so one client's
+        # unwatch cannot erase another's failover record (a truncated
+        # id birthday-collides around ~2k clients).  The low 16 bits
+        # are the per-client sequence (the cookie must fit the u64
+        # MOSDOp.offset wire field); when the sequence wraps past a
+        # still-live older watch we skip forward rather than silently
+        # clobber its callback and persisted record.
+        cid_hi = int(self.rados.objecter._client_id, 16) << 16
+        while True:
+            cookie = cid_hi | (next(self.rados._watch_seq) & 0xFFFF)
+            if cookie not in self.rados._watch_cbs:
+                break
+        self.rados._watch_cbs[cookie] = callback
+        self._submit(
+            self.pool_id, oid, OSD_OP_WATCH, offset=cookie
+        )
+        self.rados.objecter.linger_register(
+            cookie, self.pool_id, oid
+        )
+        return cookie
+
+    def unwatch(self, oid: str, cookie: int) -> None:
+        self.rados.objecter.linger_unregister(cookie)
+        self.rados._watch_cbs.pop(cookie, None)
+        self._submit(
+            self.pool_id, oid, OSD_OP_UNWATCH, offset=cookie
+        )
+
+    def notify(self, oid: str, payload: bytes = b"") -> list[dict]:
+        """Notify every watcher; returns their ack records."""
+        reply = self._submit(
+            self.pool_id, oid, OSD_OP_NOTIFY, data=bytes(payload)
+        )
+        return json.loads(reply.data) if reply.data else []
+
+    # -- xattrs ------------------------------------------------------------
+    def set_xattr(self, oid: str, name: str, value: bytes) -> None:
+        self._submit(
+            self.pool_id, oid, OSD_OP_SETXATTR, attr=name,
+            data=bytes(value), flags=self._mut_flags(),
+        )
+
+    def get_xattr(self, oid: str, name: str) -> bytes:
+        reply = self._submit(
+            self.pool_id, oid, OSD_OP_GETXATTR, attr=name,
+            snapid=self.read_snap,
+        )
+        return reply.data
+
+    # -- omap (rados_omap_* / IoCtxImpl omap ops) --------------------------
+    def omap_set(self, oid: str, kv: dict[str, bytes]) -> None:
+        e = Encoder()
+        e.map(
+            kv,
+            lambda e2, k: e2.string(k),
+            lambda e2, v: e2.bytes(bytes(v)),
+        )
+        self._submit(
+            self.pool_id, oid, OSD_OP_OMAPSET, data=e.getvalue(),
+            flags=self._mut_flags(),
+        )
+
+    def omap_get_vals(
+        self,
+        oid: str,
+        start_after: str = "",
+        max_return: int = -1,
+        snapid: int | None = None,
+    ) -> dict[str, bytes]:
+        reply = self._submit(
+            self.pool_id, oid, OSD_OP_OMAPGET,
+            attr=start_after, length=max_return,
+            snapid=self.read_snap if snapid is None else snapid,
+        )
+        return Decoder(reply.data).map(
+            lambda d: d.string(), lambda d: d.bytes()
+        )
+
+    def omap_rm_keys(self, oid: str, keys) -> None:
+        e = Encoder()
+        e.list(list(keys), lambda e2, k: e2.string(k))
+        self._submit(
+            self.pool_id, oid, OSD_OP_OMAPRM, data=e.getvalue(),
+            flags=self._mut_flags(),
+        )
+
+    def omap_clear(self, oid: str) -> None:
+        self._submit(
+            self.pool_id, oid, OSD_OP_OMAPCLEAR,
+            flags=self._mut_flags(),
+        )
+
+    def execute(
+        self, oid: str, cls: str, method: str, indata: bytes = b""
+    ) -> bytes:
+        """Object-class call (rados_exec / IoCtx::exec → the in-OSD
+        ClassHandler dispatch).  Carries the handle's FULL_TRY flag:
+        the OSD classifies CLS_WR methods as writes, so a reclaim
+        class call must not park on a full OSD."""
+        reply = self._submit(
+            self.pool_id, oid, OSD_OP_CALL,
+            attr=f"{cls}.{method}", data=bytes(indata),
+            flags=self._mut_flags(),
+        )
+        return reply.data
+
+    # -- listing (rados_nobjects_list*, the pgls walk) ---------------------
+    def list_objects(self) -> list[str]:
+        pool = self.rados.monc.osdmap.pools[self.pool_id]
+        names: set[str] = set()
+        for ps in range(pool.pg_num):
+            pgid = f"{self.pool_id}.{ps}"
+            reply = self._submit(
+                self.pool_id, "", OSD_OP_LIST, pgid=pgid
+            )
+            names.update(reply.names)
+        return sorted(names)
+
+    # -- async (librados completions) --------------------------------------
+    def aio_write_full(self, oid: str, data: bytes):
+        return self.rados._pool.submit(self.write_full, oid, data)
+
+    def aio_read(self, oid: str, length: int = -1, offset: int = 0):
+        return self.rados._pool.submit(self.read, oid, length, offset)
+
+    def aio_remove(self, oid: str):
+        return self.rados._pool.submit(self.remove, oid)

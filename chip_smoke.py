@@ -93,7 +93,7 @@ script exits non-zero:
    pipeline; one ``{"osdmap": ...}`` line;
 8. the EC sub-op wire and the durable stores, with the launch counts
    zeroed before and both non-zero after: one PG (isa k=8 m=3, stripe
-   unit 4096, 256 seeded objects of 4 MiB) whose 11 shards sit behind
+   unit 4096, 128 seeded objects of 4 MiB) whose 11 shards sit behind
    ``ShardServer``s, each on its own ``Messenger`` on 127.0.0.1 over a
    ``WALStore(device="cuda")`` fronting a ``BlockStore`` under
    ``build/``, with one client ``Messenger`` and 11 ``RemoteStore``s
@@ -112,8 +112,25 @@ script exits non-zero:
    transaction, a read and a ping; the host crc32c's thread-seconds by
    caller and a 2 ms sample of where the threads run during put and
    recovery; one ``{"wire": ...}`` line;
-9. one JSON line describing each kernel;
-10. the last line, ``{"ok": true, "device": {...}}``.
+9. the cluster, with the launch counts zeroed before and both non-zero
+   after: a ``Monitor`` on its own messenger, 12 ``OSD(device="cuda")``
+   daemons over ``MemStore`` and 2 ``Rados`` clients in this process; an
+   isa k=8 m=3 pool (from ``osd erasure-code-profile set``, stripe unit
+   4096) and a 3-replica pool, pg_num 16 each; 128 seeded objects of 4
+   MiB written through ``aio_write_full`` (8 of them queued behind one
+   stalled primary, so write coalescing must fire) and read back, 64
+   into the replicated pool; 16 RMW overwrites at stripe offsets; a deep
+   scrub of every EC PG (``pg_scrub``) clean, one byte of one shard
+   rotted in one OSD's store flagged as exactly that (object, shard),
+   ``pg_repair`` and a clean re-scrub; one OSD's messenger stopped and
+   the seconds until the monitor marks it down; degraded reads and
+   writes; ``osd out`` and the wait until every PG is active+clean on
+   the 12th OSD, every object read back; a daemon restarted on the
+   stopped OSD's store reloading its PGs; no crash report, no failed
+   recovery, no reactor left; GB/s, ``osd perf`` and the launch counts
+   beside the card's name and limit; one ``{"cluster": ...}`` line;
+10. one JSON line describing each kernel;
+11. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -122,6 +139,7 @@ nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import io
 import itertools
@@ -1547,7 +1565,7 @@ def phase_osdmap(smi: str, pool) -> dict:
             "phase_s": phase_s}
 
 
-WIRE_OBJECTS = 256
+WIRE_OBJECTS = 128  # half of phase 6's PG, so the script ends well inside its time limit
 WIRE_OBJECT_BYTES = 4 << 20  # the RADOS default object size
 WIRE_GRACE_S = 2.0  # osd_heartbeat_grace is 20 s; cut so detection waits 2
 WIRE_PING_S = 0.25  # one heartbeat round every 0.25 s
@@ -2069,6 +2087,406 @@ def phase_wire(smi: str) -> dict:
     return result
 
 
+CLUSTER_OSDS = 12  # isa k=8 m=3 takes 11 positions; the 12th is the recovery target
+CLUSTER_PG_NUM = 16
+CLUSTER_OBJECTS = 128  # 256 took 350 s after phases 1-8 on an H100 host (177 s alone)
+CLUSTER_OBJECT_BYTES = 4 << 20  # the RADOS default object size
+CLUSTER_REP_OBJECTS = 64
+CLUSTER_CLIENTS = 2  # each Rados runs 4 aio workers: 8 ops in flight
+CLUSTER_BURST = 8  # writes queued behind one stalled primary
+CLUSTER_OP_TIMEOUT_S = 60.0  # librados' rados_osd_op_timeout is 0 (no limit); the objecter's 15
+CLUSTER_RMW = 16
+CLUSTER_DEGRADED_SAMPLE = 32
+CLUSTER_DEGRADED_WRITES = 8
+CLUSTER_TICK_S = 0.5  # the OSD tick: one heartbeat round every 0.5 s
+CLUSTER_HB_GRACE_S = 20.0  # osd_heartbeat_grace
+CLUSTER_MAX_BACKFILLS = 8  # osd_max_backfills, raised from 2 as operators do to speed recovery
+CLUSTER_GRACE_S = 2.0  # cut from 20 s for the detection step only
+CLUSTER_LOST = 5  # the OSD whose messenger is stopped
+CLUSTER_WAIT_S = 300.0
+
+
+def _cluster_map(n: int):
+    from ceph_tpu_torch.crush.builder import CrushMap
+    from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW2, Tunables
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+
+    cmap = CrushMap(tunables=Tunables())
+    hosts = [cmap.add_bucket(CRUSH_BUCKET_STRAW2, 1, [h], [0x10000], name=f"host{h}")
+             for h in range(n)]
+    cmap.add_bucket(CRUSH_BUCKET_STRAW2, 3, hosts, [cmap.buckets[b].weight for b in hosts],
+                    name="default")
+    cmap.add_simple_rule("rep", "default", "host", mode="firstn")
+    return OSDMap.build(cmap, n)
+
+
+class _Cluster:
+    """A port monitor on its own messenger, ``n`` OSD daemons on
+    ``device`` over MemStore, and ``clients`` librados handles, all in
+    this process."""
+
+    def __init__(self, n: int, device: str, clients: int):
+        from ceph_tpu_torch.mon.monitor import Monitor
+        from ceph_tpu_torch.msg import Messenger
+        from ceph_tpu_torch.osd.daemon import OSD
+        from ceph_tpu_torch.rados import Rados
+
+        self.mon = Monitor(_cluster_map(n), min_reporters=2)
+        self.mon_msgr = Messenger("mon")
+        self.mon_msgr.add_dispatcher(self.mon)
+        self.mon_addr = self.mon_msgr.bind()
+        self.osds, self.stopped, self.clients = {}, {}, []
+        for i in range(n):
+            osd = OSD(i, tick_interval=CLUSTER_TICK_S, heartbeat_grace=CLUSTER_HB_GRACE_S,
+                      max_backfills=CLUSTER_MAX_BACKFILLS, device=device)
+            osd.boot(*self.mon_addr)
+            self.osds[i] = osd
+        self.clients = [Rados(f"smoke.{c}").connect(*self.mon_addr) for c in range(clients)]
+        for r in self.clients:
+            r.objecter.op_timeout = CLUSTER_OP_TIMEOUT_S
+        self.rados = self.clients[0]
+        self.pools: dict[str, int] = {}
+
+    def pg_states(self) -> dict:
+        out = {}
+        for osd in list(self.osds.values()):
+            for st in osd.collect_pg_stats():
+                out[st["pgid"]] = st["state"]
+        return out
+
+    def clean(self) -> bool:
+        want = {f"{p}.{ps}" for p in self.pools.values() for ps in range(CLUSTER_PG_NUM)}
+        states = self.pg_states()
+        return set(states) == want and all(v == "active+clean" for v in states.values())
+
+    def wait(self, cond, what: str, timeout: float = CLUSTER_WAIT_S) -> float:
+        from ceph_tpu_torch.msg.messenger import wait_for
+
+        t0 = time.perf_counter()
+        if not wait_for(cond, timeout, 0.05):
+            print(f"[9] {what}: pg states {self.pg_states()}", file=sys.stderr)
+            check(False, what)
+        return time.perf_counter() - t0
+
+    def pgid_of(self, pool: str, name: str) -> str:
+        from ceph_tpu_torch.osdc.objecter import object_to_pg
+
+        return object_to_pg(self.rados.monc.osdmap.pools[self.pools[pool]], name)
+
+    def acting(self, pgid: str) -> tuple[list, int]:
+        pool_id, ps = (int(x) for x in pgid.split("."))
+        _u, _p, acting, primary = self.rados.monc.osdmap.pg_to_up_acting_osds(pool_id, ps)
+        return list(acting), primary
+
+    def aio(self, calls) -> list:
+        """Run (pool, method, args) calls spread over every client's aio
+        workers; each must be acknowledged with success."""
+        futs = []
+        for i, (pool, method, args) in enumerate(calls):
+            io = self.clients[i % len(self.clients)].open_ioctx(pool)
+            futs.append(io.rados._pool.submit(getattr(io, method), *args))
+        return [f.result(timeout=CLUSTER_WAIT_S) for f in futs]
+
+    def shutdown(self) -> None:
+        for r in self.clients:
+            r.shutdown()
+        for osd in self.osds.values():
+            osd.shutdown()
+        self.mon_msgr.shutdown()
+
+
+def _cluster_scrub(c: _Cluster, pgid: str) -> tuple[list, float]:
+    """Order a deep scrub of ``pgid`` through its primary and wait for
+    it; returns the primary's findings and the seconds it took."""
+    _acting, primary = c.acting(pgid)
+    pg = c.osds[primary].pgs[pgid]
+    stamp = pg.last_deep_scrub
+    t0 = time.perf_counter()
+    check("deep-scrub" in c.rados.pg_scrub(pgid, deep=True), f"pg {pgid} refused a deep scrub")
+    c.wait(lambda: pg.last_deep_scrub != stamp, f"pg {pgid}'s deep scrub never finished")
+    return list(pg.scrub_errors), time.perf_counter() - t0
+
+
+def phase_cluster(smi: str, device: str = "cuda", objects: int = CLUSTER_OBJECTS,
+                  object_bytes: int = CLUSTER_OBJECT_BYTES,
+                  rep_objects: int = CLUSTER_REP_OBJECTS) -> dict:
+    """The cluster on the card: a monitor, 12 OSD daemons on ``device``
+    and librados clients, through the system's own write path."""
+    from ceph_tpu_torch.msg import NetworkStack
+    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
+    from ceph_tpu_torch.osd.daemon import OBJ_PREFIX, OSD
+    from ceph_tpu_torch.store import Transaction
+
+    rng = np.random.default_rng(SEED + 9)
+    block = rng.bytes(objects * object_bytes)
+    model = {f"obj{i:03d}": block[i * object_bytes:(i + 1) * object_bytes]
+             for i in range(objects)}
+    del block
+    rep_model = {f"rep{i:02d}": rng.bytes(object_bytes) for i in range(rep_objects)}
+    logical = objects * object_bytes
+    ks = kernel_stats()
+    c = _Cluster(CLUSTER_OSDS, device, CLUSTER_CLIENTS)
+    try:
+        rc, _b, outs = c.rados.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "isa83",
+            "profile": ["plugin=isa", "k=8", "m=3"]})
+        check(rc == 0, f"erasure-code-profile set: {outs}")
+        c.pools["ec"] = c.rados.pool_create("ecpool", pool_type=3, pg_num=CLUSTER_PG_NUM,
+                                            erasure_code_profile="isa83")
+        c.pools["rep"] = c.rados.pool_create("reppool", pg_num=CLUSTER_PG_NUM, size=3)
+        pool = c.rados.monc.osdmap.pools[c.pools["ec"]]
+        check(pool.size == 11 and pool.min_size == 9, f"EC pool size {pool.size}/{pool.min_size}")
+        boot_s = c.wait(c.clean, "the pools never went active+clean")
+        print(f"[9] monitor + {CLUSTER_OSDS} OSDs (device={device}) + {CLUSTER_CLIENTS} clients; "
+              f"isa k=8 m=3 pool and a 3-replica pool, pg_num {CLUSTER_PG_NUM} each, "
+              f"active+clean {boot_s:.2f} s after creation")
+        packed_gf.launches = 0
+        bitplane_gf.launches = 0
+        k0 = ks.dump()
+        t_phase = time.perf_counter()
+
+        # 1. put: a burst queued behind one stalled primary (write
+        # coalescing must fire), the rest from every client at once
+        names = list(model)
+        first = c.acting(c.pgid_of("ec", names[0]))[1]
+        burst = [n for n in names if c.acting(c.pgid_of("ec", n))[1] == first][:CLUSTER_BURST]
+        rest = [n for n in names if n not in set(burst)]
+        stalled = c.osds[first]
+        held, gate = threading.Event(), threading.Event()
+
+        def hold():
+            held.set()
+            return gate.wait(60)
+
+        stalled._workq.put(("splitcall", hold, concurrent.futures.Future()))
+        c.wait(held.is_set, f"osd.{first}'s worker never took the stall", 60)
+        base = stalled._workq.qlen()
+        t0 = time.perf_counter()
+        futs = []
+        for i, n in enumerate(burst):
+            io = c.clients[i % len(c.clients)].open_ioctx("ecpool")
+            futs.append(io.aio_write_full(n, model[n]))
+        c.wait(lambda: stalled._workq.qlen() >= base + len(burst), "the burst never queued", 60)
+        gate.set()
+        c.aio([("ecpool", "write_full", (n, model[n])) for n in rest])
+        for f in futs:
+            f.result(timeout=CLUSTER_WAIT_S)
+        put_s = time.perf_counter() - t0
+        perf_after_put = json.loads(c.rados.mon_command({"prefix": "osd perf"})[1] or "{}")
+        k1 = ks.dump()
+        dispatches = k1.get("l_tpu_batch_encode_dispatches", 0) - k0.get(
+            "l_tpu_batch_encode_dispatches", 0)
+        batch_ops = k1.get("l_tpu_batch_encode_ops_per_dispatch", 0) - k0.get(
+            "l_tpu_batch_encode_ops_per_dispatch", 0)
+        check(dispatches >= 1 and batch_ops > dispatches,
+              f"write coalescing never fired: {dispatches} dispatches, {batch_ops} ops")
+        t0 = time.perf_counter()
+        got = c.aio([("ecpool", "read", (n,)) for n in names])
+        get_s = time.perf_counter() - t0
+        for n, data in zip(names, got):
+            check(data == model[n], f"read back {n}")
+        t0 = time.perf_counter()
+        c.aio([("reppool", "write_full", (n, d)) for n, d in rep_model.items()])
+        rep_put_s = time.perf_counter() - t0
+        for n, data in zip(rep_model, c.aio([("reppool", "read", (n,)) for n in rep_model])):
+            check(data == rep_model[n], f"read back {n} (replicated)")
+        print(f"[9] put {objects} objects of {object_bytes} B through librados in {put_s:.3f} s "
+              f"({len(burst)} queued behind stalled osd.{first}); {dispatches} coalesced encode "
+              f"dispatches carried {batch_ops} ops; every object read back byte-equal in "
+              f"{get_s:.3f} s; {rep_objects} objects into the 3-replica pool in "
+              f"{rep_put_s:.3f} s, read back")
+
+        # 2. RMW partial overwrites at stripe offsets
+        sw = 8 * 4096
+        rmw = [str(n) for n in rng.choice(names, CLUSTER_RMW, replace=False)]
+        t0 = time.perf_counter()
+        for j, n in enumerate(rmw):
+            off = sw * (1 + j % max(1, object_bytes // sw - 2))
+            patch = rng.bytes(2 * 4096 + 100)
+            c.rados.open_ioctx("ecpool").write(n, patch, off)
+            buf = bytearray(model[n])
+            buf[off:off + len(patch)] = patch
+            model[n] = bytes(buf)
+        rmw_s = time.perf_counter() - t0
+        for n, data in zip(rmw, c.aio([("ecpool", "read", (n,)) for n in rmw])):
+            check(data == model[n], f"read back {n} after its RMW overwrite")
+        print(f"[9] {CLUSTER_RMW} RMW overwrites of {2 * 4096 + 100} B at stripe offsets in "
+              f"{rmw_s:.3f} s, read back")
+
+        # 3. deep scrub of every EC PG, rot, repair
+        ec_pgids = [f"{c.pools['ec']}.{ps}" for ps in range(CLUSTER_PG_NUM)]
+        crc0 = ks.dump().get("l_tpu_scrub_crc32c_calls", 0)
+        t0 = time.perf_counter()
+        for pgid in ec_pgids:
+            errs, _s = _cluster_scrub(c, pgid)
+            check(errs == [], f"deep scrub of a clean pg {pgid}: {errs[:3]}")
+        scrub_s = time.perf_counter() - t0
+        shard_len = object_bytes // 8
+        shard_bytes = objects * 11 * shard_len
+        victim = str(rng.choice(names))
+        vpg = c.pgid_of("ec", victim)
+        acting, primary = c.acting(vpg)
+        pos = next(i for i, o in enumerate(acting) if o != primary)
+        vstore = c.osds[acting[pos]].store
+        cid, soid = f"pg_{vpg}", OBJ_PREFIX + victim
+        good = vstore.read(cid, soid)
+        at = int(rng.integers(0, len(good)))
+        vstore.queue_transaction(Transaction().write(cid, soid, at, bytes([good[at] ^ 0x20])))
+        errs, rot_s = _cluster_scrub(c, vpg)
+        flagged = [(r["object"]["name"], r.get("corrupt")) for r in errs]
+        check(flagged == [(victim, [pos])],
+              f"scrub after rotting ({victim}, shard {pos}) flagged {flagged}")
+        check("repair" in c.rados.pg_repair(vpg), f"pg {vpg} refused repair")
+        c.wait(lambda: vstore.read(cid, soid) == good, "repair never rewrote the rotted shard")
+        errs, _s = _cluster_scrub(c, vpg)
+        check(errs == [], f"re-scrub after repair: {errs}")
+        check(c.rados.open_ioctx("ecpool").read(victim) == model[victim], "read after repair")
+        print(f"[9] deep scrub of all {len(ec_pgids)} EC PGs ({shard_bytes} B of shards) clean "
+              f"in {scrub_s:.3f} s; one byte of ({victim}, shard {pos}) on osd.{acting[pos]} "
+              f"rotted in its MemStore: flagged exactly that pair ({rot_s:.3f} s), pg repair "
+              f"rewrote it, re-scrub clean")
+
+        # 4. failure detection, degraded I/O, out, recovery
+        lost = c.osds[CLUSTER_LOST]
+        heads = {pgid: pg.log.head for pgid, pg in lost.pgs.items()}
+        for osd in c.osds.values():
+            osd.hb.grace = CLUSTER_GRACE_S
+        t0 = time.perf_counter()
+        lost.shutdown()
+        c.stopped[CLUSTER_LOST] = c.osds.pop(CLUSTER_LOST)
+        c.wait(lambda: not c.rados.monc.osdmap.is_up(CLUSTER_LOST),
+               f"the monitor never marked osd.{CLUSTER_LOST} down", 60)
+        detect_s = time.perf_counter() - t0
+        for osd in c.osds.values():
+            osd.hb.grace = CLUSTER_HB_GRACE_S
+        sample = [str(n) for n in rng.choice(names, CLUSTER_DEGRADED_SAMPLE, replace=False)]
+        t0 = time.perf_counter()
+        for n, data in zip(sample, c.aio([("ecpool", "read", (n,)) for n in sample])):
+            check(data == model[n], f"degraded read of {n}")
+        degraded_s = time.perf_counter() - t0
+        for i in range(CLUSTER_DEGRADED_WRITES):
+            model[f"deg{i}"] = rng.bytes(object_bytes)
+        t0 = time.perf_counter()
+        c.aio([("ecpool", "write_full", (f"deg{i}", model[f"deg{i}"]))
+               for i in range(CLUSTER_DEGRADED_WRITES)])
+        degraded_put_s = time.perf_counter() - t0
+        pushed0 = sum(o.perf.dump()["recovery_push_bytes"] for o in c.osds.values())
+        progress = []
+
+        def recovered() -> bool:
+            states = c.pg_states()
+            done = len(states) == 2 * CLUSTER_PG_NUM and all(
+                v == "active+clean" for v in states.values())
+            now = time.perf_counter() - t0
+            if not progress or done or now - progress[-1][0] >= 10.0:
+                progress.append((round(now, 1), sum(
+                    o.perf.dump()["recovery_pushes"] for o in c.osds.values()),
+                    sum(v != "active+clean" for v in states.values())))
+            return done
+
+        t0 = time.perf_counter()
+        rc, _b, outs = c.rados.mon_command({"prefix": "osd out", "id": CLUSTER_LOST})
+        check(rc == 0, f"osd out: {outs}")
+        with _HostSampler() as recover_where:
+            try:
+                c.wait(recovered, "recovery never reached active+clean")
+            finally:
+                print(f"[9] recovery progress (s, pushes, PGs not clean): {progress}")
+        recover_s = time.perf_counter() - t0
+        pushed = sum(o.perf.dump()["recovery_push_bytes"] for o in c.osds.values()) - pushed0
+        batches = sum(o.perf.dump()["recovery_batches"] for o in c.osds.values())
+        t0 = time.perf_counter()
+        all_names = list(model)
+        for n, data in zip(all_names, c.aio([("ecpool", "read", (n,)) for n in all_names])):
+            check(data == model[n], f"read of {n} after recovery")
+        for n, data in zip(rep_model, c.aio([("reppool", "read", (n,)) for n in rep_model])):
+            check(data == rep_model[n], f"read of {n} (replicated) after recovery")
+        get2_s = time.perf_counter() - t0
+        print(f"[9] osd.{CLUSTER_LOST}'s messenger stopped: marked down by the monitor after "
+              f"{detect_s:.3f} s (grace {CLUSTER_GRACE_S} s, a ping round every "
+              f"{CLUSTER_TICK_S} s); {len(sample)} degraded reads byte-equal in "
+              f"{degraded_s:.3f} s, {CLUSTER_DEGRADED_WRITES} degraded writes in "
+              f"{degraded_put_s:.3f} s; marked out: every PG active+clean {recover_s:.3f} s "
+              f"later ({pushed} B pushed, {batches} coalesced rebuilds); all "
+              f"{len(all_names) + rep_objects} objects read back byte-equal in {get2_s:.3f} s")
+
+        # 5. a daemon restarted on its store reloads its PGs
+        t0 = time.perf_counter()
+        again = OSD(CLUSTER_LOST + 100, store=c.stopped[CLUSTER_LOST].store, device=device)
+        try:
+            again.addr = ("", 0)
+            again._load_pgs()
+            reloaded = {pgid: pg.log.head for pgid, pg in again.pgs.items()}
+        finally:
+            again.messenger.shutdown()
+        reload_s = time.perf_counter() - t0
+        check(reloaded == heads and len(heads) > 0,
+              f"restart on the store reloaded {len(reloaded)} of {len(heads)} PGs")
+        print(f"[9] recovery, threads sampled every 2 ms: {json.dumps(recover_where.top())}")
+        print(f"[9] a daemon restarted on osd.{CLUSTER_LOST}'s store reloaded its {len(heads)} "
+              f"PGs with their log heads in {reload_s:.3f} s")
+
+        phase_s = time.perf_counter() - t_phase
+        counts = {"K1": packed_gf.launches, "K2": bitplane_gf.launches}
+        crc_calls = ks.dump().get("l_tpu_scrub_crc32c_calls", 0) - crc0
+        check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
+        every = list(c.osds.values()) + list(c.stopped.values())
+        crashes = [r for o in every for r in o._pending_crashes]
+        check(not crashes, f"a daemon queued a crash report: {[r['exception'] for r in crashes]}")
+        failed = sum(o.perf.dump()["recovery_failed"] for o in every)
+        check(failed == 0, f"{failed} recoveries were marked failed")
+        osd_perf = [(e["id"], e["perf_stats"]["commit_latency_ms"],
+                     e["perf_stats"]["apply_latency_ms"])
+                    for e in perf_after_put.get("osd_perf_infos", [])]
+        gbps = {
+            "put_GBps": logical / put_s / 1e9,
+            "get_GBps": logical / get_s / 1e9,
+            "rep_put_GBps": rep_objects * object_bytes / rep_put_s / 1e9,
+            "scrub_GBps": shard_bytes / scrub_s / 1e9,
+            "recover_GBps": pushed / recover_s / 1e9,
+            "get_degraded_GBps": len(sample) * object_bytes / degraded_s / 1e9,
+        }
+        print(f"[9] cluster phase took {phase_s:.1f} s; launches {counts}; device crc calls "
+              f"{crc_calls}; coalesced encodes {dispatches} ({batch_ops / dispatches:.2f} ops "
+              f"each)")
+        print(f"[9] on {smi.splitlines()[0]} (host clock): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in gbps.items()))
+        print(f"[9] osd perf after put (osd, commit ms, apply ms): {osd_perf}")
+        result = {
+            "card": smi.splitlines()[0],
+            "config": {"osds": CLUSTER_OSDS, "device": device, "clients": CLUSTER_CLIENTS,
+                       "ec_profile": "isa k=8 m=3", "stripe_unit": 4096,
+                       "pg_num": CLUSTER_PG_NUM, "objects": objects,
+                       "object_bytes": object_bytes, "rep_objects": rep_objects,
+                       "store": "MemStore", "heartbeat_grace_s": CLUSTER_HB_GRACE_S,
+                       "detect_heartbeat_grace_s": CLUSTER_GRACE_S, "tick_s": CLUSTER_TICK_S,
+                       "max_backfills": CLUSTER_MAX_BACKFILLS,
+                       "op_timeout_s": CLUSTER_OP_TIMEOUT_S},
+            **gbps,
+            "seconds": {"put": put_s, "get": get_s, "rep_put": rep_put_s, "rmw": rmw_s,
+                        "scrub": scrub_s, "rot_scrub": rot_s, "detect": detect_s,
+                        "degraded_get": degraded_s, "degraded_put": degraded_put_s,
+                        "recover": recover_s, "get_after_recovery": get2_s,
+                        "reload": reload_s, "phase": phase_s},
+            "detect_s": detect_s, "recovery_pushed_bytes": pushed,
+            "recovery_batches": batches, "recovery_progress": progress,
+            "recover_threads": recover_where.top(), "shard_bytes": shard_bytes,
+            "batch_encode": {"dispatches": dispatches, "ops": batch_ops},
+            "osd_perf_after_put": osd_perf, "launches": counts,
+            "device_crc32c_calls": crc_calls, "reloaded_pgs": len(reloaded),
+        }
+    finally:
+        c.shutdown()
+        for osd in c.stopped.values():
+            osd.shutdown()
+    from ceph_tpu_torch.msg.messenger import wait_for
+
+    check(wait_for(lambda: NetworkStack.live() is None, 10.0),
+          "a messenger reactor outlived the phase")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2087,6 +2505,7 @@ def main() -> int:
         store = phase_store(smi)
         osdmap = phase_osdmap(smi, pool)
     wire = phase_wire(smi)
+    cluster = phase_cluster(smi)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
     for key, name, replaces, label in (
@@ -2102,12 +2521,14 @@ def main() -> int:
             "library_ms": None, "library_note": note,
             "shape": "B=1024 k=8 m=3 chunk=131072 (1 GiB in)",
             "launches_by_path": {"main (3)": counts[key], "store (6)": store["launches"][key],
-                                 "wire (8)": wire["launches"][key]},
+                                 "wire (8)": wire["launches"][key],
+                                 "cluster (9)": cluster["launches"][key]},
         })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
     print(json.dumps({"osdmap": osdmap}))
     print(json.dumps({"wire": wire}))
+    print(json.dumps({"cluster": cluster}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ routes with their K2 launch counts; the CRUSH mapper's hash,
 resident scrub and compare with no upload, ``ECStore`` on ``cuda``
 against ``cpu``; the durable stores: ``build_scrub_map`` over BlockStore
 media and the WAL's replay verify on ``cuda`` against ``cpu`` and the
-host C crc.  Marked
+host C crc; port clusters (monitor, ``OSD(device="cuda")``, librados) of
+a replicated and an EC pool against the same on ``cpu``.  Marked
 ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -666,3 +667,93 @@ def test_wal_replay_on_the_card_verifies_and_truncates_like_cpu(cuda, tmp_path):
     assert results["cuda"] == results["cpu"]
     assert results["cuda"][0] == 5
     assert len(results["cuda"][2]) < len(log)
+
+
+def _port_cluster(n: int, device: str):
+    """A port monitor, ``n`` OSDs on ``device`` over MemStore, a client."""
+    from ceph_tpu_torch.crush.builder import CrushMap
+    from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW2, Tunables
+    from ceph_tpu_torch.mon.monitor import Monitor
+    from ceph_tpu_torch.msg import Messenger
+    from ceph_tpu_torch.osd.daemon import OSD
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.rados import Rados
+
+    cmap = CrushMap(tunables=Tunables())
+    hosts = [
+        cmap.add_bucket(CRUSH_BUCKET_STRAW2, 1, [h], [0x10000], name=f"host{h}")
+        for h in range(n)
+    ]
+    cmap.add_bucket(
+        CRUSH_BUCKET_STRAW2, 3, hosts, [cmap.buckets[b].weight for b in hosts], name="default"
+    )
+    cmap.add_simple_rule("rep", "default", "host", mode="firstn")
+    mon_msgr = Messenger("mon")
+    mon_msgr.add_dispatcher(Monitor(OSDMap.build(cmap, n), min_reporters=2))
+    addr = mon_msgr.bind()
+    osds = []
+    for i in range(n):
+        osd = OSD(i, tick_interval=0.2, heartbeat_grace=20.0, device=device)
+        osd.boot(*addr)
+        osds.append(osd)
+    return mon_msgr, osds, Rados(f"client-{device}").connect(*addr)
+
+
+def _port_cluster_bytes(n: int, device: str, ec: bool) -> dict:
+    """Seeded writes (full, at an offset, appended) into one pool of a
+    fresh port cluster on ``device``; returns every OSD's data objects
+    and the bytes read back."""
+    from ceph_tpu_torch.msg import NetworkStack
+    from ceph_tpu_torch.msg.messenger import wait_for
+
+    mon_msgr, osds, rados = _port_cluster(n, device)
+    try:
+        if ec:
+            rc, _b, outs = rados.mon_command({
+                "prefix": "osd erasure-code-profile set", "name": "p",
+                "profile": ["plugin=isa", "k=3", "m=2"],
+            })
+            assert rc == 0, outs
+            rados.pool_create("pool", pool_type=3, pg_num=4, erasure_code_profile="p")
+        else:
+            rados.pool_create("pool", pg_num=4, size=3)
+        io = rados.open_ioctx("pool")
+        rng = np.random.default_rng(9)
+        for i in range(8):
+            io.write_full(f"o{i}", rng.integers(0, 256, 1000 + 9000 * i, dtype=np.uint8).tobytes())
+        io.write("o3", b"W" * 5000, 4096)
+        io.append("o5", b"tail" * 100)
+        futs = [io.aio_write_full(f"a{i}", bytes([i]) * 20000) for i in range(8)]
+        for f in futs:
+            f.result(timeout=60)
+        reads = {oid: io.read(oid) for oid in io.list_objects()}
+        stored = {}
+        for osd in osds:
+            for cid in sorted(osd.store.list_collections()):
+                for oid in sorted(osd.store.list_objects(cid)):
+                    if oid.startswith("o_"):
+                        stored[(osd.whoami, cid, oid)] = (
+                            osd.store.read(cid, oid), dict(osd.store.list_attrs(cid, oid))
+                        )
+        return {"reads": reads, "stored": stored}
+    finally:
+        rados.shutdown()
+        for osd in osds:
+            osd.shutdown()
+        mon_msgr.shutdown()
+        assert wait_for(lambda: NetworkStack.live() is None, 10.0)
+
+
+@pytest.mark.parametrize("n,ec", [(3, False), (5, True)], ids=["replicated-3", "isa-k3m2-5"])
+def test_port_cluster_on_the_card_equals_cpu(cuda, n, ec):
+    """A 3-OSD replicated pool and a 5-OSD EC pool with ``OSD(device=
+    "cuda")``: the same writes leave the same bytes in every OSD's store
+    (shards, hinfo, xattrs) and read back the same as on ``cpu``; the
+    EC pool's encodes launched the kernels."""
+    before = packed_gf.launches + bitplane_gf.launches
+    card = _port_cluster_bytes(n, "cuda", ec)
+    if ec:
+        assert packed_gf.launches + bitplane_gf.launches > before
+    host = _port_cluster_bytes(n, "cpu", ec)
+    assert card["reads"] == host["reads"] and len(card["reads"]) == 16
+    assert card["stored"] == host["stored"]

@@ -2,8 +2,9 @@
 
 An AST scan of every module of the port and of chip_smoke.py, and a
 fresh interpreter that imports the port — its erasure-code plane, CRUSH,
-the OSD map and its mapping, the stores, residency, the profiler and the
-scrub functions — and finds
+the OSD map and its mapping, the stores, residency, the profiler, the
+scrub functions, the monitor, the OSD daemon, librados and the objecter —
+and finds
 no ``jax`` in ``sys.modules``.
 """
 
@@ -67,6 +68,12 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.store.wal_store, ceph_tpu_torch.store.blockstore\n"
         "import ceph_tpu_torch.store.kstore, ceph_tpu_torch.osd.failure\n"
         "import ceph_tpu_torch.osd.scrub, ceph_tpu_torch.tools.objectstore_tool\n"
+        "import ceph_tpu_torch.mon, ceph_tpu_torch.mon.monitor, ceph_tpu_torch.mgr.pgmap\n"
+        "import ceph_tpu_torch.osd.daemon, ceph_tpu_torch.osd.pg_log, ceph_tpu_torch.osd.scheduler\n"
+        "import ceph_tpu_torch.cls, ceph_tpu_torch.osdc, ceph_tpu_torch.osdc.objecter\n"
+        "import ceph_tpu_torch.rados, ceph_tpu_torch.tools.rados_cli\n"
+        "from ceph_tpu_torch.common import AdminSocket, Config, OpTracker, LogClient\n"
+        "import ceph_tpu_torch.common.crash\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
