@@ -269,6 +269,14 @@ class PG:
         self.large_omap: list[str] = []
 
 
+def _kernel_launches() -> dict:
+    """The process-global launch counts of the two CUDA kernels (each
+    wrapper counts where it launches; plain CPU runs count nothing)."""
+    from ..ops import bitplane_gf, packed_gf
+
+    return {"K1": packed_gf.launches, "K2": bitplane_gf.launches}
+
+
 @dataclass
 class _RecoveryOp:
     """One peer's in-flight async recovery (RecoveryOp,
@@ -442,6 +450,9 @@ class OSD(Dispatcher):
         )
         self.pgs: dict[str, PG] = {}
         self._pg_lock = lockdep.RMutex("osd.pg")
+        # activations received but not yet applied by the worker, per
+        # PG: a rep-op behind one waits for it instead of being NAKed
+        self._activations_queued: dict[str, int] = {}
         # the op worker drains a QoS-classed scheduler, not a FIFO:
         # peering/map events are strict, client ops and background
         # work (scrub, splits) share by weight or by dmclock QoS
@@ -583,6 +594,12 @@ class OSD(Dispatcher):
                 lambda args: self._dispatch_summary(args),
                 "per-kind device-dispatch rollup "
                 "(time split, occupancy, residency)",
+            )
+            self.admin.register_command(
+                "kernel launches",
+                lambda args: _kernel_launches(),
+                "launches of the GF(2^8) kernels K1 (packed) and K2 "
+                "(bitplane) in this process",
             )
             self.admin.start()
         self._shard_server = ShardServer(
@@ -881,8 +898,8 @@ class OSD(Dispatcher):
                         self._abort_pg_recovery(pgid)
                     continue
                 pg = self._get_or_create_pg(pgid)
-                if not pool.can_shift_osds() and self._shard_moved(pg, acting):
-                    pg = self._drop_moved_shards(pg)
+                if not pool.can_shift_osds():
+                    pg = self._drop_if_moved(pg, acting, primary)
                 interval = (tuple(acting), primary)
                 with self._pg_lock:
                     changed = pg.peered_interval != interval
@@ -952,14 +969,25 @@ class OSD(Dispatcher):
             return False
         return list(last[0]).index(self.whoami) != list(acting).index(self.whoami)
 
-    def _drop_moved_shards(self, pg: PG) -> PG:
+    def _drop_if_moved(self, pg: PG, acting, primary: int) -> PG:
+        """``pg`` itself, or a fresh copy if this OSD's position in the
+        erasure PG moved under ``acting`` (checked and dropped under one
+        hold of the PG lock, so the walk and a peer's query never drop
+        the same move twice)."""
+        with self._pg_lock:
+            pg = self.pgs.get(pg.pgid, pg)
+            if not self._shard_moved(pg, acting):
+                return pg
+            return self._drop_moved_shards(pg, (tuple(acting), primary))
+
+    def _drop_moved_shards(self, pg: PG, interval) -> PG:
         """Empty this OSD's copy of an erasure PG whose position here
-        moved, and start the PG over, so peering backfills it like a
-        new member.  The objects are named alike at every position (no
-        shard id in the name), so a kept shard of the old position
-        would be read as a survivor of the new one — and rebuild wrong
-        bytes wherever an overwrite (RMW) has dropped the HashInfo
-        hashes that would catch it."""
+        moved, and start the PG over in ``interval``, so peering
+        backfills it like a new member.  The objects are named alike at
+        every position (no shard id in the name), so a kept shard of
+        the old position would be read as a survivor of the new one —
+        and rebuild wrong bytes wherever an overwrite (RMW) has dropped
+        the HashInfo hashes that would catch it."""
         with self._pg_lock:
             names = self.store.list_objects(pg.cid)
             if names:
@@ -968,7 +996,7 @@ class OSD(Dispatcher):
                     txn.remove(pg.cid, name)
                 self.store.queue_transaction(txn)
             fresh = PG(pg.pgid, pg.pool_id)
-            fresh.current_interval = pg.current_interval
+            fresh.current_interval = interval
             self.pgs[pg.pgid] = fresh
         self._abort_pg_recovery(pg.pgid)
         dout(
@@ -1738,9 +1766,10 @@ class OSD(Dispatcher):
         ecs: ECStore, pos: int,
     ) -> MPGPush:
         """Attach the rebuilt shard + its HashInfo + the replicated
-        user/class attrs and omap to a push — the ONE assembly both
-        the per-op and the coalesced rebuild paths share (byte
-        identity between them rests on there being a single copy)."""
+        user/class attrs, the birth-snap stamp and omap to a push — the
+        ONE assembly both the per-op and the coalesced rebuild paths
+        share (byte identity between them rests on there being a single
+        copy)."""
         store_oid = OBJ_PREFIX + push.oid
         attrs = {HINFO_KEY: json.dumps(meta).encode()}
         # user/class attrs and omap replicate on every shard — take
@@ -1765,7 +1794,7 @@ class OSD(Dispatcher):
                 {
                     k: v
                     for k, v in src_attrs.items()
-                    if k.startswith(("u_", "c_"))
+                    if k.startswith(("u_", "c_")) or k == BORN_ATTR
                 }
             )
         push.exists = True
@@ -3004,6 +3033,15 @@ class OSD(Dispatcher):
     # -- replica-side inline handlers --------------------------------------
     def _handle_rep_op(self, conn: Connection, msg: MOSDRepOp) -> None:
         pg = self.pgs.get(msg.pgid)
+        if (pg is None or pg.activated_epoch == 0) and self._activations_queued.get(msg.pgid):
+            # the primary's activation came first on this connection
+            # and waits on the worker: apply this write after it, in
+            # order. A NAK here would leave an erasure write on the
+            # positions already active only, fewer than k of them
+            # when the pool is new, and the client's resend is then
+            # answered from the primary's reqid cache as done.
+            self._workq.put(("rep_op", conn, msg))
+            return
         reply = MOSDRepOpReply(tid=msg.tid, from_osd=self.whoami)
         top = self.op_tracker.create_op(
             f"rep_op({msg.trace} {msg.pgid})", trace=msg.trace
@@ -3047,6 +3085,19 @@ class OSD(Dispatcher):
 
     def _handle_query(self, conn: Connection, msg: MPGQuery) -> None:
         pg = self.pgs.get(msg.pgid)
+        osdmap = self.monc.osdmap
+        if pg is not None and osdmap is not None and osdmap.epoch >= msg.epoch:
+            # the primary peers at msg.epoch, and this OSD's walk of
+            # that map may not have run yet: a moved erasure position
+            # is dropped now, or the old position's log would answer
+            # for the new one and its backfill would be skipped
+            pool = osdmap.pools.get(pg.pool_id)
+            if pool is not None and not pool.can_shift_osds():
+                _up, _upp, acting, primary = osdmap.pg_to_up_acting_osds(
+                    pg.pool_id, int(msg.pgid.partition(".")[2])
+                )
+                if self.whoami in acting:
+                    pg = self._drop_if_moved(pg, acting, primary)
         notify = MPGNotify(tid=msg.tid, from_osd=self.whoami)
         if pg is not None:
             notify.info_blob = _encode_info(pg.info)
@@ -3336,6 +3387,10 @@ class OSD(Dispatcher):
             return True
         if isinstance(msg, MPGActivate):
             # rollback may re-pull objects (nested RPC) → worker queue
+            with self._pg_lock:
+                self._activations_queued[msg.pgid] = (
+                    self._activations_queued.get(msg.pgid, 0) + 1
+                )
             self._workq.put(("activate", conn, msg))
             return True
         if isinstance(msg, MPing):
@@ -3942,7 +3997,17 @@ class OSD(Dispatcher):
                     finally:
                         self.client_throttle.put(item[3])
             elif kind == "activate":
-                self._apply_activate(item[1], item[2])
+                try:
+                    self._apply_activate(item[1], item[2])
+                finally:
+                    with self._pg_lock:
+                        left = self._activations_queued.get(item[2].pgid, 1) - 1
+                        if left > 0:
+                            self._activations_queued[item[2].pgid] = left
+                        else:
+                            self._activations_queued.pop(item[2].pgid, None)
+            elif kind == "rep_op":
+                self._handle_rep_op(item[1], item[2])
             elif kind == "pull":
                 self._handle_pull(item[1], item[2])
             elif kind == "recover_push":
@@ -4098,6 +4163,11 @@ class OSD(Dispatcher):
                         if any(op.since == (0, 0) for op in ops)
                         else "recovering"
                     )
+                elif pg.peered_interval is None:
+                    # the last peering pass left a peer unrecovered (or
+                    # a replica missed a write): the tick re-peers it,
+                    # and until then the PG is not clean
+                    quals.append("recovery_wait")
                 if pg.scrub_errors:
                     quals.append("inconsistent")
                 if not quals:

@@ -1070,8 +1070,12 @@ class Scrubber:
     def _repair_ec(self, pg, run: _Run, rec: dict) -> None:
         """Rebuild bad shards from the survivors (decode path); for
         unattributable re-encode mismatches, decode the logical bytes
-        from the data shards and rewrite every divergent shard."""
+        from the data shards and rewrite every divergent shard.  A
+        rebuilt shard carries the object's birth-snap stamp, read from
+        a good shard, so snap reads on it still resolve."""
         osd = self.osd
+        from .daemon import BORN_ATTR
+
         oid = rec["object"]["name"]
         ecs = osd._ec_store_for(pg)
         codec = osd._ec_codec(pg)
@@ -1082,6 +1086,15 @@ class Scrubber:
                 if sh.get("errors") and sh.get("shard", -1) >= 0
             }
         )
+        born = None
+        for pos, st in enumerate(ecs.stores):
+            if pos in bad_pos:
+                continue
+            try:
+                born = st.getattr(pg.cid, oid, BORN_ATTR)
+                break
+            except StoreError:
+                continue
         meta = None
         try:
             meta = ecs.meta(oid)
@@ -1114,12 +1127,18 @@ class Scrubber:
                 txn.touch(pg.cid, oid)
                 txn.write(pg.cid, oid, 0, bytes(shards[pos]))
                 txn.setattr(pg.cid, oid, HINFO_KEY, blob)
+                if born is not None:
+                    txn.setattr(pg.cid, oid, BORN_ATTR, born)
                 ecs.stores[pos].queue_transaction(txn)
             return
         for pos in bad_pos:
             # hinfo-verified rebuild: corrupt helpers are filtered by
             # their own crc, the rebuilt shard must match its hash
             ecs.recover_shard(oid, pos, dict(meta))
+            if born is not None:
+                ecs.stores[pos].queue_transaction(
+                    Transaction().setattr(pg.cid, oid, BORN_ATTR, born)
+                )
 
     # -- completion --------------------------------------------------------
     def _finish(self, pg, run: _Run, aborted: bool = False) -> None:

@@ -1,0 +1,155 @@
+"""Cluster spec — the one JSON document the supervisor and every
+daemon process share (the ceph.conf seat, reduced to what this
+framework's daemons actually consume).
+
+Grammar (all keys present after ``plan()``)::
+
+    {
+      "dir":       "/path/cluster",      # stores, logs, spec.json
+      "mons":      3,                    # quorum trio (or 1)
+      "osds":      4,
+      "mgrs":      1,
+      "mds":       0,
+      "rgw":       0,
+      "memstore":  false,                # RAM stores (no persistence)
+      "wal":       false,                # WAL-front each OSD store
+      "mon_addrs": [["127.0.0.1", 6789], ...],   # one per mon rank
+      "rgw_ports": [8000, ...],          # one per rgw instance
+      "pool_size": 2,                    # replica count for pools
+      "device":    "cuda",               # where the mgr and OSDs compute
+      "osd_options": {},                 # OSD keyword arguments
+    }
+
+``osd_options`` carries the OSD settings a deployment tunes
+(``heartbeat_grace``, ``tick_interval``, ``max_backfills``) to every
+OSD process; empty keeps the daemon's defaults.
+
+Ports are assigned ONCE at plan time (free-port probe) and then
+pinned in the spec: a respawned mon/rgw must come back at the SAME
+address or the surviving quorum and clients could never find it —
+exactly why the reference pins mon addresses in the monmap.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import socket
+
+
+SPEC_FILENAME = "spec.json"
+
+
+def _free_ports(n: int) -> list[int]:
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class ClusterSpec:
+    """Planned cluster layout; serializable for child processes."""
+
+    def __init__(self, data: dict):
+        self.data = data
+
+    # -- construction -------------------------------------------------------
+    @classmethod
+    def plan(
+        cls,
+        dir: str,
+        mons: int = 3,
+        osds: int = 4,
+        mgrs: int = 1,
+        mds: int = 0,
+        rgw: int = 0,
+        memstore: bool = False,
+        wal: bool = False,
+        mon_port: int = 0,
+        rgw_port: int = 0,
+        device: str = "cuda",
+        osd_options: dict | None = None,
+    ) -> "ClusterSpec":
+        """Assign mon/rgw addresses and freeze the layout.  A nonzero
+        ``mon_port`` seeds consecutive ports from it (the vstart
+        fixed-port mode); 0 probes free ports."""
+        if mons < 1:
+            raise ValueError("need at least one mon")
+        if mon_port:
+            mon_ports = [mon_port + r for r in range(mons)]
+        else:
+            mon_ports = _free_ports(mons)
+        if rgw > 0:
+            rgw_ports = (
+                [rgw_port + i for i in range(rgw)]
+                if rgw_port
+                else _free_ports(rgw)
+            )
+        else:
+            rgw_ports = []
+        return cls(
+            {
+                "dir": str(dir),
+                "mons": int(mons),
+                "osds": int(osds),
+                "mgrs": int(mgrs),
+                "mds": int(mds),
+                "rgw": int(rgw),
+                "memstore": bool(memstore),
+                "wal": bool(wal),
+                "mon_addrs": [["127.0.0.1", p] for p in mon_ports],
+                "rgw_ports": rgw_ports,
+                "pool_size": min(3, max(1, int(osds))),
+                "device": str(device),
+                "osd_options": dict(osd_options or {}),
+            }
+        )
+
+    @classmethod
+    def load(cls, path: str | pathlib.Path) -> "ClusterSpec":
+        return cls(json.loads(pathlib.Path(path).read_text()))
+
+    def save(self, path: str | pathlib.Path | None = None) -> pathlib.Path:
+        p = (
+            pathlib.Path(path)
+            if path is not None
+            else self.dir / SPEC_FILENAME
+        )
+        p.parent.mkdir(parents=True, exist_ok=True)
+        tmp = p.with_suffix(".tmp")
+        tmp.write_text(json.dumps(self.data, indent=1))
+        tmp.replace(p)
+        return p
+
+    # -- accessors ----------------------------------------------------------
+    @property
+    def dir(self) -> pathlib.Path:
+        return pathlib.Path(self.data["dir"])
+
+    @property
+    def device(self) -> str:
+        return self.data.get("device", "cuda")
+
+    @property
+    def mon_addrs(self) -> list[tuple[str, int]]:
+        return [(h, int(p)) for h, p in self.data["mon_addrs"]]
+
+    def roles(self) -> list[str]:
+        """Every daemon role this spec places, in boot-phase order:
+        mons first (quorum), then mgrs, then OSDs, then gateways."""
+        out = [f"mon.{r}" for r in range(self.data["mons"])]
+        out += [f"mgr.{i}" for i in range(self.data["mgrs"])]
+        out += [f"osd.{i}" for i in range(self.data["osds"])]
+        out += [f"mds.{i}" for i in range(self.data["mds"])]
+        out += [f"rgw.{i}" for i in range(self.data["rgw"])]
+        return out
+
+    def log_path(self, role: str) -> pathlib.Path:
+        return self.dir / f"{role}.log"
+
+    def ready_path(self, role: str) -> pathlib.Path:
+        return self.dir / f"{role}.ready"

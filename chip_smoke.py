@@ -129,8 +129,27 @@ script exits non-zero:
    stopped OSD's store reloading its PGs; no crash report, no failed
    recovery, no reactor left; GB/s, ``osd perf`` and the launch counts
    beside the card's name and limit; one ``{"cluster": ...}`` line;
-10. one JSON line describing each kernel;
-11. the last line, ``{"ok": true, "device": {...}}``.
+10. the cluster as processes, what ``tools.cluster start --processes
+   --device cuda`` starts: 3 ``QuorumMonitor``s, a ``Manager`` and 12 OSD
+   processes on ``cuda`` (each its own CUDA context; the kernels built
+   once before the spawn; each child's residency cache at its 256 MiB
+   default) over a ``BlockStore`` each, under the supervisor; from this
+   process, 2 ``Rados`` clients: the same pools as phase 9, its 128 EC
+   and 64 replicated objects of 4 MiB put and read back byte-equal; the
+   leader monitor SIGKILLed, the seconds until the new quorum commits,
+   the monitor respawned and caught up (``mon_status``); one OSD process
+   SIGKILLed, the seconds to its mark-down at the reference's 20 s
+   grace, 32 degraded reads, ``osd out`` to every PG active+clean (the
+   manager's digest), every object read back; the OSD respawned on its
+   store, its PGs reloaded, rejoined and clean again; ``balancer on``
+   through the manager, its first plan equal to ``calc_pg_upmaps`` on
+   the CPU on a copy of the map it planned on; each OSD's kernel launch
+   counts over its admin socket (every EC primary's non-zero); each
+   process's card memory (``nvidia-smi``); a clean stop: no death but
+   the two planned, ``crash ls`` holding only those, nothing to reap;
+   one ``{"processes": ...}`` line;
+11. one JSON line describing each kernel;
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -141,6 +160,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import io
 import itertools
 import json
@@ -2106,6 +2126,16 @@ CLUSTER_LOST = 5  # the OSD whose messenger is stopped
 CLUSTER_WAIT_S = 300.0
 
 
+def _aio(clients, calls) -> list:
+    """Run (pool, method, args) calls spread over every client's aio
+    workers; each must be acknowledged with success."""
+    futs = []
+    for i, (pool, method, args) in enumerate(calls):
+        io = clients[i % len(clients)].open_ioctx(pool)
+        futs.append(io.rados._pool.submit(getattr(io, method), *args))
+    return [f.result(timeout=CLUSTER_WAIT_S) for f in futs]
+
+
 def _cluster_map(n: int):
     from ceph_tpu_torch.crush.builder import CrushMap
     from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW2, Tunables
@@ -2179,13 +2209,7 @@ class _Cluster:
         return list(acting), primary
 
     def aio(self, calls) -> list:
-        """Run (pool, method, args) calls spread over every client's aio
-        workers; each must be acknowledged with success."""
-        futs = []
-        for i, (pool, method, args) in enumerate(calls):
-            io = self.clients[i % len(self.clients)].open_ioctx(pool)
-            futs.append(io.rados._pool.submit(getattr(io, method), *args))
-        return [f.result(timeout=CLUSTER_WAIT_S) for f in futs]
+        return _aio(self.clients, calls)
 
     def shutdown(self) -> None:
         for r in self.clients:
@@ -2360,7 +2384,8 @@ def phase_cluster(smi: str, device: str = "cuda", objects: int = CLUSTER_OBJECTS
         detect_s = time.perf_counter() - t0
         for osd in c.osds.values():
             osd.hb.grace = CLUSTER_HB_GRACE_S
-        sample = [str(n) for n in rng.choice(names, CLUSTER_DEGRADED_SAMPLE, replace=False)]
+        sample = [str(n) for n in rng.choice(names, min(CLUSTER_DEGRADED_SAMPLE, objects),
+                                             replace=False)]
         t0 = time.perf_counter()
         for n, data in zip(sample, c.aio([("ecpool", "read", (n,)) for n in sample])):
             check(data == model[n], f"degraded read of {n}")
@@ -2487,6 +2512,444 @@ def phase_cluster(smi: str, device: str = "cuda", objects: int = CLUSTER_OBJECTS
     return result
 
 
+PROC_MONS = 3
+PROC_OSDS = 12  # isa k=8 m=3 takes 11 positions; the 12th is the recovery target
+PROC_OBJECTS = 128  # phase 9's EC objects
+PROC_REP_OBJECTS = 64
+PROC_CLIENTS = 2  # each Rados runs 4 aio workers: 8 ops in flight, as in phase 9
+PROC_LOST = 5  # the OSD process that is killed and later respawned
+PROC_OSD_OPTIONS = {
+    "heartbeat_grace": 20.0,  # osd_heartbeat_grace, the reference's
+    "tick_interval": 0.5,  # one heartbeat round every 0.5 s, as in phase 9
+    "max_backfills": 8,  # as in phase 9
+}
+PROC_CHILD_RESIDENCY = 256 << 20  # the residency cache's default capacity, for each child
+PROC_READY_S = 180.0
+
+
+class _ProcCluster:
+    """What ``tools.cluster start --processes`` starts: 3 monitors in a
+    quorum, a manager and one OSD process each over a BlockStore under
+    ``root``, on ``device``; and ``clients`` librados handles in this
+    process."""
+
+    def __init__(self, root: pathlib.Path, device: str, osds: int, clients: int):
+        from ceph_tpu_torch.msg import Messenger
+        from ceph_tpu_torch.proc import ClusterSpec, Supervisor
+        from ceph_tpu_torch.tools.cluster import prebuild_kernels
+
+        shutil.rmtree(root, ignore_errors=True)
+        self.spec = ClusterSpec.plan(root, mons=PROC_MONS, osds=osds, mgrs=1, device=device,
+                                     osd_options=PROC_OSD_OPTIONS)
+        # the kernels are built once, here: 12 nvcc runs at once would
+        # outlast the supervisor's ready timeout
+        prebuild_kernels(device)
+        self.sup = Supervisor(self.spec, extra_env={
+            "CEPH_TPU_RESIDENCY_BYTES": str(PROC_CHILD_RESIDENCY)})
+        self.clients = []
+        self.msgr = Messenger("smoke10")
+        self._mgr_conn = None
+        self.used = {"before_spawn": _card_used_mib(device)}
+        t0 = time.perf_counter()
+        try:
+            self.sup.start(ready_timeout=PROC_READY_S)
+        except BaseException:
+            # a child that failed its boot: stop the ones already up
+            self.msgr.shutdown()
+            self.sup.stop()
+            raise
+        self.ready_s = time.perf_counter() - t0
+        self.used["ready"] = _card_used_mib(device)
+        self.pools: dict[str, int] = {}
+
+    def connect(self, clients: int) -> None:
+        from ceph_tpu_torch.rados import Rados
+
+        self.clients = [Rados(f"smoke10.{c}").connect_any(self.spec.mon_addrs)
+                        for c in range(clients)]
+        for r in self.clients:
+            r.objecter.op_timeout = CLUSTER_OP_TIMEOUT_S
+        self.rados = self.clients[0]
+
+    def mon_status(self, rank: int) -> dict | None:
+        from ceph_tpu_torch.tools.leader_kills import mon_status
+
+        return mon_status(self.msgr, self.spec.mon_addrs[rank])
+
+    def leader(self) -> tuple[int, dict] | None:
+        """The leader of a quorum every live monitor agrees on."""
+        live = [r for r in range(PROC_MONS)
+                if self.sup.status()[f"mon.{r}"]["state"] == "running"]
+        st = {r: self.mon_status(r) for r in live}
+        if any(s is None or s["state"] not in ("leader", "peon") for s in st.values()):
+            return None
+        leaders = {s["leader"] for s in st.values()}
+        if len(leaders) != 1 or not set(live) <= set(st[live[0]]["quorum"]):
+            return None
+        lead = leaders.pop()
+        return lead, st[lead]
+
+    def mgr(self, cmd: dict) -> dict:
+        """A command to the active manager, answered as JSON."""
+        from ceph_tpu_torch.msg.message import MMonCommand
+
+        if self._mgr_conn is None or self._mgr_conn.is_closed:
+            rc, outb, outs = self.rados.mon_command({"prefix": "mgr stat"})
+            check(rc == 0, f"mgr stat: {outs}")
+            host, _, port = json.loads(outb)["active"]["addr"].rpartition(":")
+            self._mgr_conn = self.msgr.connect(host, int(port), timeout=10.0)
+        reply = self._mgr_conn.call(MMonCommand(cmd=json.dumps(cmd)), timeout=30.0)
+        check(reply.rc == 0, f"mgr {cmd['prefix']}: {reply.outs}")
+        return json.loads(reply.outb) if reply.outb else {}
+
+    def clean(self, since_epoch: int, n_pgs: int) -> bool:
+        """Every PG active+clean in the manager's digest, as reported by
+        primaries at ``since_epoch`` or later."""
+        pgs = self.mgr({"prefix": "pgmap dump"}).get("pgs", {})
+        return len(pgs) == n_pgs and all(
+            p["state"] == "active+clean" and p["reported_epoch"] >= since_epoch
+            for p in pgs.values())
+
+    def wait(self, cond, what: str, timeout: float = CLUSTER_WAIT_S) -> float:
+        from ceph_tpu_torch.msg.messenger import wait_for
+
+        t0 = time.perf_counter()
+        check(wait_for(cond, timeout, 0.25), what)
+        return time.perf_counter() - t0
+
+    def admin(self, osd: int, command) -> dict:
+        """A command over ``osd``'s admin socket (``spec.dir/osd.N.asok``)."""
+        from ceph_tpu_torch.common.admin_socket import admin_command
+
+        reply = admin_command(str(self.spec.dir / f"osd.{osd}.asok"), command)
+        check("ok" in reply, f"osd.{osd} {command}: {reply}")
+        return reply["ok"]
+
+    def aio(self, calls) -> list:
+        return _aio(self.clients, calls)
+
+    def shutdown(self) -> None:
+        for r in self.clients:
+            r.shutdown()
+        self.msgr.shutdown()
+        self.sup.stop()
+
+
+def _perf_value(dump: dict, key: str) -> int:
+    """A counter from an admin-socket ``perf dump`` (sets by name)."""
+    for counters in dump.values():
+        if key in counters:
+            v = counters[key]
+            return int(v["value"] if isinstance(v, dict) else v)
+    return 0
+
+
+def _card_used_mib(device: str) -> int | None:
+    """The card's memory in use (MiB, nvidia-smi ``memory.used``), all
+    processes together."""
+    if device != "cuda":
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return int(out.splitlines()[0])
+
+
+def _card_memory(sup, used: dict) -> dict:
+    """Card memory by process: nvidia-smi's per-process list, by role
+    where a pid it names is a child's (a sandbox may report other pids),
+    and the card's total in use at each step, whose growth over the
+    spawn divided by the card processes is the memory of each."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    roles = {c["pid"]: role for role, c in sup.status().items()}
+    apps = {}
+    for line in out.splitlines():
+        pid, _, mib = (x.strip() for x in line.partition(","))
+        if pid.isdigit():
+            apps[roles.get(int(pid), f"pid {pid}")] = int(mib)
+    card = sum(1 for role in roles.values() if role.startswith(("osd.", "mgr.")))
+    return {"apps": apps, "used_mib": used, "card_processes": card,
+            "per_process_mib_at_ready": (used["ready"] - used["before_spawn"]) / card}
+
+
+def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: int = 8,
+                    m: int = 3, objects: int = PROC_OBJECTS,
+                    object_bytes: int = CLUSTER_OBJECT_BYTES,
+                    rep_objects: int = PROC_REP_OBJECTS) -> dict:
+    """The cluster as processes: what ``tools.cluster start --processes
+    --device cuda`` starts, each OSD in its own process with its own
+    CUDA context, driven through librados from this process."""
+    rng = np.random.default_rng(SEED + 10)
+    block = rng.bytes(objects * object_bytes)
+    model = {f"obj{i:03d}": block[i * object_bytes:(i + 1) * object_bytes]
+             for i in range(objects)}
+    del block
+    rep_model = {f"rep{i:02d}": rng.bytes(object_bytes) for i in range(rep_objects)}
+    logical = objects * object_bytes
+    root = pathlib.Path(__file__).resolve().parent / "build" / "p10"
+    t_phase = time.perf_counter()
+    c = _ProcCluster(root, device, osds, PROC_CLIENTS)
+    stopped = False
+    try:
+        # 1. spawn to ready, and to quorum
+        quorum_s = c.ready_s + c.wait(lambda: c.leader() is not None, "no quorum formed", 60)
+        c.connect(PROC_CLIENTS)
+        roles = c.sup.status()
+        check(len(roles) == PROC_MONS + 1 + osds and len({r["pid"] for r in roles.values()}) ==
+              len(roles), f"not one process a daemon: {roles}")
+        rc, _b, outs = c.rados.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "isa",
+            "profile": ["plugin=isa", f"k={k}", f"m={m}"]})
+        check(rc == 0, f"erasure-code-profile set: {outs}")
+        c.pools["ec"] = c.rados.pool_create("ecpool", pool_type=3, pg_num=CLUSTER_PG_NUM,
+                                            erasure_code_profile="isa")
+        c.pools["rep"] = c.rados.pool_create("reppool", pg_num=CLUSTER_PG_NUM, size=3)
+        n_pgs = 2 * CLUSTER_PG_NUM
+        epoch0 = c.rados.monc.osdmap.epoch
+        active_s = c.wait(lambda: c.clean(epoch0, n_pgs), "the pools never went active+clean")
+        print(f"[10] {PROC_MONS} monitors, 1 manager, {osds} OSD processes (device={device}, "
+              f"BlockStore each) ready {c.ready_s:.2f} s after spawn, quorum at "
+              f"{quorum_s:.2f} s; isa k={k} m={m} and 3-replica pools active+clean "
+              f"{active_s:.2f} s after creation")
+
+        # 2. put and get through librados
+        names = list(model)
+        t0 = time.perf_counter()
+        c.aio([("ecpool", "write_full", (n, model[n])) for n in names])
+        put_s = time.perf_counter() - t0
+        c.used["after_put"] = _card_used_mib(device)
+        # the EC PGs' primaries while they encoded the puts
+        put_map = c.rados.monc.osdmap
+        ec_primaries = {put_map.pg_to_up_acting_osds(c.pools["ec"], ps)[3]
+                        for ps in range(CLUSTER_PG_NUM)}
+        t0 = time.perf_counter()
+        for n, data in zip(names, c.aio([("ecpool", "read", (n,)) for n in names])):
+            check(data == model[n], f"read back {n}")
+        get_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c.aio([("reppool", "write_full", (n, d)) for n, d in rep_model.items()])
+        rep_put_s = time.perf_counter() - t0
+        for n, data in zip(rep_model, c.aio([("reppool", "read", (n,)) for n in rep_model])):
+            check(data == rep_model[n], f"read back {n} (replicated)")
+        print(f"[10] put {objects} objects of {object_bytes} B in {put_s:.3f} s, read back "
+              f"byte-equal in {get_s:.3f} s; {rep_objects} into the 3-replica pool in "
+              f"{rep_put_s:.3f} s, read back")
+
+        # 3. the leader monitor killed; the new quorum commits; it rejoins
+        lead, lead_st = c.leader()
+        epoch = c.rados.monc.osdmap.epoch
+        c.sup.kill(f"mon.{lead}", hold=True)
+        t0 = time.perf_counter()
+
+        def committed() -> bool:
+            try:
+                rc, outb, _outs = c.rados.mon_command(
+                    {"prefix": "osd reweight", "id": 0, "weight": 1.0})
+            except Exception:  # noqa: BLE001 — no quorum yet: retried
+                return False
+            return rc == 0 and json.loads(outb).get("epoch", 0) > epoch
+
+        commit_s = c.wait(committed, "the new quorum never committed an epoch", 60)
+        new_lead, new_st = c.leader()
+        check(new_lead != lead, f"mon.{lead} still leads after its kill")
+        t0 = time.perf_counter()
+        c.sup.respawn(f"mon.{lead}")
+
+        def caught_up() -> bool:
+            st = [c.mon_status(r) for r in range(PROC_MONS)]
+            return (all(x is not None and x["state"] in ("leader", "peon") for x in st)
+                    and len({x["last_committed"] for x in st}) == 1)
+
+        catchup_s = c.wait(caught_up, f"mon.{lead} never caught up", 60)
+        print(f"[10] leader mon.{lead} SIGKILLed: mon.{new_lead} leads and committed epoch "
+              f"{epoch + 1} or later {commit_s:.3f} s later; mon.{lead} respawned and caught "
+              f"up to version {c.mon_status(lead)['last_committed']} in {catchup_s:.3f} s")
+
+        # 4. an OSD process killed and not respawned: detection, degraded
+        # reads, out, recovery, every object read back
+        launches_lost = c.admin(PROC_LOST, "kernel launches")
+        pushed0 = sum(_perf_value(c.admin(o, "perf dump"), "recovery_push_bytes")
+                      for o in range(osds) if o != PROC_LOST)
+        c.sup.kill(f"osd.{PROC_LOST}", hold=True)
+        t0 = time.perf_counter()
+        detect_s = c.wait(lambda: not c.rados.monc.osdmap.is_up(PROC_LOST),
+                          f"osd.{PROC_LOST} never marked down", 120)
+        sample = [str(n) for n in rng.choice(names, min(CLUSTER_DEGRADED_SAMPLE, objects),
+                                             replace=False)]
+        t0 = time.perf_counter()
+        for n, data in zip(sample, c.aio([("ecpool", "read", (n,)) for n in sample])):
+            check(data == model[n], f"degraded read of {n}")
+        degraded_s = time.perf_counter() - t0
+        rc, outb, outs = c.rados.mon_command({"prefix": "osd out", "id": PROC_LOST})
+        check(rc == 0, f"osd out: {outs}")
+        out_epoch = json.loads(outb)["epoch"]
+        t0 = time.perf_counter()
+        recover_s = c.wait(lambda: c.clean(out_epoch, n_pgs), "recovery never reached active+clean")
+        pushed = sum(_perf_value(c.admin(o, "perf dump"), "recovery_push_bytes")
+                     for o in range(osds) if o != PROC_LOST) - pushed0
+        t0 = time.perf_counter()
+        for n, data in zip(names, c.aio([("ecpool", "read", (n,)) for n in names])):
+            check(data == model[n], f"read of {n} after recovery")
+        for n, data in zip(rep_model, c.aio([("reppool", "read", (n,)) for n in rep_model])):
+            check(data == rep_model[n], f"read of {n} (replicated) after recovery")
+        get2_s = time.perf_counter() - t0
+        print(f"[10] osd.{PROC_LOST}'s process SIGKILLed: marked down after {detect_s:.3f} s "
+              f"(grace {PROC_OSD_OPTIONS['heartbeat_grace']} s); {len(sample)} degraded reads "
+              f"byte-equal in {degraded_s:.3f} s; marked out: every PG active+clean "
+              f"{recover_s:.3f} s later ({pushed} B pushed); all {objects + rep_objects} "
+              f"objects read back in {get2_s:.3f} s")
+
+        # 5. the OSD respawned on its store reloads its PGs and rejoins
+        t0 = time.perf_counter()
+        c.sup.respawn(f"osd.{PROC_LOST}")
+        c.sup.wait_ready([f"osd.{PROC_LOST}"], timeout=PROC_READY_S)
+        reloaded = c.sup.ready_info(f"osd.{PROC_LOST}")["pgs"]
+        c.wait(lambda: c.rados.monc.osdmap.is_up(PROC_LOST), f"osd.{PROC_LOST} never rejoined", 60)
+        rejoin_s = time.perf_counter() - t0
+        rejoin_epoch = c.rados.monc.osdmap.epoch
+        check(reloaded > 0, f"osd.{PROC_LOST} reloaded no PG")
+        clean2_s = c.wait(lambda: c.clean(rejoin_epoch, n_pgs),
+                          "the cluster never went clean after the rejoin")
+        print(f"[10] osd.{PROC_LOST} respawned on its store: {reloaded} PGs reloaded, up in the "
+              f"map {rejoin_s:.3f} s after the respawn, every PG active+clean {clean2_s:.3f} s "
+              f"later")
+
+        # 6. the balancer on, through the manager: its first plan equals
+        # calc_pg_upmaps on a copy of the map it planned on
+        from ceph_tpu_torch.osd.balancer import calc_pg_upmaps
+
+        snap = copy.deepcopy(c.rados.monc.osdmap)
+        c.mgr({"prefix": "balancer on"})
+        t0 = time.perf_counter()
+        c.wait(lambda: c.mgr({"prefix": "balancer status"})["plans_applied"] > 0,
+               "the balancer applied no plan", 60)
+        c.mgr({"prefix": "balancer off"})
+        balance_s = time.perf_counter() - t0
+        plans = c.mgr({"prefix": "balancer status"})["plans"]
+        first = plans[0]
+        check(first["epoch"] == snap.epoch,
+              f"the first plan was made at epoch {first['epoch']}, not {snap.epoch}")
+        before = dict(snap.pg_upmap_items)
+        calc_pg_upmaps(snap, max_deviation=1, max_changes=10, device="cpu")
+        expect = {f"{pid}.{ps}": [list(i) for i in items]
+                  for (pid, ps), items in snap.pg_upmap_items.items()
+                  if before.get((pid, ps)) != items}
+        check(first["plan"] == expect, f"balancer plan {first['plan']} != {expect}")
+        bal_epoch = c.rados.monc.osdmap.epoch
+        clean3_s = c.wait(lambda: c.clean(bal_epoch, n_pgs),
+                          "the cluster never went clean after the balancer's plan")
+        print(f"[10] balancer on through the manager: {len(plans)} plan(s) applied in "
+              f"{balance_s:.3f} s, the first ({len(first['plan'])} PG remaps at epoch "
+              f"{first['epoch']}) equal to calc_pg_upmaps(device='cpu') on a copy; clean "
+              f"again {clean3_s:.3f} s later")
+
+        # 7. the device-kernel counters of every OSD process
+        per_osd = {}
+        for o in range(osds):
+            got = c.admin(o, "kernel launches")
+            dump = c.admin(o, "perf dump")
+            if o == PROC_LOST:
+                got = {key: got[key] + launches_lost[key] for key in got}
+            per_osd[o] = {**got, "ec_encode_calls": _perf_value(dump, "l_tpu_ec_encode_calls"),
+                          "ec_decode_calls": _perf_value(dump, "l_tpu_ec_decode_calls"),
+                          "scrub_crc32c_calls": _perf_value(dump, "l_tpu_scrub_crc32c_calls")}
+        counts = {"K1": sum(v["K1"] for v in per_osd.values()),
+                  "K2": sum(v["K2"] for v in per_osd.values())}
+        if device == "cuda":
+            check(all(per_osd[o]["K1"] + per_osd[o]["K2"] > 0 for o in ec_primaries),
+                  f"an EC primary of the puts ({sorted(ec_primaries)}) launched no kernel: "
+                  f"{per_osd}")
+            check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
+        print(f"[10] kernel launches in the OSD processes {counts} (the EC primaries of the "
+              f"puts: {sorted(ec_primaries)}); by OSD "
+              f"{json.dumps({o: v for o, v in per_osd.items()})}")
+
+        # 8. each process's card memory
+        memory = {}
+        if device == "cuda":
+            c.used["end"] = _card_used_mib(device)
+            memory = _card_memory(c.sup, c.used)
+            print(f"[10] card memory (MiB, nvidia-smi): in use {json.dumps(c.used)}; "
+                  f"{memory['per_process_mib_at_ready']:.1f} a card process at ready "
+                  f"({memory['card_processes']} processes); per-process list "
+                  f"{json.dumps(memory['apps'])}")
+
+        # 9. a clean stop: the only process deaths are the two planned
+        # kills, and the crash reports the manager holds are theirs
+        planned = {f"mon.{lead}", f"osd.{PROC_LOST}"}
+        c.wait(lambda: any(r["entity_name"] == f"osd.{PROC_LOST}"
+                           for r in c.mgr({"prefix": "crash ls"})),
+               f"osd.{PROC_LOST}'s death never reached the manager", 60)
+        listing = c.mgr({"prefix": "crash ls"})
+        check(all(r["entity_name"] in planned and "SIGKILL" in r["exception"]
+                  for r in listing), f"crash reports besides the planned kills: {listing}")
+        st = c.sup.status()
+        restarts = {role: s["restarts"] for role, s in st.items() if s["restarts"]}
+        check(restarts == {f"mon.{lead}": 1, f"osd.{PROC_LOST}": 1},
+              f"process deaths other than the two planned kills: {st}")
+        check(all(s["state"] == "running" for s in st.values()), f"a child is not running: {st}")
+        pids = [s["pid"] for s in st.values()]
+        c.shutdown()
+        stopped = True
+        from ceph_tpu_torch.proc import Supervisor
+
+        reaped = Supervisor.reap_orphans(c.spec.dir)
+        alive = [p for p in pids if _pid_alive(p)]
+        check(reaped == [] and alive == [], f"left behind: reaped {reaped}, alive {alive}")
+        print(f"[10] stopped: no other death, crash ls holds the planned kills only "
+              f"({[r['entity_name'] for r in listing]}), no process left")
+        phase_s = time.perf_counter() - t_phase
+    finally:
+        if not stopped:
+            c.shutdown()
+    shutil.rmtree(root, ignore_errors=True)
+    gbps = {
+        "put_GBps": logical / put_s / 1e9,
+        "get_GBps": logical / get_s / 1e9,
+        "rep_put_GBps": rep_objects * object_bytes / rep_put_s / 1e9,
+        "recover_GBps": pushed / recover_s / 1e9,
+        "get_degraded_GBps": len(sample) * object_bytes / degraded_s / 1e9,
+    }
+    print(f"[10] process cluster phase took {phase_s:.1f} s; on {smi.splitlines()[0]} (host "
+          "clock): " + ", ".join(f"{key} {v:.3f}" for key, v in gbps.items()))
+    return {
+        "card": smi.splitlines()[0],
+        "config": {"mons": PROC_MONS, "mgrs": 1, "osds": osds, "device": device,
+                   "ec_profile": f"isa k={k} m={m}", "stripe_unit": 4096,
+                   "pg_num": CLUSTER_PG_NUM, "objects": objects, "object_bytes": object_bytes,
+                   "rep_objects": rep_objects, "store": "BlockStore(sync=False)",
+                   "clients": PROC_CLIENTS, "osd_options": PROC_OSD_OPTIONS,
+                   "child_residency_bytes": PROC_CHILD_RESIDENCY},
+        **gbps,
+        "seconds": {"ready": c.ready_s, "quorum": quorum_s, "pools_active": active_s,
+                    "put": put_s, "get": get_s, "rep_put": rep_put_s,
+                    "leader_kill_to_commit": commit_s, "mon_catch_up": catchup_s,
+                    "detect": detect_s, "degraded_get": degraded_s, "recover": recover_s,
+                    "get_after_recovery": get2_s, "rejoin": rejoin_s,
+                    "clean_after_rejoin": clean2_s, "balancer": balance_s,
+                    "clean_after_balancer": clean3_s, "phase": phase_s},
+        "recovery_pushed_bytes": pushed, "reloaded_pgs": reloaded,
+        "balancer_plans": len(plans), "balancer_first_plan_remaps": len(first["plan"]),
+        "launches": counts, "launches_by_osd": per_osd,
+        "ec_primaries_of_puts": sorted(ec_primaries), "card_memory_mib": memory,
+        "crash_ls": listing,
+    }
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2506,6 +2969,7 @@ def main() -> int:
         osdmap = phase_osdmap(smi, pool)
     wire = phase_wire(smi)
     cluster = phase_cluster(smi)
+    processes = phase_processes(smi)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
     for key, name, replaces, label in (
@@ -2522,13 +2986,15 @@ def main() -> int:
             "shape": "B=1024 k=8 m=3 chunk=131072 (1 GiB in)",
             "launches_by_path": {"main (3)": counts[key], "store (6)": store["launches"][key],
                                  "wire (8)": wire["launches"][key],
-                                 "cluster (9)": cluster["launches"][key]},
+                                 "cluster (9)": cluster["launches"][key],
+                                 "processes (10)": processes["launches"][key]},
         })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
     print(json.dumps({"osdmap": osdmap}))
     print(json.dumps({"wire": wire}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"processes": processes}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,8 @@ and the repair. The port's cluster loses an OSD, serves degraded I/O
 and recovers it; the JAX cluster takes the same writes whole, and the
 recovered positions must hold what it wrote. Not compared: map epochs
 (each cluster's OSDs boot and peer on their own clock, so a log entry's
-epoch and the PG info differ), timestamps, and once a shard has been
-rebuilt its birth-snap xattr (see ``_assert_same_stores``).
+epoch and the PG info differ), timestamps, and the birth-snap xattr of
+a shard the JAX cluster rebuilt (see ``_assert_same_stores``).
 
 The JAX package's isa codes lack the ``w`` that its stripe seam reads
 (ROADMAP §C), so its EC pool could not be written at all; the JAX
@@ -304,18 +304,21 @@ def _logs(cluster) -> dict:
     return out
 
 
-def _assert_same_stores(t, j, with_born: bool = False) -> None:
-    """Equal data objects at every position. An EC recovery push (and
-    an EC repair) writes the shard, its hinfo and the user and class
-    xattrs, not the birth-snap stamp (both packages'
-    ``_ec_push_assemble`` and ``Scrubber._repair_ec``), so once the
-    port's cluster has recovered, "sn_born" is left out."""
+def _assert_same_stores(t, j, ref_rebuilt=frozenset()) -> None:
+    """Equal data objects at every position, the birth-snap stamp
+    ("sn_born") included. The JAX daemon's EC recovery push and EC
+    repair write a rebuilt shard without that stamp (ROADMAP §C); the
+    port's write it. So on a shard the JAX cluster rebuilt, named in
+    ``ref_rebuilt`` as (pgid, osd, object), the port's side must carry
+    the stamp and only the JAX side is let off it."""
     mine, ref = _stored(t), _stored(j)
     assert sorted(mine) == sorted(ref)
     for key in ref:
-        if not with_born:
-            for got in (mine[key], ref[key]):
-                got[1].pop(tdaemon.BORN_ATTR, None)
+        pgid, _pos, osd, oid = key
+        if (pgid, osd, oid) in ref_rebuilt:
+            assert tdaemon.BORN_ATTR in mine[key][1], key
+            mine[key][1].pop(tdaemon.BORN_ATTR)
+            ref[key][1].pop(tdaemon.BORN_ATTR, None)
         assert mine[key] == ref[key], key
 
 
@@ -332,7 +335,7 @@ def test_serial_ops_equal(clusters):
 def test_stored_objects_and_logs_equal(clusters):
     t, j = clusters
     _wait(lambda: t.clean() and j.clean(), "clusters not clean")
-    _assert_same_stores(t, j, with_born=True)
+    _assert_same_stores(t, j)
     mine, ref = _logs(t), _logs(j)
     assert mine == ref
     assert sum(len(v) for v in mine.values()) >= 30
@@ -390,7 +393,7 @@ def test_coalesced_writes_equal_per_op(clusters):
     tio = t.rados.open_ioctx("ec")
     for oid, data in payloads.items():
         assert tio.read(oid) == data == jio.read(oid)
-    _assert_same_stores(t, j, with_born=True)
+    _assert_same_stores(t, j)
     assert _logs(t) == _logs(j)
 
 
@@ -450,7 +453,7 @@ def _flip_and_scrub(cluster, oid: str):
     good = bytes(raw)
     raw[len(raw) // 3] ^= 0x10
     store.queue_transaction(Transaction().write(pg.cid, store_oid, 0, bytes(raw)))
-    return pgid, primary, store, pg.cid, store_oid, good
+    return pgid, primary, victim, store, pg.cid, store_oid, good
 
 
 def _deep_scrub(cluster, pgid: str, primary) -> list:
@@ -466,7 +469,7 @@ def test_deep_scrub_flags_same_shard_and_repairs(clusters):
     for c in clusters:
         io = c.rados.open_ioctx("ec")
         io.write_full("scrubbed", bytes(range(256)) * 160)
-        pgid, primary, store, cid, store_oid, good = _flip_and_scrub(c, "scrubbed")
+        pgid, primary, victim, store, cid, store_oid, good = _flip_and_scrub(c, "scrubbed")
         recs = _deep_scrub(c, pgid, primary)
         found.append(
             sorted(
@@ -481,7 +484,8 @@ def test_deep_scrub_flags_same_shard_and_repairs(clusters):
         assert io.read("scrubbed") == bytes(range(256)) * 160
     assert found[0] == found[1]
     assert len(found[0]) == 1 and found[0][0][0] == "scrubbed" and len(found[0][0][1]) == 1
-    _assert_same_stores(*clusters)
+    # the JAX cluster's repair was the last loop pass
+    _assert_same_stores(*clusters, ref_rebuilt={(pgid, victim, store_oid)})
 
 
 @pytest.mark.parametrize("writer", ["torch", "jax"])

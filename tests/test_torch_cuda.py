@@ -10,7 +10,9 @@ resident scrub and compare with no upload, ``ECStore`` on ``cuda``
 against ``cpu``; the durable stores: ``build_scrub_map`` over BlockStore
 media and the WAL's replay verify on ``cuda`` against ``cpu`` and the
 host C crc; port clusters (monitor, ``OSD(device="cuda")``, librados) of
-a replicated and an EC pool against the same on ``cpu``.  Marked
+a replicated and an EC pool against the same on ``cpu``; a process
+cluster (a monitor and 3 OSD processes on ``cuda``) whose reads equal
+the same cluster's on ``cpu``.  Marked
 ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -757,3 +759,46 @@ def test_port_cluster_on_the_card_equals_cpu(cuda, n, ec):
     host = _port_cluster_bytes(n, "cpu", ec)
     assert card["reads"] == host["reads"] and len(card["reads"]) == 16
     assert card["stored"] == host["stored"]
+
+
+def _process_cluster_reads(tmp_path, device: str) -> dict:
+    from ceph_tpu_torch.proc import ClusterSpec, Supervisor
+    from ceph_tpu_torch.rados import Rados
+
+    spec = ClusterSpec.plan(tmp_path / device, mons=1, osds=3, mgrs=0, device=device)
+    sup = Supervisor(spec, report_interval=3600.0)
+    client = None
+    try:
+        sup.start(ready_timeout=120)
+        client = Rados(f"proc-{device}").connect_any(spec.mon_addrs)
+        client.objecter.op_timeout = 60.0
+        rc, _b, outs = client.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "p",
+            "profile": ["plugin=isa", "k=2", "m=1"],
+        })
+        assert rc == 0, outs
+        client.pool_create("ec", pool_type=3, pg_num=4, erasure_code_profile="p", min_size=2)
+        io = client.open_ioctx("ec")
+        rng = np.random.default_rng(12)
+        for i in range(8):
+            io.write_full(f"o{i}", rng.integers(0, 256, 1000 + 30000 * i, dtype=np.uint8).tobytes())
+        io.write("o3", b"W" * 5000, 4096)
+        reads = {oid: io.read(oid) for oid in io.list_objects()}
+        dead = [r for r, c in sup.status().items() if c["state"] != "running"]
+        assert not dead, dead
+        return reads
+    finally:
+        if client is not None:
+            client.shutdown()
+        sup.stop()
+
+
+def test_process_cluster_on_the_card_equals_cpu(cuda, tmp_path):
+    """A monitor and 3 OSD processes with ``device="cuda"`` (each its own
+    CUDA context) serve the reads the same cluster serves on ``cpu``."""
+    from ceph_tpu_torch.tools.cluster import prebuild_kernels
+
+    prebuild_kernels("cuda")
+    card = _process_cluster_reads(tmp_path, "cuda")
+    host = _process_cluster_reads(tmp_path, "cpu")
+    assert card == host and len(card) == 8

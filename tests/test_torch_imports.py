@@ -1,17 +1,20 @@
 """ceph_tpu_torch stands alone: no JAX and nothing of ceph_tpu.
 
-An AST scan of every module of the port and of chip_smoke.py, and a
-fresh interpreter that imports the port — its erasure-code plane, CRUSH,
-the OSD map and its mapping, the stores, residency, the profiler, the
-scrub functions, the monitor, the OSD daemon, librados and the objecter —
-and finds
-no ``jax`` in ``sys.modules``.
+An AST scan of every module of the port and of chip_smoke.py (imports,
+and string constants that name a ``ceph_tpu.`` module, such as a child
+process's ``-m`` argument), and a fresh interpreter that imports the
+port — its erasure-code plane, CRUSH, the OSD map and its mapping, the
+stores, residency, the profiler, the scrub functions, the monitor and
+its quorum, the manager, the process runtime, the cluster tools, the
+OSD daemon, librados and the objecter — and finds no ``jax`` in
+``sys.modules``.
 """
 
 from __future__ import annotations
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -19,6 +22,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "ceph_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+# a dotted ceph_tpu module name inside a string ("-m", "ceph_tpu.proc.daemon")
+_NAMED = re.compile(r"(?<![\w./])ceph_tpu\.[A-Za-z_]")
 
 
 def _forbidden(name: str) -> bool:
@@ -45,6 +52,12 @@ def test_no_jax_or_ceph_tpu_import(path):
             and _forbidden(str(node.args[0].value))
         ):
             bad.append(node.args[0].value)
+        elif (
+            isinstance(node, ast.Constant)
+            and isinstance(node.value, str)
+            and _NAMED.search(node.value)
+        ):
+            bad.append(f"string at line {node.lineno}: {_NAMED.search(node.value).group()}")
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -74,6 +87,11 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.rados, ceph_tpu_torch.tools.rados_cli\n"
         "from ceph_tpu_torch.common import AdminSocket, Config, OpTracker, LogClient\n"
         "import ceph_tpu_torch.common.crash\n"
+        "import ceph_tpu_torch.mon.quorum, ceph_tpu_torch.mgr, ceph_tpu_torch.mgr.progress\n"
+        "import ceph_tpu_torch.mgr.slo, ceph_tpu_torch.proc, ceph_tpu_torch.proc.daemon\n"
+        "import ceph_tpu_torch.tools.cluster, ceph_tpu_torch.tools.ceph_cli\n"
+        "import ceph_tpu_torch.tools.monstore_tool, ceph_tpu_torch.tools.dencoder\n"
+        "import ceph_tpu_torch.tools.leader_kills\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
