@@ -138,12 +138,16 @@ def packed_matrix_stripes(bm, stripes: torch.Tensor) -> torch.Tensor:
         return packed_stripes_plain(bm, stripes)
     _check(bm, stripes)
     b, k, chunk = stripes.shape
-    if stripes.data_ptr() % 4 or stripes.stride(0) % 4 or stripes.stride(1) % 4:
-        raise ValueError("packed kernel needs 4-byte aligned stripe rows")
-    bm = bm.to(device=stripes.device, dtype=torch.uint8).contiguous()
     out = torch.empty(
         (b, bm.shape[0] // 8, chunk), dtype=torch.uint8, device=stripes.device
     )
+    if out.numel() == 0:
+        # nothing to compute (a zero-length object's shards): an empty
+        # tensor's strides are 1, which the alignment test would refuse
+        return out
+    if stripes.data_ptr() % 4 or stripes.stride(0) % 4 or stripes.stride(1) % 4:
+        raise ValueError("packed kernel needs 4-byte aligned stripe rows")
+    bm = bm.to(device=stripes.device, dtype=torch.uint8).contiguous()
     _build.launch_stripes("gf8_packed_stripes", bm, stripes, out)
     m = out.shape[1]
     launches += 2 if m > 8 and m % 8 else 1

@@ -240,6 +240,16 @@ class PG:
         # pg log dups role): outlives trimmed entries so a late retry
         # still dedups AND replays its original result
         self.reqid_cache: dict[str, tuple] = {}
+        # reqids whose write an up acting member failed → (version,
+        # outdata, peer_gen at the failure): applied here, not acked.
+        # A resend answers -EAGAIN without applying it again until a
+        # later peering pass has brought that version to every up
+        # acting member; only then does it enter reqid_cache
+        self.reqid_pending: dict[str, tuple] = {}
+        # primary peering passes that recovered every peer they
+        # reached, and the peers the last pass reached
+        self.peer_gen = 0
+        self.peer_reached: frozenset = frozenset()
         # objects THIS osd (as primary) adopted log entries for but
         # could not pull yet (the primary's own missing set,
         # PeeringState::needs_recovery role): the stale local copy is
@@ -892,6 +902,7 @@ class OSD(Dispatcher):
                     pg = self.pgs.get(pgid)
                     if pg is not None:
                         pg.state = "stray"
+                        pg.reqid_pending.clear()
                         # no longer a member at all: any in-flight
                         # recovery this (ex-)primary was driving is
                         # for a dead interval
@@ -927,6 +938,7 @@ class OSD(Dispatcher):
                         if self._peer(pg, epoch):
                             pg.peered_interval = interval
                             pg.repop_clean = True
+                            pg.peer_gen += 1
                         else:
                             pg.peered_interval = None
                             pg.repop_clean = False
@@ -945,6 +957,10 @@ class OSD(Dispatcher):
                         # new interval: wait for the primary's
                         # activation before accepting rep-ops
                         pg.activated_epoch = 0
+                        # the new primary may roll back a write this
+                        # OSD applied but never acked: its resends
+                        # belong to that primary now
+                        pg.reqid_pending.clear()
                     pg.state = "replica"
                     pg.peered_interval = interval
         # snap trimming: clones stranded by removed pool snaps go
@@ -1158,6 +1174,7 @@ class OSD(Dispatcher):
         pg.state = "active"
         pg.activated_epoch = epoch
         pg.info.last_epoch_started = epoch
+        pg.peer_reached = frozenset(reachable)
         self._persist_info(pg)
         return all_ok
 
@@ -2497,11 +2514,12 @@ class OSD(Dispatcher):
             return self._mutate_ec(
                 pg, epoch, msg, store_oid, pre_encoded=pre_encoded
             )
-        if msg.reqid and msg.reqid in pg.reqid_cache:
+        done = self._replay_reqid(pg, msg.reqid)
+        if done is not None:
             # retried op already applied (osd_reqid_t dedup; the cache
             # outlives log trimming, like the log's dups) — replay the
             # original outdata so retried CALLs keep their result
-            return pg.reqid_cache[msg.reqid][1]
+            return done
         existed = self.store.exists(pg.cid, store_oid)
         if msg.op == OSD_OP_DELETE and not existed:
             # only the SAME client op retried is idempotent; a fresh
@@ -2708,10 +2726,6 @@ class OSD(Dispatcher):
         self._commit_grid.add(commit_lat, float(max(txn_bytes, 1)))
         self._commit_hist.add(commit_lat)
         pg.log.append(entry)
-        if msg.reqid:
-            pg.reqid_cache[msg.reqid] = (version, outdata)
-            while len(pg.reqid_cache) > 4 * self.log_keep:
-                pg.reqid_cache.pop(next(iter(pg.reqid_cache)))
         entry_blob = _encode_entry(entry)
         failed: list[int] = []
         for osd, txn in txn_by_osd.items():
@@ -2756,10 +2770,70 @@ class OSD(Dispatcher):
             # activation would otherwise NAK forever).
             pg.peered_interval = None
             self._workq.put(("map", epoch))
+            if msg.reqid:
+                self._remember_reqid(
+                    pg.reqid_pending, msg.reqid,
+                    (version, outdata, pg.peer_gen),
+                )
             raise StoreError(
                 f"replicas {live_failures} missed the write (-EAGAIN)"
             )
+        if msg.reqid:
+            self._remember_reqid(
+                pg.reqid_cache, msg.reqid, (version, outdata)
+            )
         self._maybe_trim(pg)
+        return outdata
+
+    def _remember_reqid(self, table: dict, reqid: str, value) -> None:
+        """Enter a reqid under the cache's trimming rule: the oldest
+        go past 4 × log_keep entries."""
+        table[reqid] = value
+        while len(table) > 4 * self.log_keep:
+            table.pop(next(iter(table)))
+
+    def _replay_reqid(self, pg: PG, reqid: str):
+        """The outdata to answer a resend of an applied write with, or
+        None for a new op. A write an up member failed stays pending:
+        its resend answers -EAGAIN until a peering pass after the
+        failure reached and recovered every up acting member (the
+        reference acks only once every acting member has committed)."""
+        if not reqid:
+            return None
+        hit = pg.reqid_cache.get(reqid)
+        if hit is not None:
+            return hit[1]
+        pending = pg.reqid_pending.get(reqid)
+        if pending is None:
+            return None
+        version, outdata, gen = pending
+        if version > pg.log.log_tail and not any(
+            e.version == version and e.reqid == reqid for e in pg.log.entries
+        ):
+            # this OSD's log no longer holds the write (an activation
+            # from a newer interval rewound it before the map walk made
+            # this OSD a replica): it is not applied, so the resend is
+            # a new op
+            del pg.reqid_pending[reqid]
+            return None
+        osdmap = self.monc.osdmap
+        settled = (
+            pg.peer_gen > gen
+            and pg.peered_interval is not None
+            and all(
+                osd in pg.peer_reached
+                for osd in pg.acting
+                if osd not in (self.whoami, CRUSH_ITEM_NONE)
+                and osdmap.is_up(osd)
+            )
+        )
+        if not settled:
+            raise StoreError(
+                f"write {version} not yet on every acting member "
+                "(-EAGAIN)"
+            )
+        del pg.reqid_pending[reqid]
+        self._remember_reqid(pg.reqid_cache, reqid, (version, outdata))
         return outdata
 
     def _mutate_ec(
@@ -2780,8 +2854,9 @@ class OSD(Dispatcher):
         stripe range is read/encoded/shipped, gated on pg.repop_clean
         so a range write can never land on a replica whose shard may
         be stale."""
-        if msg.reqid and msg.reqid in pg.reqid_cache:
-            return pg.reqid_cache[msg.reqid][1]
+        done = self._replay_reqid(pg, msg.reqid)
+        if done is not None:
+            return done
         osdmap = self.monc.osdmap
         pool = self._pool_of(pg)
         codec = self._ec_codec(pg)

@@ -116,7 +116,7 @@ script exits non-zero:
    after: a ``Monitor`` on its own messenger, 12 ``OSD(device="cuda")``
    daemons over ``MemStore`` and 2 ``Rados`` clients in this process; an
    isa k=8 m=3 pool (from ``osd erasure-code-profile set``, stripe unit
-   4096) and a 3-replica pool, pg_num 16 each; 128 seeded objects of 4
+   4096) and a 3-replica pool, pg_num 16 each; 64 seeded objects of 4
    MiB written through ``aio_write_full`` (8 of them queued behind one
    stalled primary, so write coalescing must fire) and read back, 64
    into the replicated pool; 16 RMW overwrites at stripe offsets; a deep
@@ -134,7 +134,7 @@ script exits non-zero:
    processes on ``cuda`` (each its own CUDA context; the kernels built
    once before the spawn; each child's residency cache at its 256 MiB
    default) over a ``BlockStore`` each, under the supervisor; from this
-   process, 2 ``Rados`` clients: the same pools as phase 9, its 128 EC
+   process, 2 ``Rados`` clients: the same pools as phase 9, 128 EC
    and 64 replicated objects of 4 MiB put and read back byte-equal; the
    leader monitor SIGKILLed, the seconds until the new quorum commits,
    the monitor respawned and caught up (``mon_status``); one OSD process
@@ -145,11 +145,36 @@ script exits non-zero:
    through the manager, its first plan equal to ``calc_pg_upmaps`` on
    the CPU on a copy of the map it planned on; each OSD's kernel launch
    counts over its admin socket (every EC primary's non-zero); each
-   process's card memory (``nvidia-smi``); a clean stop: no death but
-   the two planned, ``crash ls`` holding only those, nothing to reap;
+   process's card memory (``nvidia-smi``); then phase 11 on the same
+   fleet; a clean stop: no death but the planned ones (phase 11's
+   included), ``crash ls`` holding only those, nothing to reap;
    one ``{"processes": ...}`` line;
-11. one JSON line describing each kernel;
-12. the last line, ``{"ok": true, "device": {...}}``.
+11. block images on phase 10's fleet, each OSD's K1/K2 launches read
+   over its admin socket before and after each step: an isa k=8 m=3
+   pool (pg_num 16); through ``python -m ceph_tpu_torch.tools.rbd_cli``
+   as a process, a 1 GiB image created with exclusive-lock and
+   object-map (4 MiB objects, stripe_count 1) and ``info``, a seeded
+   1 GiB file ``import``ed (K1 must fire) and ``export``ed with an equal
+   sha256; 1024 seeded 4 KiB writes at distinct aligned offsets through
+   ``Image.aio_write``, 16 in flight (rbd bench's io-size and
+   io-threads), each read back, IOPS and p50/p99 latency; a snapshot, an
+   8 MiB overwrite, the read at the snapshot equal to the bytes before
+   it and ``rbd diff --from-snap`` listing exactly the touched objects;
+   an OSD holding data positions of the image's PGs SIGKILLed and
+   marked down, a degraded ``export`` equal to the image (K2 must fire),
+   the OSD respawned and every PG clean again; 64 MiB of 4 KiB writes
+   through the ObjectCacher (``cache=True``) flushed and read back
+   uncached; a journaled 64 MiB image on a 3-replica pool mirrored into
+   another pool by ``MirrorDaemon.replay_once``, then its tail; one
+   ``{"rbd": ...}`` line;
+12. the qa thrasher: the JAX package's tier-1 gate schedule (seed
+   20260807, 30 s, 3 OSDs) against 3 in-process ``OSD(device="cuda")``
+   over WAL-fronted MemStores, a monitor and a manager, under the
+   consistency oracle: zero violations, HEALTH_OK, at least half the
+   events applied; the events applied and skipped, ops, WAL records
+   replayed and the device crc calls; one ``{"thrash": ...}`` line;
+13. one JSON line describing each kernel;
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -2109,7 +2134,10 @@ def phase_wire(smi: str) -> dict:
 
 CLUSTER_OSDS = 12  # isa k=8 m=3 takes 11 positions; the 12th is the recovery target
 CLUSTER_PG_NUM = 16
-CLUSTER_OBJECTS = 128  # 256 took 350 s after phases 1-8 on an H100 host (177 s alone)
+# on an NVIDIA H100 80GB HBM3 at 700 W: 256 took 350 s after phases 1-8
+# (177 s alone); 128 took 115 s, and the script ran past 650 s once
+# phases 11 and 12 joined it
+CLUSTER_OBJECTS = 64
 CLUSTER_OBJECT_BYTES = 4 << 20  # the RADOS default object size
 CLUSTER_REP_OBJECTS = 64
 CLUSTER_CLIENTS = 2  # each Rados runs 4 aio workers: 8 ops in flight
@@ -2514,7 +2542,7 @@ def phase_cluster(smi: str, device: str = "cuda", objects: int = CLUSTER_OBJECTS
 
 PROC_MONS = 3
 PROC_OSDS = 12  # isa k=8 m=3 takes 11 positions; the 12th is the recovery target
-PROC_OBJECTS = 128  # phase 9's EC objects
+PROC_OBJECTS = 128  # phase 9's EC objects before its cut to 64
 PROC_REP_OBJECTS = 64
 PROC_CLIENTS = 2  # each Rados runs 4 aio workers: 8 ops in flight, as in phase 9
 PROC_LOST = 5  # the OSD process that is killed and later respawned
@@ -2617,6 +2645,12 @@ class _ProcCluster:
         check(wait_for(cond, timeout, 0.25), what)
         return time.perf_counter() - t0
 
+    def unclean(self) -> dict:
+        """The PGs the manager's digest holds as not active+clean."""
+        pgs = self.mgr({"prefix": "pgmap dump"}).get("pgs", {})
+        return {pgid: (p["state"], p["reported_epoch"]) for pgid, p in pgs.items()
+                if p["state"] != "active+clean"}
+
     def admin(self, osd: int, command) -> dict:
         """A command over ``osd``'s admin socket (``spec.dir/osd.N.asok``)."""
         from ceph_tpu_torch.common.admin_socket import admin_command
@@ -2679,10 +2713,14 @@ def _card_memory(sup, used: dict) -> dict:
 def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: int = 8,
                     m: int = 3, objects: int = PROC_OBJECTS,
                     object_bytes: int = CLUSTER_OBJECT_BYTES,
-                    rep_objects: int = PROC_REP_OBJECTS) -> dict:
+                    rep_objects: int = PROC_REP_OBJECTS, during=None) -> dict:
     """The cluster as processes: what ``tools.cluster start --processes
     --device cuda`` starts, each OSD in its own process with its own
-    CUDA context, driven through librados from this process."""
+    CUDA context, driven through librados from this process.
+    ``during(c, k, m)`` drives a later phase on the same fleet after
+    this one's numbers are read and before its crash and death audit;
+    its result is returned under ``"during"``, and the OSD it names
+    as ``"victim"`` was killed once on purpose."""
     rng = np.random.default_rng(SEED + 10)
     block = rng.bytes(objects * object_bytes)
     model = {f"obj{i:03d}": block[i * object_bytes:(i + 1) * object_bytes]
@@ -2754,7 +2792,16 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
             return rc == 0 and json.loads(outb).get("epoch", 0) > epoch
 
         commit_s = c.wait(committed, "the new quorum never committed an epoch", 60)
-        new_lead, new_st = c.leader()
+        agreed: list = []
+
+        def leader_agreed() -> bool:
+            # a monitor may still be settling into the new quorum when
+            # its first commit lands
+            agreed[:] = c.leader() or ()
+            return bool(agreed)
+
+        c.wait(leader_agreed, "the live monitors never agreed on a leader after the kill", 60)
+        new_lead = agreed[0]
         check(new_lead != lead, f"mon.{lead} still leads after its kill")
         t0 = time.perf_counter()
         c.sup.respawn(f"mon.{lead}")
@@ -2848,13 +2895,13 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
               f"again {clean3_s:.3f} s later")
 
         # 7. the device-kernel counters of every OSD process
+        launched = _launch_delta({o: {"K1": 0, "K2": 0} for o in range(osds)},
+                                 _launches_by_osd(c, osds), restarted={PROC_LOST: launches_lost})
         per_osd = {}
         for o in range(osds):
-            got = c.admin(o, "kernel launches")
             dump = c.admin(o, "perf dump")
-            if o == PROC_LOST:
-                got = {key: got[key] + launches_lost[key] for key in got}
-            per_osd[o] = {**got, "ec_encode_calls": _perf_value(dump, "l_tpu_ec_encode_calls"),
+            per_osd[o] = {**launched[o],
+                          "ec_encode_calls": _perf_value(dump, "l_tpu_ec_encode_calls"),
                           "ec_decode_calls": _perf_value(dump, "l_tpu_ec_decode_calls"),
                           "scrub_crc32c_calls": _perf_value(dump, "l_tpu_scrub_crc32c_calls")}
         counts = {"K1": sum(v["K1"] for v in per_osd.values()),
@@ -2878,19 +2925,25 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
                   f"({memory['card_processes']} processes); per-process list "
                   f"{json.dumps(memory['apps'])}")
 
-        # 9. a clean stop: the only process deaths are the two planned
+        phase_s = time.perf_counter() - t_phase
+        later = during(c, k, m) if during is not None else None
+
+        # 9. a clean stop: the only process deaths are the planned
         # kills, and the crash reports the manager holds are theirs
-        planned = {f"mon.{lead}", f"osd.{PROC_LOST}"}
-        c.wait(lambda: any(r["entity_name"] == f"osd.{PROC_LOST}"
-                           for r in c.mgr({"prefix": "crash ls"})),
-               f"osd.{PROC_LOST}'s death never reached the manager", 60)
+        kills = collections.Counter([f"mon.{lead}", f"osd.{PROC_LOST}"])
+        if later is not None:
+            kills[f"osd.{later['victim']}"] += 1
+        for role in kills:
+            if role.startswith("osd."):
+                c.wait(lambda: sum(r["entity_name"] == role
+                                   for r in c.mgr({"prefix": "crash ls"})) >= kills[role],
+                       f"{role}'s death never reached the manager", 60)
         listing = c.mgr({"prefix": "crash ls"})
-        check(all(r["entity_name"] in planned and "SIGKILL" in r["exception"]
+        check(all(r["entity_name"] in kills and "SIGKILL" in r["exception"]
                   for r in listing), f"crash reports besides the planned kills: {listing}")
         st = c.sup.status()
         restarts = {role: s["restarts"] for role, s in st.items() if s["restarts"]}
-        check(restarts == {f"mon.{lead}": 1, f"osd.{PROC_LOST}": 1},
-              f"process deaths other than the two planned kills: {st}")
+        check(restarts == dict(kills), f"process deaths other than the planned kills: {st}")
         check(all(s["state"] == "running" for s in st.values()), f"a child is not running: {st}")
         pids = [s["pid"] for s in st.values()]
         c.shutdown()
@@ -2902,7 +2955,6 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
         check(reaped == [] and alive == [], f"left behind: reaped {reaped}, alive {alive}")
         print(f"[10] stopped: no other death, crash ls holds the planned kills only "
               f"({[r['entity_name'] for r in listing]}), no process left")
-        phase_s = time.perf_counter() - t_phase
     finally:
         if not stopped:
             c.shutdown()
@@ -2936,7 +2988,416 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
         "balancer_plans": len(plans), "balancer_first_plan_remaps": len(first["plan"]),
         "launches": counts, "launches_by_osd": per_osd,
         "ec_primaries_of_puts": sorted(ec_primaries), "card_memory_mib": memory,
-        "crash_ls": listing,
+        "crash_ls": listing, "during": later,
+    }
+
+
+RBD_IMAGE_BYTES = 1 << 30  # a 1 GiB image
+RBD_OBJECT_BYTES = 4 << 20  # rbd_default_order 22
+RBD_IO_SIZE = 4096  # rbd bench --io-size default
+RBD_IO_THREADS = 16  # rbd bench --io-threads default
+RBD_RANDOM_WRITES = 1024  # cut from rbd bench's 1 GiB --io-total for the time budget
+RBD_OVERWRITE = 8 << 20
+RBD_CACHE_BYTES = 64 << 20
+RBD_MIRROR_BYTES = 64 << 20
+RBD_FEATURES = "exclusive-lock,object-map"
+RBD_DEGRADED_WRITES = 8  # whole objects rewritten while an OSD is down
+
+
+def _rbd_cli(c, pool: str, *args: str) -> tuple[str, float]:
+    """``python -m ceph_tpu_torch.tools.rbd_cli`` against the fleet, as
+    a process of its own: its stdout and its seconds."""
+    host, port = c.spec.mon_addrs[0]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.rbd_cli", "-m", f"{host}:{port}",
+         "-p", pool, *args],
+        capture_output=True, text=True, timeout=CLUSTER_WAIT_S,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    check(proc.returncode == 0, f"rbd {' '.join(args)}: rc {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def _launches_by_osd(c, osds: int) -> dict:
+    return {o: c.admin(o, "kernel launches") for o in range(osds)}
+
+
+def _encode_counters(c, osds: int) -> dict:
+    """Encode calls and coalesced batch-encode dispatches (and the ops
+    they carried) summed over the OSD processes' perf dumps."""
+    keys = ("l_tpu_ec_encode_calls", "l_tpu_batch_encode_dispatches",
+            "l_tpu_batch_encode_ops_per_dispatch")
+    dumps = [c.admin(o, "perf dump") for o in range(osds)]
+    return {key: sum(_perf_value(d, key) for d in dumps) for key in keys}
+
+
+def _launch_delta(before: dict, after: dict, restarted: dict | None = None) -> dict:
+    """Each OSD's K1/K2 launches between two reads; an OSD that was
+    respawned in between counts from 0 again, so its share is what it
+    launched up to its kill (``restarted[o]``) plus all since."""
+    out = {}
+    for o in after:
+        if restarted and o in restarted:
+            out[o] = {k: restarted[o][k] - before[o][k] + after[o][k] for k in ("K1", "K2")}
+        else:
+            out[o] = {k: after[o][k] - before[o][k] for k in ("K1", "K2")}
+    return out
+
+
+def _sum_launches(delta: dict) -> dict:
+    return {k: sum(v[k] for v in delta.values()) for k in ("K1", "K2")}
+
+
+def _patched_sha(path: pathlib.Path, size: int, patches: list | tuple = ()) -> str:
+    """sha256 of the file at ``path`` with ``patches`` ((offset, bytes),
+    later ones winning) written over it, streamed in object-size steps."""
+    import hashlib
+
+    h = hashlib.sha256()
+    step = RBD_OBJECT_BYTES
+    with open(path, "rb") as fh:
+        for off in range(0, size, step):
+            chunk = bytearray(fh.read(min(step, size - off)))
+            for p_off, data in patches:
+                lo, hi = max(off, p_off), min(off + len(chunk), p_off + len(data))
+                if lo < hi:
+                    chunk[lo - off:hi - off] = data[lo - p_off:hi - p_off]
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def phase_rbd(smi: str, c, device: str, k: int, m: int,
+              image_bytes: int = RBD_IMAGE_BYTES, object_bytes: int = RBD_OBJECT_BYTES,
+              random_writes: int = RBD_RANDOM_WRITES, overwrite: int = RBD_OVERWRITE,
+              cache_bytes: int = RBD_CACHE_BYTES, mirror_bytes: int = RBD_MIRROR_BYTES) -> dict:
+    """Block images on phase 10's process fleet: an isa k=m pool, rbd's
+    CLI as processes and librbd's ``Image`` from this process."""
+    from ceph_tpu_torch.rbd import Image, RBD
+    from ceph_tpu_torch.rbd.mirror import MirrorDaemon
+
+    rng = np.random.default_rng(SEED + 11)
+    osds = c.spec.data["osds"]
+    work = c.spec.dir / "rbd"
+    work.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    launches0 = _launches_by_osd(c, osds)
+
+    # 1. the pool, and an image through the CLI
+    c.pools["rbd"] = c.rados.pool_create("rbdpool", pool_type=3, pg_num=CLUSTER_PG_NUM,
+                                         erasure_code_profile="isa")
+    n_pgs = sum(p.pg_num for p in c.rados.monc.osdmap.pools.values())
+    epoch = c.rados.monc.osdmap.epoch
+    c.wait(lambda: c.clean(epoch, n_pgs), "the rbd pool never went active+clean")
+    _rbd_cli(c, "rbdpool", "create", "vol", "--size", str(image_bytes),
+             "--object-size", str(object_bytes), "--features", RBD_FEATURES)
+    info = json.loads(_rbd_cli(c, "rbdpool", "info", "vol")[0])
+    check(info["size"] == image_bytes and info["obj_size"] == object_bytes
+          and info["num_objs"] == image_bytes // object_bytes
+          and info["features"] == sorted(RBD_FEATURES.split(",")), f"rbd info vol: {info}")
+
+    # 2. import a seeded file, export it: the same bytes
+    src = work / "src.img"
+    with open(src, "wb") as fh:
+        for off in range(0, image_bytes, 64 << 20):
+            fh.write(rng.bytes(min(64 << 20, image_bytes - off)))
+    src_sha = _patched_sha(src, image_bytes)
+    before = _launches_by_osd(c, osds)
+    enc0 = _encode_counters(c, osds)
+    _out, import_s = _rbd_cli(c, "rbdpool", "import", str(src), "img",
+                              "--object-size", str(object_bytes), "--features", RBD_FEATURES)
+    import_delta = _launch_delta(before, _launches_by_osd(c, osds))
+    import_enc = {key: v - enc0[key] for key, v in _encode_counters(c, osds).items()}
+    out = work / "out.img"
+    before = _launches_by_osd(c, osds)
+    _out, export_s = _rbd_cli(c, "rbdpool", "export", "img", str(out))
+    export_delta = _launch_delta(before, _launches_by_osd(c, osds))
+    export_sha = _patched_sha(out, image_bytes)
+    out.unlink()
+    check(export_sha == src_sha, f"export {export_sha} != source {src_sha}")
+    import_k = _sum_launches(import_delta)
+    if device == "cuda":
+        check(import_k["K1"] > 0, f"the import's encodes launched no K1: {import_delta}")
+    print(f"[11] rbd import of {image_bytes} B in {import_s:.3f} s "
+          f"({image_bytes / import_s / 1e9:.4f} GB/s), export in {export_s:.3f} s "
+          f"({image_bytes / export_s / 1e9:.4f} GB/s), sha256 {export_sha} equal to the "
+          f"source; launches during the import {import_k} by OSD "
+          f"{json.dumps({o: v for o, v in import_delta.items() if v['K1'] or v['K2']})}; "
+          f"encode counters over the import {import_enc}")
+
+    io = c.rados.open_ioctx("rbdpool")
+    patches: list = []
+
+    # 3. rbd bench's shape: 4 KiB random writes, 16 in flight
+    blocks = rng.choice(image_bytes // RBD_IO_SIZE, random_writes, replace=False)
+    datas = [rng.bytes(RBD_IO_SIZE) for _ in blocks]
+    lat: list = []
+    before = _launches_by_osd(c, osds)
+    with Image(io, "img") as img:
+        window = collections.deque()
+        t0 = time.perf_counter()
+        for blk, data in zip(blocks, datas):
+            if len(window) >= RBD_IO_THREADS:
+                fut, t_sub = window.popleft()
+                check(fut.result(timeout=CLUSTER_WAIT_S) == RBD_IO_SIZE, "a short aio write")
+            t_sub = time.perf_counter()
+            fut = img.aio_write(int(blk) * RBD_IO_SIZE, data)
+            fut.add_done_callback(lambda _f, t=t_sub: lat.append(time.perf_counter() - t))
+            window.append((fut, t_sub))
+        for fut, _t in window:
+            check(fut.result(timeout=CLUSTER_WAIT_S) == RBD_IO_SIZE, "a short aio write")
+        write_s = time.perf_counter() - t0
+        reads = collections.deque()
+        for blk, data in zip(blocks, datas):
+            if len(reads) >= RBD_IO_THREADS:
+                fut, b, d = reads.popleft()
+                check(fut.result(timeout=CLUSTER_WAIT_S) == d, f"random write at block {b}")
+            reads.append((img.aio_read(int(blk) * RBD_IO_SIZE, RBD_IO_SIZE), blk, data))
+        for fut, b, d in reads:
+            check(fut.result(timeout=CLUSTER_WAIT_S) == d, f"random write at block {b}")
+    write_delta = _launch_delta(before, _launches_by_osd(c, osds))
+    patches += [(int(b) * RBD_IO_SIZE, d) for b, d in zip(blocks, datas)]
+    lat.sort()
+    p50, p99 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+    print(f"[11] {random_writes} random {RBD_IO_SIZE} B writes ({RBD_IO_THREADS} in flight, "
+          f"read-modify-write on the EC pool) in {write_s:.3f} s: "
+          f"{random_writes / write_s:.1f} IOPS, latency p50 {p50 * 1e3:.2f} ms p99 "
+          f"{p99 * 1e3:.2f} ms; every extent read back; launches "
+          f"{_sum_launches(write_delta)}")
+
+    # 4. a snapshot, an overwrite, the read at the snapshot, the diff
+    ov_off = (image_bytes // 2) // object_bytes * object_bytes
+    ov_data = rng.bytes(overwrite)
+    with Image(io, "img") as img:
+        before_ov = img.read(ov_off, overwrite)
+        snap_t0 = time.perf_counter()
+        img.snap_create("s1")
+        img.write(ov_off, ov_data)
+        img.set_snap("s1")
+        at_snap = img.read(ov_off, overwrite)
+        img.set_snap(None)
+        head = img.read(ov_off, overwrite)
+        snap_s = time.perf_counter() - snap_t0
+    check(at_snap == before_ov, "the read at s1 is not the pre-overwrite bytes")
+    check(head == ov_data, "the head does not read the overwrite")
+    patches.append((ov_off, ov_data))
+    diff_out, _s = _rbd_cli(c, "rbdpool", "diff", "img", "--from-snap", "s1")
+    touched = sorted(int(line.split()[0]) // object_bytes for line in diff_out.splitlines())
+    want = list(range(ov_off // object_bytes, (ov_off + overwrite - 1) // object_bytes + 1))
+    check(touched == want, f"rbd diff --from-snap s1 lists {touched}, not {want}")
+    print(f"[11] snapshot s1, {overwrite} B overwritten at {ov_off}: the read at s1 equals the "
+          f"bytes before, the head the new ones ({snap_s:.3f} s); rbd diff --from-snap s1 "
+          f"lists objects {touched}")
+
+    # 5. an OSD with a data position of the image's PGs stopped: the
+    # degraded export decodes on the card and equals the image; writes
+    # while it is down land on the other positions, and its respawn
+    # rebuilds its shards of them
+    from ceph_tpu_torch.msg.messenger import wait_for
+    from ceph_tpu_torch.osdc.objecter import object_to_pg
+
+    osdmap = c.rados.monc.osdmap
+    holds: collections.Counter = collections.Counter()
+    for ps in range(CLUSTER_PG_NUM):
+        acting, primary = osdmap.pg_to_up_acting_osds(c.pools["rbd"], ps)[2:]
+        holds.update(o for pos, o in enumerate(acting[:k]) if o != primary)
+    victim = holds.most_common(1)[0][0]
+    # objects of the victim's PGs, from the map before its kill (the
+    # client's map is updated in place)
+    pool = osdmap.pools[c.pools["rbd"]]
+    missed = [o for o in range(image_bytes // object_bytes)
+              if victim in osdmap.pg_to_up_acting_osds(
+                  c.pools["rbd"], int(object_to_pg(pool, f"rbd_data.img.{o:016x}")
+                                      .split(".")[1]))[2]][:RBD_DEGRADED_WRITES]
+    expect_sha = _patched_sha(src, image_bytes, patches)
+    before = _launches_by_osd(c, osds)
+    at_kill = c.admin(victim, "kernel launches")
+    c.sup.kill(f"osd.{victim}", hold=True)
+    rc, _b, outs = c.rados.mon_command({"prefix": "osd down", "id": victim})
+    check(rc == 0, f"osd down {victim}: {outs}")
+    c.wait(lambda: not c.rados.monc.osdmap.is_up(victim), f"osd.{victim} never marked down", 60)
+    out2 = work / "degraded.img"
+    _out, degraded_s = _rbd_cli(c, "rbdpool", "export", "img", str(out2))
+    live = {o: c.admin(o, "kernel launches") for o in range(osds) if o != victim}
+    degraded_delta = _launch_delta({o: before[o] for o in live}, live)
+    degraded_sha = _patched_sha(out2, image_bytes)
+    out2.unlink()
+    check(degraded_sha == expect_sha, f"degraded export {degraded_sha} != {expect_sha}")
+    degraded_k = _sum_launches(degraded_delta)
+    missed_data = {o: rng.bytes(object_bytes) for o in missed}
+    with Image(io, "img") as img:
+        for o, data in missed_data.items():
+            img.write(o * object_bytes, data)
+    patches += [(o * object_bytes, d) for o, d in missed_data.items()]
+    before = {o: c.admin(o, "kernel launches") for o in live}
+    t0 = time.perf_counter()
+    c.sup.respawn(f"osd.{victim}")
+    c.sup.wait_ready([f"osd.{victim}"], timeout=PROC_READY_S)
+    c.wait(lambda: c.rados.monc.osdmap.is_up(victim), f"osd.{victim} never rejoined", 60)
+    epoch = c.rados.monc.osdmap.epoch
+    if not wait_for(lambda: c.clean(epoch, n_pgs), CLUSTER_WAIT_S, 0.25):
+        check(False, f"never clean after osd.{victim}'s respawn: {c.unclean()}")
+    rejoin_s = time.perf_counter() - t0
+    rebuild_k = _sum_launches(_launch_delta(before, {o: c.admin(o, "kernel launches")
+                                                     for o in live}))
+    with Image(io, "img") as img:
+        for o, data in missed_data.items():
+            check(img.read(o * object_bytes, object_bytes) == data,
+                  f"object {o} written while osd.{victim} was down")
+    if device == "cuda":
+        # the degraded reads decode one stripe at a time, which takes
+        # K1; K2 (the batched decode) is held on the rebuild
+        check(degraded_k["K1"] + degraded_k["K2"] > 0,
+              f"the degraded export decoded no stripe on the card: {degraded_delta}")
+        check(rebuild_k["K2"] > 0, f"the rebuild launched no K2: {rebuild_k}")
+    print(f"[11] osd.{victim} (data positions in {holds[victim]} of the image's PGs) "
+          f"SIGKILLed and marked down: the degraded export took {degraded_s:.3f} s "
+          f"({image_bytes / degraded_s / 1e9:.4f} GB/s), sha256 equal to the image; launches "
+          f"{degraded_k}; {len(missed)} objects of its PGs rewritten while it was down; "
+          f"respawned, clean {rejoin_s:.3f} s later, launches over the rebuild {rebuild_k}; "
+          f"the rewritten objects read back")
+
+    # 6. the ObjectCacher: 4 KiB writes through a cached handle
+    base = (image_bytes // 4) // object_bytes * object_bytes
+    cache_data = rng.bytes(cache_bytes)
+    with Image(io, "img", cache=True) as img:
+        t0 = time.perf_counter()
+        for off in range(0, cache_bytes, RBD_IO_SIZE):
+            img.write(base + off, cache_data[off:off + RBD_IO_SIZE])
+        img.flush()
+        cache_s = time.perf_counter() - t0
+        backend_writes = img._cache.backend_writes
+    with Image(io, "img") as img:
+        check(img.read(base, cache_bytes) == cache_data, "the cached writes read back uncached")
+    print(f"[11] {cache_bytes // RBD_IO_SIZE} cached writes of {RBD_IO_SIZE} B flushed in "
+          f"{cache_s:.3f} s as {backend_writes} backend writes; an uncached handle reads them")
+
+    # 7. a journaled image on a 3-replica pool mirrored into another
+    c.pools["mirror_src"] = c.rados.pool_create("mirsrc", pg_num=CLUSTER_PG_NUM, size=3)
+    c.pools["mirror_dst"] = c.rados.pool_create("mirdst", pg_num=CLUSTER_PG_NUM, size=3)
+    n_pgs = sum(p.pg_num for p in c.rados.monc.osdmap.pools.values())
+    epoch = c.rados.monc.osdmap.epoch
+    c.wait(lambda: c.clean(epoch, n_pgs), "the mirror pools never went active+clean")
+    src_io, dst_io = c.rados.open_ioctx("mirsrc"), c.rados.open_ioctx("mirdst")
+    RBD().create(src_io, "jimg", mirror_bytes, stripe_unit=object_bytes,
+                 object_size=object_bytes, features="journaling")
+    mir_data = bytearray(rng.bytes(mirror_bytes))
+    with Image(src_io, "jimg") as img:
+        for off in range(0, mirror_bytes, object_bytes):
+            img.write(off, bytes(mir_data[off:off + object_bytes]))
+    d = MirrorDaemon(src_io, dst_io, interval=0.0)
+    try:
+        t0 = time.perf_counter()
+        first = d.replay_once()
+        tail = rng.bytes(object_bytes // 2)
+        with Image(src_io, "jimg") as img:
+            img.write(object_bytes // 4, tail)
+            img.discard(mirror_bytes - object_bytes, object_bytes)
+        mir_data[object_bytes // 4:object_bytes // 4 + len(tail)] = tail
+        mir_data[mirror_bytes - object_bytes:] = bytes(object_bytes)
+        second = d.replay_once()
+        mirror_s = time.perf_counter() - t0
+    finally:
+        d.stop()
+    with Image(dst_io, "jimg") as img:
+        check(img.read(0, mirror_bytes) == bytes(mir_data), "the mirrored image differs")
+    check(second == 2, f"the tail replayed {second} entries, not 2")
+    print(f"[11] journaled {mirror_bytes} B image mirrored into a second pool in "
+          f"{mirror_s:.3f} s ({first} then {second} journal entries replayed), equal")
+
+    after = _launches_by_osd(c, osds)
+    delta = _launch_delta(launches0, after, restarted={victim: at_kill})
+    counts = _sum_launches(delta)
+    phase_s = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    gbps = {"import_GBps": image_bytes / import_s / 1e9,
+            "export_GBps": image_bytes / export_s / 1e9,
+            "degraded_export_GBps": image_bytes / degraded_s / 1e9}
+    print(f"[11] rbd phase took {phase_s:.1f} s; launches {counts}; on {smi.splitlines()[0]} "
+          "(host clock): " + ", ".join(f"{key} {v:.4f}" for key, v in gbps.items()))
+    return {
+        "card": smi.splitlines()[0],
+        "config": {"pool": f"isa k={k} m={m}", "pg_num": CLUSTER_PG_NUM,
+                   "image_bytes": image_bytes, "object_bytes": object_bytes,
+                   "stripe_count": 1, "features": RBD_FEATURES, "io_size": RBD_IO_SIZE,
+                   "io_threads": RBD_IO_THREADS, "random_writes": random_writes,
+                   "overwrite_bytes": overwrite, "cache_bytes": cache_bytes,
+                   "mirror_bytes": mirror_bytes, "osds": osds, "device": device},
+        **gbps,
+        "random_write_iops": random_writes / write_s,
+        "random_write_latency_ms": {"p50": p50 * 1e3, "p99": p99 * 1e3},
+        "sha256": {"source": src_sha, "export": export_sha, "degraded_export": degraded_sha,
+                   "expected_after_writes": expect_sha},
+        "diff_from_snap_objects": touched, "victim": victim,
+        "rewritten_while_down": missed,
+        "cache": {"writes": cache_bytes // RBD_IO_SIZE, "backend_writes": backend_writes},
+        "mirror_entries": [first, second],
+        "launches": counts, "import_encode_counters": import_enc,
+        "launches_by_step": {"import": import_k, "export": _sum_launches(export_delta),
+                             "random_writes": _sum_launches(write_delta),
+                             "degraded_export": degraded_k, "rebuild": rebuild_k},
+        "seconds": {"import": import_s, "export": export_s, "random_writes": write_s,
+                    "snap_overwrite_reads": snap_s, "degraded_export": degraded_s,
+                    "rejoin_to_clean": rejoin_s, "cache": cache_s, "mirror": mirror_s,
+                    "phase": phase_s},
+    }
+
+
+THRASH_SEED = 20260807  # the JAX package's tier-1 gate schedule (tests/test_qa_thrasher.py)
+THRASH_DURATION_S = 30.0
+THRASH_OSDS = 3
+
+
+def phase_thrash(smi: str, device: str = "cuda", seed: int = THRASH_SEED,
+                 duration: float = THRASH_DURATION_S) -> dict:
+    """The qa thrasher on the card: the gate's seeded fault schedule
+    against 3 in-process ``OSD(device=...)`` over WAL-fronted MemStores,
+    a monitor and a manager, under the consistency oracle."""
+    from ceph_tpu_torch.msg import NetworkStack
+    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
+    from ceph_tpu_torch.qa import Schedule
+    from ceph_tpu_torch.qa.thrasher import Thrasher
+
+    sched = Schedule.from_seed(seed, duration=duration, osds=THRASH_OSDS)
+    workdir = pathlib.Path(__file__).resolve().parent / "build" / "p12"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    thr = Thrasher(sched, convergence_timeout=60.0, device=device, workdir=str(workdir))
+    ks = kernel_stats()
+    crc0 = ks.dump().get("l_tpu_scrub_crc32c_calls", 0)
+    packed_gf.launches = bitplane_gf.launches = 0
+    t0 = time.perf_counter()
+    report = thr.run()
+    phase_s = time.perf_counter() - t0
+    counts = {"K1": packed_gf.launches, "K2": bitplane_gf.launches}
+    crc_calls = ks.dump().get("l_tpu_scrub_crc32c_calls", 0) - crc0
+    shutil.rmtree(workdir, ignore_errors=True)
+    check(report["violations"] == [],
+          f"oracle violations: {json.dumps(report['violations'])}")
+    check(report["converged"], "the thrashed cluster never reached HEALTH_OK")
+    check(report["events_applied"] >= len(sched.events) // 2,
+          f"the guards skipped too much: {report['trace']}")
+    check(report["ops"] > 50, f"the workload barely ran: {report['ops']} ops")
+    check(report["audited"] > 0, "the final audit read nothing")
+    check(NetworkStack.live() is None, "a messenger reactor outlived the thrash")
+    skipped = [e for e in report["trace"] if not e["applied"]]
+    replayed = sum(report["wal_replays"].values())
+    print(f"[12] thrash seed {seed}, {duration:g} s, {THRASH_OSDS} OSDs on {device}: "
+          f"{report['events_applied']} of {len(sched.events)} events applied "
+          f"({len(skipped)} skipped: {[(e['kind'], e['note']) for e in skipped]}), "
+          f"{report['ops']} ops ({report['op_errors']} errors), {report['audited']} objects "
+          f"audited, 0 violations, converged; {replayed} WAL records replayed, "
+          f"{crc_calls} device crc calls, launches {counts}; {phase_s:.1f} s")
+    return {
+        "card": smi.splitlines()[0], "seed": seed, "duration_s": duration,
+        "osds": THRASH_OSDS, "device": device, "events": len(sched.events),
+        "events_applied": report["events_applied"], "events_skipped": len(skipped),
+        "skipped": [(e["kind"], e["note"]) for e in skipped],
+        "ops": report["ops"], "op_errors": report["op_errors"], "audited": report["audited"],
+        "converged": report["converged"], "violations": report["violations"],
+        "wal_records_replayed": replayed, "wal_replays": report["wal_replays"],
+        "device_crc32c_calls": crc_calls, "launches": counts, "phase_s": phase_s,
     }
 
 
@@ -2969,7 +3430,10 @@ def main() -> int:
         osdmap = phase_osdmap(smi, pool)
     wire = phase_wire(smi)
     cluster = phase_cluster(smi)
-    processes = phase_processes(smi)
+    processes = phase_processes(
+        smi, during=lambda c, k, m: phase_rbd(smi, c, "cuda", k, m))
+    rbd = processes.pop("during")
+    thrash = phase_thrash(smi)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
     for key, name, replaces, label in (
@@ -2987,7 +3451,9 @@ def main() -> int:
             "launches_by_path": {"main (3)": counts[key], "store (6)": store["launches"][key],
                                  "wire (8)": wire["launches"][key],
                                  "cluster (9)": cluster["launches"][key],
-                                 "processes (10)": processes["launches"][key]},
+                                 "processes (10)": processes["launches"][key],
+                                 "rbd (11)": rbd["launches"][key],
+                                 "thrash (12)": thrash["launches"][key]},
         })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
@@ -2995,6 +3461,8 @@ def main() -> int:
     print(json.dumps({"wire": wire}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"processes": processes}))
+    print(json.dumps({"rbd": rbd}))
+    print(json.dumps({"thrash": thrash}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

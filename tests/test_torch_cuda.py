@@ -12,7 +12,9 @@ media and the WAL's replay verify on ``cuda`` against ``cpu`` and the
 host C crc; port clusters (monitor, ``OSD(device="cuda")``, librados) of
 a replicated and an EC pool against the same on ``cpu``; a process
 cluster (a monitor and 3 OSD processes on ``cuda``) whose reads equal
-the same cluster's on ``cpu``.  Marked
+the same cluster's on ``cpu``; an rbd image on an EC pool of
+``OSD(device="cuda")`` whose shards and reads equal the same on
+``cpu``.  Marked
 ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -802,3 +804,94 @@ def test_process_cluster_on_the_card_equals_cpu(cuda, tmp_path):
     card = _process_cluster_reads(tmp_path, "cuda")
     host = _process_cluster_reads(tmp_path, "cpu")
     assert card == host and len(card) == 8
+
+
+def _rbd_image_bytes(device: str) -> dict:
+    """A port rbd image (exclusive-lock, object-map, journaling; 4-wide
+    stripes over 64 KiB objects) on a fresh 5-OSD cluster's isa k=3 m=2
+    pool on ``device``: seeded writes across object boundaries, a
+    discard, a snapshot and an overwrite, 4 KiB aio writes. Returns the
+    reads, the diff and every OSD's stored objects."""
+    import random
+
+    from ceph_tpu_torch.msg import NetworkStack
+    from ceph_tpu_torch.msg.messenger import wait_for
+    from ceph_tpu_torch.rbd import RBD, Image
+
+    mon_msgr, osds, rados = _port_cluster(5, device)
+    try:
+        rc, _b, outs = rados.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "p",
+            "profile": ["plugin=isa", "k=3", "m=2"],
+        })
+        assert rc == 0, outs
+        rados.pool_create("ec", pool_type=3, pg_num=4, erasure_code_profile="p")
+        io = rados.open_ioctx("ec")
+        size = 1 << 20
+        RBD().create(io, "img", size, stripe_unit=16384, stripe_count=4, object_size=65536,
+                     features="exclusive-lock,object-map,journaling")
+        rng = random.Random(21)
+        out = {}
+        with Image(io, "img") as img:
+            for _ in range(8):
+                off = rng.randrange(0, size - 1)
+                img.write(off, rng.randbytes(rng.randint(1, min(200000, size - off))))
+            img.discard(65536, 100000)
+            img.snap_create("s1")
+            img.write(0, rng.randbytes(70000))
+            # distinct blocks: concurrent writes to one block land in any order
+            futs = [img.aio_write(blk * 4096, rng.randbytes(4096))
+                    for blk in rng.sample(range(256), 32)]
+            for f in futs:
+                f.result(timeout=60)
+            out["head"] = img.read(0, size)
+            out["diff"] = img.diff_objects("s1")
+            img.set_snap("s1")
+            out["s1"] = img.read(0, size)
+        stored = {}
+        for osd in osds:
+            for cid in sorted(osd.store.list_collections()):
+                for oid in sorted(osd.store.list_objects(cid)):
+                    if oid.startswith("o_rbd_data"):
+                        stored[(osd.whoami, cid, oid)] = osd.store.read(cid, oid)
+        out["stored"] = stored
+        return out
+    finally:
+        rados.shutdown()
+        for osd in osds:
+            osd.shutdown()
+        mon_msgr.shutdown()
+        assert wait_for(lambda: NetworkStack.live() is None, 10.0)
+
+
+def test_rbd_image_on_the_card_equals_cpu(cuda):
+    """The same image operations leave the same shards and read the same
+    bytes with ``OSD(device="cuda")`` as on ``cpu``; the card's encodes
+    launched the kernels."""
+    before = packed_gf.launches + bitplane_gf.launches
+    card = _rbd_image_bytes("cuda")
+    assert packed_gf.launches + bitplane_gf.launches > before
+    host = _rbd_image_bytes("cpu")
+    assert card == host
+    assert card["head"] != card["s1"] and card["diff"]
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 0), (0, 8, 4096), (3, 4, 0)])
+def test_kernels_take_empty_stripes_without_a_launch(cuda, shape):
+    """A zero-length object's shards decode to nothing: both wrappers
+    return the empty product on the card, as the plain versions do, and
+    launch nothing (an empty tensor's strides are 1, which K1's
+    alignment test once refused, crashing every OSD that rebuilt such a
+    shard)."""
+    b, k, chunk = shape
+    mat = gf.reed_sol_vandermonde_coding_matrix(k, 3, 8)
+    bm = matrix_to_device_bitmatrix(mat, 8, cuda)
+    x = torch.empty(shape, dtype=torch.uint8, device=cuda)
+    before = (packed_gf.launches, bitplane_gf.launches)
+    for got in (packed_gf.packed_matrix_stripes(bm, x), bitplane_gf.gf8_bitplane_stripes(bm, x)):
+        assert got.shape == (b, 3, chunk) and got.is_cuda
+    assert (packed_gf.launches, bitplane_gf.launches) == before
+    from ceph_tpu_torch.ops.ec_backend import TorchBackend
+
+    regions = np.zeros((k, 0), dtype=np.uint8)
+    assert TorchBackend(device="cuda").matrix_regions(mat, regions, 8).shape == (3, 0)

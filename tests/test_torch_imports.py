@@ -6,8 +6,11 @@ process's ``-m`` argument), and a fresh interpreter that imports the
 port — its erasure-code plane, CRUSH, the OSD map and its mapping, the
 stores, residency, the profiler, the scrub functions, the monitor and
 its quorum, the manager, the process runtime, the cluster tools, the
-OSD daemon, librados and the objecter — and finds no ``jax`` in
-``sys.modules``.
+OSD daemon, librados and the objecter, the qa thrasher, the striper and
+the ObjectCacher, the journaler, rbd, rbd-mirror and the rbd CLI — and
+finds no ``jax`` in ``sys.modules``. Every ``python -m`` module that a
+file of the port names (in code, docstrings or comments: usage lines,
+a child's argv, a repro's note) is one of the port's own.
 """
 
 from __future__ import annotations
@@ -61,6 +64,22 @@ def test_no_jax_or_ceph_tpu_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# a module run as a command ("python -m pkg.mod"), in code, docstrings
+# and comments alike: a usage line, a child's argv or a repro's note
+_RUN_AS = re.compile(r"python3? -m ([A-Za-z_][\w.]*)")
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_modules_run_as_commands_are_the_ports(path):
+    bad = []
+    for name in _RUN_AS.findall(path.read_text()):
+        name = name.rstrip(".")
+        target = ROOT / (name.replace(".", "/") + ".py")
+        if not name.startswith("ceph_tpu_torch.") or not target.exists():
+            bad.append(name)
+    assert not bad, f"{path.name} names {bad}"
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
@@ -92,6 +111,9 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.tools.cluster, ceph_tpu_torch.tools.ceph_cli\n"
         "import ceph_tpu_torch.tools.monstore_tool, ceph_tpu_torch.tools.dencoder\n"
         "import ceph_tpu_torch.tools.leader_kills\n"
+        "import ceph_tpu_torch.qa, ceph_tpu_torch.qa.thrasher, ceph_tpu_torch.osdc.striper\n"
+        "import ceph_tpu_torch.osdc.object_cacher, ceph_tpu_torch.mds, ceph_tpu_torch.rbd\n"
+        "import ceph_tpu_torch.rbd.mirror, ceph_tpu_torch.tools.rbd_cli\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

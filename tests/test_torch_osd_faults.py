@@ -30,6 +30,13 @@ each with its smallest input, on the CPU (ROADMAP §C).
    positions, the client's resend is answered from the primary's reqid
    cache as done, and the object cannot be read. The port applies such
    a rep-op after the activation, in order.
+8. A write that an up acting member failed enters the primary's reqid
+   cache before the sub-writes fan out. The client gets -EAGAIN and
+   resends, and the resend is answered "done" from the cache while the
+   member still lacks the write: on an erasure PG a write on fewer
+   than k positions is acknowledged. The port keeps such a reqid
+   pending and answers its resends -EAGAIN until a peering pass has
+   brought the write to every up acting member.
 7. (A fault of the port's own repair of 2.) The primary's query at the
    map that moved an OSD's erasure position can arrive before that OSD
    has walked the map; answering from the copy it still holds passes the
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import copy
 import json
+import time
 
 import numpy as np
 import pytest
@@ -509,3 +517,163 @@ def test_rep_op_behind_a_queued_activation_is_applied_in_order():
     # the reference NAKs it, and the write is not on this replica
     ref = _rep_op_behind_activation(jdaemon, JOSDMap, JPgPool, JCrushMap, JTransaction)
     assert ref == (False, False)
+
+
+class _ThreeOSDs:
+    """A monitor, 3 OSDs on the CPU and a client; one pool of one PG
+    over all three."""
+
+    def __init__(self, ec: bool):
+        self.mon_msgr = Messenger("mon")
+        self.mon_msgr.add_dispatcher(Monitor(OSDMap.build(_crush(3), 3), min_reporters=2))
+        self.addr = self.mon_msgr.bind()
+        self.osds = {}
+        for i in range(3):
+            osd = tdaemon.OSD(i, tick_interval=0.2, heartbeat_grace=20.0, device="cpu")
+            osd.boot(*self.addr)
+            self.osds[i] = osd
+        self.r = Rados("reqid").connect(*self.addr)
+        if ec:
+            rc, _b, outs = self.r.mon_command({
+                "prefix": "osd erasure-code-profile set", "name": "p",
+                "profile": ["plugin=isa", "k=2", "m=1"],
+            })
+            assert rc == 0, outs
+            self.pool_id = self.r.pool_create("p", pool_type=3, pg_num=1,
+                                              erasure_code_profile="p", min_size=2)
+        else:
+            self.pool_id = self.r.pool_create("p", pg_num=1, size=3)
+        self.pgid = f"{self.pool_id}.0"
+
+    def clean(self) -> bool:
+        states = [st["state"] for o in self.osds.values() for st in o.collect_pg_stats()
+                  if st["pgid"] == self.pgid]
+        return states == ["active+clean"]
+
+    def shutdown(self):
+        self.r.shutdown()
+        for osd in self.osds.values():
+            osd.shutdown()
+        self.mon_msgr.shutdown()
+
+
+def _holdings(c: _ThreeOSDs, acting: list, oid: str) -> list:
+    cid = f"pg_{c.pgid}"
+    return [
+        c.osds[o].store.read(cid, oid) if c.osds[o].store.exists(cid, oid) else None
+        for o in acting
+    ]
+
+
+DATA = bytes(range(256)) * 96
+REQID = "client.9:1"
+
+
+def _nak_at_position_1(c: _ThreeOSDs, data: bytes):
+    """Once the PG is clean, leave the replica at acting position 1
+    unactivated with no activation queued, so it NAKs rep-ops. Returns
+    the primary, the acting set and a function that runs one attempt
+    of a WRITEFULL of ``data`` under one reqid on the primary's worker
+    and gives its result and what each acting member holds."""
+    from ceph_tpu_torch.msg.message import MOSDOp, OSD_OP_WRITEFULL
+
+    assert wait_for(c.clean, DEADLINE), "the pool never went active+clean"
+    osdmap = c.r.monc.osdmap
+    _u, _p, acting, primary = osdmap.pg_to_up_acting_osds(c.pool_id, 0)
+    p = c.osds[primary]
+    replica = c.osds[acting[1]]
+    assert replica.whoami != primary
+    # the primary's fire-and-forget activation of its last peering
+    # has reached the replica and none waits on its worker; only then
+    # is the PG left unactivated, on the replica's worker
+    assert wait_for(
+        lambda: replica.pgs[c.pgid].activated_epoch == p.pgs[c.pgid].activated_epoch > 0
+        and not replica._activations_queued.get(c.pgid), DEADLINE
+    ), "the replica never took the primary's activation"
+    rpg = replica.pgs[c.pgid]
+    replica._on_worker(lambda: setattr(rpg, "activated_epoch", 0))
+
+    oid = tdaemon.OBJ_PREFIX + "a"
+    msg = MOSDOp(pool=c.pool_id, pgid=c.pgid, oid="a", op=OSD_OP_WRITEFULL, data=data,
+                 length=len(data), reqid=REQID, epoch=osdmap.epoch)
+
+    def attempt():
+        pg = p.pgs[c.pgid]
+        try:
+            got = ("done", p._mutate(pg, p.monc.osdmap.epoch, msg, oid))
+        except tdaemon.StoreError as e:
+            got = ("error", str(e))
+        return got, _holdings(c, acting, oid)
+
+    return p, acting, attempt
+
+
+@pytest.mark.parametrize("ec", [False, True], ids=["replicated_size3", "isa_k2m1"])
+def test_resend_of_a_write_a_replica_failed_is_not_acked_early(ec):
+    """Fault 8: the replica at acting position 1 is left unactivated
+    with no activation queued, so it NAKs the rep-op. The first attempt
+    gets -EAGAIN; a resend before the re-peer is not answered as done;
+    when a resend is answered as done, every acting member holds the
+    write (the object's bytes, or on the erasure PG each position's
+    shard)."""
+    from ceph_tpu_torch.osd.ec_pg import ECCodec
+
+    c = _ThreeOSDs(ec)
+    try:
+        p, acting, attempt = _nak_at_position_1(c, DATA)
+
+        # the first attempt and a resend, with no work item between them
+        (first, _h1), (resend, _h2) = p._on_worker(lambda: (attempt(), attempt()))
+        assert first[0] == "error" and "EAGAIN" in first[1], first
+        assert resend[0] == "error" and "EAGAIN" in resend[1], resend
+
+        deadline = time.monotonic() + DEADLINE
+        while True:
+            got, held = p._on_worker(attempt)
+            if got[0] == "done":
+                break
+            assert "EAGAIN" in got[1], got
+            assert time.monotonic() < deadline, "the resend was never answered"
+            time.sleep(0.2)
+        assert got == ("done", b"")
+        if ec:
+            codec = ECCodec({"plugin": "isa", "k": "2", "m": "1", "device": "cpu"})
+            shards, _meta = codec.encode_object(DATA)
+            assert held == [bytes(shards[pos]) for pos in range(3)]
+        else:
+            assert held == [DATA] * 3
+        assert c.r.open_ioctx("p").read("a") == DATA
+    finally:
+        c.shutdown()
+
+
+@pytest.mark.parametrize("ec", [False, True], ids=["replicated_size3", "isa_k2m1"])
+def test_pending_write_a_rewind_dropped_is_applied_anew(ec):
+    """A write an up member failed stays pending on the primary; if an
+    activation then rewinds it out of the primary's log, its resend is
+    a new op: it is neither answered from the pending entry nor held
+    back as pending, and it lands in the log again."""
+    c = _ThreeOSDs(ec)
+    try:
+        p, _acting, attempt = _nak_at_position_1(c, DATA)
+        first, _h = p._on_worker(attempt)
+        assert first[0] == "error" and "EAGAIN" in first[1], first
+        pg = p.pgs[c.pgid]
+
+        def rewind_and_replay():
+            version = pg.reqid_pending[REQID][0]
+            at = [i for i, e in enumerate(pg.log.entries) if e.reqid == REQID]
+            assert [pg.log.entries[i].version for i in at] == [version]
+            pg.log.truncate_after(pg.log.entries[at[0] - 1].version if at[0] else pg.log.log_tail)
+            return version, p._replay_reqid(pg, REQID), REQID in pg.reqid_pending
+
+        version, replayed, still_pending = p._on_worker(rewind_and_replay)
+        assert replayed is None and not still_pending
+        # the resend applies the write again: a new entry in the log
+        # (whether the replica has been activated again by now or not)
+        again, _h = p._on_worker(attempt)
+        assert again == ("done", b"") or "EAGAIN" in again[1], again
+        entries = p._on_worker(lambda: [e.version for e in pg.log.entries if e.reqid == REQID])
+        assert len(entries) == 1 and entries[0] > version
+    finally:
+        c.shutdown()
