@@ -1,14 +1,26 @@
-"""MDS — for now only the replayable metadata journal on rados and the
-two path rules the MDS server and its clients share (src/osdc/
-Journaler.cc, the MDCache subtree-auth rule).
+"""MDS — the metadata daemon tier over rados
+(src/mds/Server.cc + src/mds/Locker.cc + src/osdc/Journaler.cc,
+reduced to the load-bearing machinery).
 
-- ``Journaler`` (journaler.py): a striped entry stream with a head
-  object tracking write/expire positions (src/osdc/Journaler.cc:1).
-  rbd's image journal and rbd-mirror ride it.
+Three pieces:
 
-The metadata daemon (``MDSDaemon``) and its capability-aware client
-(``MDSClient``, ``MDSError``) are not in this package yet: they come
-with the file-system layer, and this module imports neither.
+- ``Journaler`` (journaler.py): the replayable metadata journal on
+  rados — a striped entry stream with a head object tracking
+  write/expire positions (src/osdc/Journaler.cc:1). rbd's image journal
+  and rbd-mirror ride it too.
+- ``MDSDaemon`` (server.py): client sessions, a path-walked metadata
+  cache journaled ahead of lazy backing-store flushes, capability
+  grant/recall for coherent client caching, and mon-driven
+  active/standby failover (beacons through the monitor's command
+  plane; the MDSMonitor role).
+- ``MDSClient`` (client.py): the capability-aware mount — metadata
+  through the MDS session, file DATA striped straight to the data
+  pool with the real CephFS object naming, readdir/stat caching valid
+  exactly while the MDS-granted capability stands.
+
+The cap-free library-mode client (dirfrags-in-omap, single writer)
+remains at ceph_tpu_torch.fs.CephFS. None of these compute on a
+device: their bytes are encoded by the OSDs of the pools they name.
 """
 
 
@@ -34,5 +46,10 @@ def path_dirname(path: str) -> str:
 
 
 from .journaler import Journaler  # noqa: E402
+from .server import MDSDaemon  # noqa: E402
+from .client import MDSClient, MDSError  # noqa: E402
 
-__all__ = ["Journaler", "subtree_auth_rank", "path_dirname"]
+__all__ = [
+    "Journaler", "MDSDaemon", "MDSClient", "MDSError",
+    "subtree_auth_rank", "path_dirname",
+]

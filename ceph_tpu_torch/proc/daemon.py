@@ -22,7 +22,8 @@ Exit discipline (what the supervisor discriminates on):
 The mgr and OSD roles compute on the spec's ``device`` (default
 ``cuda``).  A CUDA device that cannot be opened is a boot failure (exit
 1, the reason in the child log), never a quiet switch to the CPU.  The
-mds and rgw roles raise: their daemon modules are not ported yet.
+mds and rgw roles compute nothing on a device: they are rados clients,
+and the OSDs of their pools encode their bytes.
 
 The readiness file is JSON ``{"role", "pid", "addr"?, "replayed"?, "pgs"?}``
 written atomically NEXT TO the spec; a respawned daemon overwrites
@@ -136,19 +137,74 @@ def _boot_osd(spec: ClusterSpec, idx: int):
     return osd
 
 
-def _boot_unported(spec: ClusterSpec, idx: int):
-    raise RuntimeError(
-        "the mds and rgw roles need their daemon modules, which "
-        "ceph_tpu_torch does not have yet"
+def _ensure_pools(rados, pools: dict[str, dict]) -> None:
+    existing = set(rados.monc.osdmap.pool_names.values())
+    for name, kw in pools.items():
+        if name not in existing:
+            try:
+                rados.pool_create(name, **kw)
+            except Exception:  # noqa: BLE001 — a sibling gateway
+                # racing the same create loses benignly
+                pass
+
+
+def _boot_mds(spec: ClusterSpec, idx: int):
+    from ..mds import MDSDaemon
+    from ..rados import Rados
+
+    size = spec.data["pool_size"]
+    r = Rados(f"mds-{idx}").connect_any(spec.mon_addrs)
+    _ensure_pools(
+        r,
+        {
+            "fsmeta": {"pg_num": 4, "size": size},
+            "fsdata": {"pg_num": 8, "size": size},
+        },
     )
+    mds = MDSDaemon(
+        f"mds{idx}", r, "fsmeta", shared_services=True
+    )
+    _publish_ready(spec, f"mds.{idx}", {"addr": mds.addr})
+    return _Composite([mds, r])
+
+
+def _boot_rgw(spec: ClusterSpec, idx: int):
+    from ..rados import Rados
+    from ..rgw import RGW
+
+    r = Rados(f"rgw-{idx}").connect_any(spec.mon_addrs)
+    _ensure_pools(
+        r,
+        {"rgwpool": {"pg_num": 8, "size": spec.data["pool_size"]}},
+    )
+    gw = RGW(r.open_ioctx("rgwpool"), name=f"rgw.{idx}")
+    port = gw.serve(int(spec.data["rgw_ports"][idx]))
+    gw.start_reshard()
+    gw.start_mgr_reports(shared_services=True)
+    _publish_ready(spec, f"rgw.{idx}", {"port": port})
+    return _Composite([gw, r])
+
+
+class _Composite:
+    """Shut several objects down in order (daemon + its client)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def shutdown(self) -> None:
+        for p in self.parts:
+            try:
+                p.shutdown()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
 
 
 _BOOTERS = {
     "mon": _boot_mon,
     "mgr": _boot_mgr,
     "osd": _boot_osd,
-    "mds": _boot_unported,
-    "rgw": _boot_unported,
+    "mds": _boot_mds,
+    "rgw": _boot_rgw,
 }
 
 

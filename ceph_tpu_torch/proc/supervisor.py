@@ -535,13 +535,32 @@ class Supervisor:
     # -- teardown -----------------------------------------------------------
     def stop(self, timeout: float = 15.0) -> None:
         """SIGTERM every child's process group, escalate to SIGKILL
-        on stragglers, stop monitoring."""
+        on stragglers, stop monitoring.  The gateways (mds, rgw) stop
+        first, each wave within ``timeout``: an active MDS flushes its
+        cache to the OSDs as it stops, which needs them up."""
         self._stopping = True
         self._stop.set()
         if self._monitor is not None:
             self._monitor.join(timeout=5)
         with self._lock:
             children = list(self.children.values())
+        gateways = [c for c in children if c.role.startswith(("mds.", "rgw."))]
+        for wave in (gateways, [c for c in children if c not in gateways]):
+            self._terminate(wave, timeout)
+        if self._msgr is not None:
+            try:
+                self._msgr.shutdown()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+            self._msgr = None
+            self._monc = None
+        try:
+            (self.spec.dir / SUPERVISOR_STATE).unlink()
+        except OSError:
+            pass
+
+    @staticmethod
+    def _terminate(children: list[_Child], timeout: float) -> None:
         for child in children:
             if child.proc is None or child.proc.poll() is not None:
                 continue
@@ -572,14 +591,3 @@ class Supervisor:
                 except OSError:
                     pass
                 child.log_fh = None
-        if self._msgr is not None:
-            try:
-                self._msgr.shutdown()
-            except Exception:  # noqa: BLE001 — teardown best-effort
-                pass
-            self._msgr = None
-            self._monc = None
-        try:
-            (self.spec.dir / SUPERVISOR_STATE).unlink()
-        except OSError:
-            pass

@@ -1,15 +1,16 @@
 """``ceph-tpu-cluster`` — the vstart.sh/cephadm-role launcher
 (src/vstart.sh:1, reduced to its working core): stand up a whole
-mon+mgr+N-OSD cluster OUTSIDE pytest, from one command, with
-persistent stores under a cluster directory.
+mon+mgr+N-OSD(+MDS+RGW) cluster OUTSIDE pytest, from one command,
+with persistent stores under a cluster directory.
 
-    python -m ceph_tpu_torch.tools.cluster start --osds 3 -d /tmp/c1
+    python -m ceph_tpu_torch.tools.cluster start --osds 3 --mds 1 --rgw 1 -d /tmp/c1
     python -m ceph_tpu_torch.tools.cluster status -d /tmp/c1
     python -m ceph_tpu_torch.tools.cluster stop -d /tmp/c1
 
 ``--device`` (default ``cuda``) is where the manager and the OSDs
 compute; ``cpu`` runs the whole cluster without a card.  The MDS and
-RGW daemons (``--mds``, ``--rgw``) are not ported yet and are refused.
+RGW daemons (``--mds``, ``--rgw``) compute nothing on a device: the
+OSDs encode the bytes of their pools.
 
 ``start`` runs the daemons in THIS process (they are thread-hosted,
 like vstart's standalone daemons collapsed onto one host) and writes
@@ -17,7 +18,7 @@ like vstart's standalone daemons collapsed onto one host) and writes
 ``ceph``/``rados`` CLIs and librados clients consume:
 
 ``start --processes`` instead boots the REAL process model: a mon
-trio + mgr + OSDs, each daemon its own OS process under
+trio + mgr + OSDs (+MDS/RGW), each daemon its own OS process under
 the crash-respawning :class:`~ceph_tpu_torch.proc.Supervisor`, traffic on
 real sockets — vstart the way the reference actually runs, and the
 only mode whose throughput can exceed one core.  ``--mons`` sizes
@@ -68,14 +69,6 @@ def _build_map(n_osd: int):
     return OSDMap.build(cmap, n_osd)
 
 
-def _refuse_unported(spec: dict) -> None:
-    if int(spec.get("mds", 0)) > 0 or int(spec.get("rgw", 0)) > 0:
-        raise RuntimeError(
-            "--mds and --rgw need the MDS and RGW daemons, which "
-            "ceph_tpu_torch does not have yet"
-        )
-
-
 def prebuild_kernels(device: str) -> None:
     """Build the host crc32c and, for a CUDA device, the GF(2^8)
     kernels once, before daemon processes start: each process then
@@ -97,11 +90,12 @@ class Cluster:
         self.mon_msgr = None
         self.osds = []
         self.mgr = None
+        self.mds = []
+        self.rgw = None
         self._clients = []
 
     # -- bring-up (the vstart order: mon, mgr, osds, mds, rgw) ---------
     def start(self) -> dict:
-        _refuse_unported(self.spec)
         from ..mgr import Manager
         from ..mon.monitor import Monitor
         from ..msg import Messenger
@@ -162,8 +156,47 @@ class Cluster:
             "pid": os.getpid(),
         }
 
-        # the admin client wait_healthy polls
-        self._clients.append(Rados("cluster-admin").connect(*mon_addr))
+        admin = Rados("cluster-admin").connect(*mon_addr)
+        self._clients.append(admin)
+        existing = set(admin.monc.osdmap.pool_names.values())
+
+        def pool(name, **kw):
+            if name not in existing:
+                admin.pool_create(name, **kw)
+            conf["pools"].append(name)
+
+        if int(self.spec.get("mds", 0)) > 0:
+            from ..mds import MDSDaemon
+
+            size = min(3, max(1, n))
+            pool("fsmeta", pg_num=4, size=size)
+            pool("fsdata", pg_num=8, size=size)
+            for j in range(int(self.spec["mds"])):
+                r = Rados(f"mds-{j}").connect(*mon_addr)
+                self._clients.append(r)
+                self.mds.append(
+                    MDSDaemon(f"mds{j}", r, "fsmeta")
+                )
+            conf["mds"] = int(self.spec["mds"])
+        if int(self.spec.get("rgw", 0)) > 0:
+            from ..rgw import RGW
+
+            pool("rgwpool", pg_num=8, size=min(3, max(1, n)))
+            r = Rados("rgw-0").connect(*mon_addr)
+            self._clients.append(r)
+            self.rgw = RGW(
+                r.open_ioctx("rgwpool"),
+                auth=bool(self.spec.get("rgw_auth", False)),
+                name="rgw.0",
+            )
+            conf["rgw_port"] = self.rgw.serve(
+                int(self.spec.get("rgw_port", 0))
+            )
+            # production posture: the dynamic-reshard worker drains
+            # the threshold queue, and index/reshard counters flow
+            # to the mgr like every other daemon's
+            self.rgw.start_reshard()
+            self.rgw.start_mgr_reports()
         # atomic publish: the daemonize parent polls for this file
         # and reads it immediately — a partial write would crash it
         tmp = self.dir / "cluster.json.tmp"
@@ -193,11 +226,15 @@ class Cluster:
         return False
 
     def stop(self) -> None:
+        if self.rgw is not None:
+            self.rgw.shutdown()
         if self.mgr is not None:
             try:
                 self.mgr.shutdown()
             except Exception:  # noqa: BLE001 — teardown best-effort
                 pass
+        for d in self.mds:
+            d.shutdown()
         for osd in self.osds:
             osd.shutdown()
         for c in self._clients:
@@ -285,6 +322,12 @@ def _start_processes(args) -> int:
         "dir": str(cdir),
         "pid": os.getpid(),
     }
+    if args.mds:
+        conf["mds"] = int(args.mds)
+        conf["pools"] += ["fsmeta", "fsdata"]
+    if args.rgw:
+        conf["rgw_port"] = int(spec.data["rgw_ports"][0])
+        conf["pools"].append("rgwpool")
 
     admin = Rados("cluster-admin").connect_any(spec.mon_addrs)
     healthy = False
@@ -329,11 +372,6 @@ def _start_processes(args) -> int:
 
 
 def _cmd_start(args) -> int:
-    try:
-        _refuse_unported(vars(args))
-    except RuntimeError as e:
-        print(e, file=sys.stderr)
-        return 2
     # nothing before the fork touches CUDA: the daemons open their
     # device in the detached child (thread-hosted) or in their own
     # processes (--processes)

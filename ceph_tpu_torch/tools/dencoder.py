@@ -15,10 +15,7 @@ at mixed-version upgrade time.  Same machinery here:
   regression against data already in the wild.
 - CLI: ``list`` / ``generate`` / ``check`` / ``decode -t TYPE FILE``.
 
-The bucket-index types (``rgw_bucket_record``, ``rgw_reshard_entry``)
-wait for the port of rgw: ``check`` passes over their pinned blobs
-(``UNPORTED``), and every other type is registered with the JAX
-package's sample and bytes.
+Every type is registered with the JAX package's sample and bytes.
 
 A NEW field appended to a struct re-encodes pinned blobs differently
 — that is exactly the signal: regenerate the corpus DELIBERATELY
@@ -37,8 +34,6 @@ from ..common.encoding import Decoder, Encoder
 CORPUS_DIR = (
     pathlib.Path(__file__).resolve().parents[2] / "corpus" / "dencoder"
 )
-# pinned types whose modules are not ported yet (rgw/index.py)
-UNPORTED = frozenset({"rgw_bucket_record", "rgw_reshard_entry"})
 
 
 def _sample_messages():
@@ -332,6 +327,53 @@ def _build_types():
         lambda blob: PerfHistogram2D.decode(blob).encode(),
     )
 
+    # sharded bucket-index plane (rgw/index.py): the bucket metadata
+    # record (index layout + live reshard descriptor) and the
+    # reshard-queue entry pin their canonical encodings — a record
+    # shape drift would strand every bucket written before it
+    from ..rgw.index import (
+        decode_bucket_record,
+        decode_reshard_entry,
+        encode_bucket_record,
+        encode_reshard_entry,
+    )
+
+    bucket_rec = {
+        "ctime": 1700000000.0,
+        "owner": "alice",
+        "acl": {
+            "owner": "alice",
+            "grants": [
+                {"grantee": "alice", "permission": "FULL_CONTROL"}
+            ],
+        },
+        "index": {"gen": 2, "num_shards": 8},
+        "reshard": {
+            "status": "in_progress",
+            "target_gen": 3,
+            "target_shards": 16,
+            "stamp": 1700000001.5,
+        },
+    }
+    types["rgw_bucket_record"] = (
+        lambda: encode_bucket_record(bucket_rec),
+        lambda blob: encode_bucket_record(
+            decode_bucket_record(blob)
+        ),
+    )
+    reshard_ent = {
+        "bucket": "photos",
+        "target_shards": 16,
+        "reason": "threshold",
+        "queued_at": 1700000002.25,
+    }
+    types["rgw_reshard_entry"] = (
+        lambda: encode_reshard_entry(reshard_ent),
+        lambda blob: encode_reshard_entry(
+            decode_reshard_entry(blob)
+        ),
+    )
+
     # the PGMap digest (mgr/pgmap.py): the mgr→mon rollup the status
     # / df / health surfaces read — sorted-map encoding, so the same
     # digest is always the same bytes
@@ -416,7 +458,7 @@ def check() -> dict[str, str]:
                 "bytes): format changed against pinned data"
             )
     for path in sorted(CORPUS_DIR.glob("*.bin")):
-        if path.stem not in types and path.stem not in UNPORTED:
+        if path.stem not in types:
             errors[path.stem] = "pinned but no longer registered"
     return errors
 

@@ -2,6 +2,7 @@
 """Smoke run of ceph_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gateways   # phases 1, 10, 13 and 14 alone, mdtest at 1000 files
 
 Phases, each reported on its own lines; any mismatch raises and the
 script exits non-zero:
@@ -93,7 +94,7 @@ script exits non-zero:
    pipeline; one ``{"osdmap": ...}`` line;
 8. the EC sub-op wire and the durable stores, with the launch counts
    zeroed before and both non-zero after: one PG (isa k=8 m=3, stripe
-   unit 4096, 128 seeded objects of 4 MiB) whose 11 shards sit behind
+   unit 4096, 64 seeded objects of 4 MiB) whose 11 shards sit behind
    ``ShardServer``s, each on its own ``Messenger`` on 127.0.0.1 over a
    ``WALStore(device="cuda")`` fronting a ``BlockStore`` under
    ``build/``, with one client ``Messenger`` and 11 ``RemoteStore``s
@@ -130,11 +131,12 @@ script exits non-zero:
    recovery, no reactor left; GB/s, ``osd perf`` and the launch counts
    beside the card's name and limit; one ``{"cluster": ...}`` line;
 10. the cluster as processes, what ``tools.cluster start --processes
-   --device cuda`` starts: 3 ``QuorumMonitor``s, a ``Manager`` and 12 OSD
-   processes on ``cuda`` (each its own CUDA context; the kernels built
+   --device cuda --mds 2 --rgw 1`` starts: 3 ``QuorumMonitor``s, a
+   ``Manager``, two MDS and a gateway process, and 12 OSD processes on
+   ``cuda`` (each its own CUDA context; the kernels built
    once before the spawn; each child's residency cache at its 256 MiB
    default) over a ``BlockStore`` each, under the supervisor; from this
-   process, 2 ``Rados`` clients: the same pools as phase 9, 128 EC
+   process, 2 ``Rados`` clients: the same pools as phase 9, 64 EC
    and 64 replicated objects of 4 MiB put and read back byte-equal; the
    leader monitor SIGKILLed, the seconds until the new quorum commits,
    the monitor respawned and caught up (``mon_status``); one OSD process
@@ -145,26 +147,26 @@ script exits non-zero:
    through the manager, its first plan equal to ``calc_pg_upmaps`` on
    the CPU on a copy of the map it planned on; each OSD's kernel launch
    counts over its admin socket (every EC primary's non-zero); each
-   process's card memory (``nvidia-smi``); then phase 11 on the same
-   fleet; a clean stop: no death but the planned ones (phase 11's
-   included), ``crash ls`` holding only those, nothing to reap;
+   process's card memory (``nvidia-smi``); then phases 11, 13 and 14 on
+   the same fleet; a clean stop: no death but the planned ones (those
+   phases' included), ``crash ls`` holding only those, nothing to reap;
    one ``{"processes": ...}`` line;
 11. block images on phase 10's fleet, each OSD's K1/K2 launches read
    over its admin socket before and after each step: an isa k=8 m=3
    pool (pg_num 16); through ``python -m ceph_tpu_torch.tools.rbd_cli``
-   as a process, a 1 GiB image created with exclusive-lock and
+   as a process, a 512 MiB image created with exclusive-lock and
    object-map (4 MiB objects, stripe_count 1) and ``info``, a seeded
-   1 GiB file ``import``ed (K1 must fire) and ``export``ed with an equal
-   sha256; 1024 seeded 4 KiB writes at distinct aligned offsets through
+   512 MiB file ``import``ed (K1 must fire) and ``export``ed with an equal
+   sha256; 256 seeded 4 KiB writes at distinct aligned offsets through
    ``Image.aio_write``, 16 in flight (rbd bench's io-size and
    io-threads), each read back, IOPS and p50/p99 latency; a snapshot, an
    8 MiB overwrite, the read at the snapshot equal to the bytes before
    it and ``rbd diff --from-snap`` listing exactly the touched objects;
    an OSD holding data positions of the image's PGs SIGKILLed and
    marked down, a degraded ``export`` equal to the image (K2 must fire),
-   the OSD respawned and every PG clean again; 64 MiB of 4 KiB writes
+   the OSD respawned and every PG clean again; 16 MiB of 4 KiB writes
    through the ObjectCacher (``cache=True``) flushed and read back
-   uncached; a journaled 64 MiB image on a 3-replica pool mirrored into
+   uncached; a journaled 16 MiB image on a 3-replica pool mirrored into
    another pool by ``MirrorDaemon.replay_once``, then its tail; one
    ``{"rbd": ...}`` line;
 12. the qa thrasher: the JAX package's tier-1 gate schedule (seed
@@ -173,8 +175,40 @@ script exits non-zero:
    consistency oracle: zero violations, HEALTH_OK, at least half the
    events applied; the events applied and skipped, ops, WAL records
    replayed and the device crc calls; one ``{"thrash": ...}`` line;
-13. one JSON line describing each kernel;
-14. the last line, ``{"ok": true, "device": {...}}``.
+13. the object gateway on phase 10's fleet, after phase 11, each OSD's
+   K1/K2 launches read over its admin socket before and after each
+   step: an isa k=8 m=3 pool (stripe unit 4096, pg_num 16) with an
+   ``RGW`` in this process serving S3 on 127.0.0.1; 256 seeded objects
+   of 4 MiB (rgw_max_chunk_size: one rados object a PUT) PUT by 16
+   concurrent HTTP clients, each ETag the body's md5; every object GET
+   back with an equal sha256, ListObjects at max-keys=100 listing all
+   in key order; a 64 MiB multipart upload in 5 MiB parts (13, the
+   ETag ending in -13) read back equal; 512 PUTs of 4 KiB at 16 in
+   flight (ops/s, p50/p99); a SigV4-signed PUT and GET through
+   ``sign_request`` on an ``auth=True`` gateway and an unsigned PUT
+   refused with 403; an OSD holding data positions of the pool's PGs
+   SIGKILLed and marked down, every object GET back equal (degraded),
+   8 objects PUT anew, the OSD respawned and every PG clean again, the
+   8 read back; ``python -m
+   ceph_tpu_torch.tools.rgw_admin bucket stats`` as a process counting
+   every object put; the fleet's ``rgw.0`` role taking a bucket and a
+   4 MiB PUT and GET on its replicated ``rgwpool``; K1 + K2 over the
+   PUTs, and over the degraded GETs and the rebuild, with the OSDs'
+   coalesced batch-encode dispatches over the PUTs; one ``{"rgw": ...}``
+   line;
+14. the file system on the same fleet: its ``mds.0`` and ``mds.1``
+   (active and standby over ``fsmeta``) and an ``MDSClient`` in this
+   process whose file data goes to an isa k=8 m=3 pool (pg_num 16) in
+   CephFS's default layout (stripe unit 4 MiB, stripe count 1, object
+   size 4 MiB): 32 seeded files of 16 MiB written 8 at a time and read
+   back with equal sha256s (K1 must fire); a burst of mdtest's shape,
+   100 files in one directory (1000 with ``--gateways``) created,
+   stat'ed, listed and removed, ops/s each; the active MDS process
+   SIGKILLed, the seconds until the
+   standby serves a client stat, every file read back equal, the killed
+   MDS respawned as standby; one ``{"fs": ...}`` line;
+15. one JSON line describing each kernel;
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -1610,7 +1644,7 @@ def phase_osdmap(smi: str, pool) -> dict:
             "phase_s": phase_s}
 
 
-WIRE_OBJECTS = 128  # half of phase 6's PG, so the script ends well inside its time limit
+WIRE_OBJECTS = 64  # a quarter of phase 6's PG (128 before PR 13), for the script's time budget
 WIRE_OBJECT_BYTES = 4 << 20  # the RADOS default object size
 WIRE_GRACE_S = 2.0  # osd_heartbeat_grace is 20 s; cut so detection waits 2
 WIRE_PING_S = 0.25  # one heartbeat round every 0.25 s
@@ -2542,7 +2576,7 @@ def phase_cluster(smi: str, device: str = "cuda", objects: int = CLUSTER_OBJECTS
 
 PROC_MONS = 3
 PROC_OSDS = 12  # isa k=8 m=3 takes 11 positions; the 12th is the recovery target
-PROC_OBJECTS = 128  # phase 9's EC objects before its cut to 64
+PROC_OBJECTS = 64  # 128 before PR 13, cut for the script's time budget
 PROC_REP_OBJECTS = 64
 PROC_CLIENTS = 2  # each Rados runs 4 aio workers: 8 ops in flight, as in phase 9
 PROC_LOST = 5  # the OSD process that is killed and later respawned
@@ -2553,13 +2587,15 @@ PROC_OSD_OPTIONS = {
 }
 PROC_CHILD_RESIDENCY = 256 << 20  # the residency cache's default capacity, for each child
 PROC_READY_S = 180.0
+PROC_MDS = 2  # an active and a standby, for phase 14
+PROC_RGW = 1
 
 
 class _ProcCluster:
-    """What ``tools.cluster start --processes`` starts: 3 monitors in a
-    quorum, a manager and one OSD process each over a BlockStore under
-    ``root``, on ``device``; and ``clients`` librados handles in this
-    process."""
+    """What ``tools.cluster start --processes --mds 2 --rgw 1`` starts: 3
+    monitors in a quorum, a manager, one OSD process each over a
+    BlockStore under ``root`` on ``device``, two MDS processes and a
+    gateway; and ``clients`` librados handles in this process."""
 
     def __init__(self, root: pathlib.Path, device: str, osds: int, clients: int):
         from ceph_tpu_torch.msg import Messenger
@@ -2567,8 +2603,8 @@ class _ProcCluster:
         from ceph_tpu_torch.tools.cluster import prebuild_kernels
 
         shutil.rmtree(root, ignore_errors=True)
-        self.spec = ClusterSpec.plan(root, mons=PROC_MONS, osds=osds, mgrs=1, device=device,
-                                     osd_options=PROC_OSD_OPTIONS)
+        self.spec = ClusterSpec.plan(root, mons=PROC_MONS, osds=osds, mgrs=1, mds=PROC_MDS,
+                                     rgw=PROC_RGW, device=device, osd_options=PROC_OSD_OPTIONS)
         # the kernels are built once, here: 12 nvcc runs at once would
         # outlast the supervisor's ready timeout
         prebuild_kernels(device)
@@ -2717,10 +2753,10 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
     """The cluster as processes: what ``tools.cluster start --processes
     --device cuda`` starts, each OSD in its own process with its own
     CUDA context, driven through librados from this process.
-    ``during(c, k, m)`` drives a later phase on the same fleet after
+    ``during(c, k, m)`` drives later phases on the same fleet after
     this one's numbers are read and before its crash and death audit;
-    its result is returned under ``"during"``, and the OSD it names
-    as ``"victim"`` was killed once on purpose."""
+    its result is returned under ``"during"``, and each role it lists
+    under ``"victims"`` was killed once on purpose."""
     rng = np.random.default_rng(SEED + 10)
     block = rng.bytes(objects * object_bytes)
     model = {f"obj{i:03d}": block[i * object_bytes:(i + 1) * object_bytes]
@@ -2737,8 +2773,9 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
         quorum_s = c.ready_s + c.wait(lambda: c.leader() is not None, "no quorum formed", 60)
         c.connect(PROC_CLIENTS)
         roles = c.sup.status()
-        check(len(roles) == PROC_MONS + 1 + osds and len({r["pid"] for r in roles.values()}) ==
-              len(roles), f"not one process a daemon: {roles}")
+        check(len(roles) == PROC_MONS + 1 + osds + PROC_MDS + PROC_RGW
+              and len({r["pid"] for r in roles.values()}) == len(roles),
+              f"not one process a daemon: {roles}")
         rc, _b, outs = c.rados.mon_command({
             "prefix": "osd erasure-code-profile set", "name": "isa",
             "profile": ["plugin=isa", f"k={k}", f"m={m}"]})
@@ -2746,11 +2783,12 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
         c.pools["ec"] = c.rados.pool_create("ecpool", pool_type=3, pg_num=CLUSTER_PG_NUM,
                                             erasure_code_profile="isa")
         c.pools["rep"] = c.rados.pool_create("reppool", pg_num=CLUSTER_PG_NUM, size=3)
-        n_pgs = 2 * CLUSTER_PG_NUM
+        # the mds and rgw roles made their own pools at boot
+        n_pgs = sum(p.pg_num for p in c.rados.monc.osdmap.pools.values())
         epoch0 = c.rados.monc.osdmap.epoch
         active_s = c.wait(lambda: c.clean(epoch0, n_pgs), "the pools never went active+clean")
         print(f"[10] {PROC_MONS} monitors, 1 manager, {osds} OSD processes (device={device}, "
-              f"BlockStore each) ready {c.ready_s:.2f} s after spawn, quorum at "
+              f"BlockStore each), {PROC_MDS} MDS and {PROC_RGW} gateway processes ready {c.ready_s:.2f} s after spawn, quorum at "
               f"{quorum_s:.2f} s; isa k={k} m={m} and 3-replica pools active+clean "
               f"{active_s:.2f} s after creation")
 
@@ -2932,7 +2970,7 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
         # kills, and the crash reports the manager holds are theirs
         kills = collections.Counter([f"mon.{lead}", f"osd.{PROC_LOST}"])
         if later is not None:
-            kills[f"osd.{later['victim']}"] += 1
+            kills.update(later["victims"])
         for role in kills:
             if role.startswith("osd."):
                 c.wait(lambda: sum(r["entity_name"] == role
@@ -2970,7 +3008,8 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
           "clock): " + ", ".join(f"{key} {v:.3f}" for key, v in gbps.items()))
     return {
         "card": smi.splitlines()[0],
-        "config": {"mons": PROC_MONS, "mgrs": 1, "osds": osds, "device": device,
+        "config": {"mons": PROC_MONS, "mgrs": 1, "osds": osds, "mds": PROC_MDS,
+                   "rgw": PROC_RGW, "device": device,
                    "ec_profile": f"isa k={k} m={m}", "stripe_unit": 4096,
                    "pg_num": CLUSTER_PG_NUM, "objects": objects, "object_bytes": object_bytes,
                    "rep_objects": rep_objects, "store": "BlockStore(sync=False)",
@@ -2992,14 +3031,14 @@ def phase_processes(smi: str, device: str = "cuda", osds: int = PROC_OSDS, k: in
     }
 
 
-RBD_IMAGE_BYTES = 1 << 30  # a 1 GiB image
+RBD_IMAGE_BYTES = 512 << 20  # cut from 1 GiB for the time budget (PERF.md §4)
 RBD_OBJECT_BYTES = 4 << 20  # rbd_default_order 22
 RBD_IO_SIZE = 4096  # rbd bench --io-size default
 RBD_IO_THREADS = 16  # rbd bench --io-threads default
-RBD_RANDOM_WRITES = 1024  # cut from rbd bench's 1 GiB --io-total for the time budget
+RBD_RANDOM_WRITES = 256  # cut from rbd bench's 1 GiB --io-total for the time budget
 RBD_OVERWRITE = 8 << 20
-RBD_CACHE_BYTES = 64 << 20
-RBD_MIRROR_BYTES = 64 << 20
+RBD_CACHE_BYTES = 16 << 20
+RBD_MIRROR_BYTES = 16 << 20
 RBD_FEATURES = "exclusive-lock,object-map"
 RBD_DEGRADED_WRITES = 8  # whole objects rewritten while an OSD is down
 
@@ -3067,6 +3106,28 @@ def _patched_sha(path: pathlib.Path, size: int, patches: list | tuple = ()) -> s
     return h.hexdigest()
 
 
+def _pool_clean(c, what: str) -> None:
+    """Wait until the manager's digest holds every PG of every pool
+    active+clean, reported at the current epoch or later."""
+    from ceph_tpu_torch.msg.messenger import wait_for
+
+    n_pgs = sum(p.pg_num for p in c.rados.monc.osdmap.pools.values())
+    epoch = c.rados.monc.osdmap.epoch
+    if not wait_for(lambda: c.clean(epoch, n_pgs), CLUSTER_WAIT_S, 0.25):
+        check(False, f"{what}: {c.unclean()}")
+
+
+def _busiest_data_osd(c, pool_id: int, k: int) -> tuple[int, int]:
+    """The OSD holding the most non-primary data positions of the
+    pool's PGs, and how many."""
+    osdmap = c.rados.monc.osdmap
+    holds: collections.Counter = collections.Counter()
+    for ps in range(osdmap.pools[pool_id].pg_num):
+        acting, primary = osdmap.pg_to_up_acting_osds(pool_id, ps)[2:]
+        holds.update(o for o in acting[:k] if o != primary)
+    return holds.most_common(1)[0]
+
+
 def phase_rbd(smi: str, c, device: str, k: int, m: int,
               image_bytes: int = RBD_IMAGE_BYTES, object_bytes: int = RBD_OBJECT_BYTES,
               random_writes: int = RBD_RANDOM_WRITES, overwrite: int = RBD_OVERWRITE,
@@ -3086,9 +3147,7 @@ def phase_rbd(smi: str, c, device: str, k: int, m: int,
     # 1. the pool, and an image through the CLI
     c.pools["rbd"] = c.rados.pool_create("rbdpool", pool_type=3, pg_num=CLUSTER_PG_NUM,
                                          erasure_code_profile="isa")
-    n_pgs = sum(p.pg_num for p in c.rados.monc.osdmap.pools.values())
-    epoch = c.rados.monc.osdmap.epoch
-    c.wait(lambda: c.clean(epoch, n_pgs), "the rbd pool never went active+clean")
+    _pool_clean(c, "the rbd pool never went active+clean")
     _rbd_cli(c, "rbdpool", "create", "vol", "--size", str(image_bytes),
              "--object-size", str(object_bytes), "--features", RBD_FEATURES)
     info = json.loads(_rbd_cli(c, "rbdpool", "info", "vol")[0])
@@ -3193,15 +3252,10 @@ def phase_rbd(smi: str, c, device: str, k: int, m: int,
     # degraded export decodes on the card and equals the image; writes
     # while it is down land on the other positions, and its respawn
     # rebuilds its shards of them
-    from ceph_tpu_torch.msg.messenger import wait_for
     from ceph_tpu_torch.osdc.objecter import object_to_pg
 
     osdmap = c.rados.monc.osdmap
-    holds: collections.Counter = collections.Counter()
-    for ps in range(CLUSTER_PG_NUM):
-        acting, primary = osdmap.pg_to_up_acting_osds(c.pools["rbd"], ps)[2:]
-        holds.update(o for pos, o in enumerate(acting[:k]) if o != primary)
-    victim = holds.most_common(1)[0][0]
+    victim, held = _busiest_data_osd(c, c.pools["rbd"], k)
     # objects of the victim's PGs, from the map before its kill (the
     # client's map is updated in place)
     pool = osdmap.pools[c.pools["rbd"]]
@@ -3234,9 +3288,7 @@ def phase_rbd(smi: str, c, device: str, k: int, m: int,
     c.sup.respawn(f"osd.{victim}")
     c.sup.wait_ready([f"osd.{victim}"], timeout=PROC_READY_S)
     c.wait(lambda: c.rados.monc.osdmap.is_up(victim), f"osd.{victim} never rejoined", 60)
-    epoch = c.rados.monc.osdmap.epoch
-    if not wait_for(lambda: c.clean(epoch, n_pgs), CLUSTER_WAIT_S, 0.25):
-        check(False, f"never clean after osd.{victim}'s respawn: {c.unclean()}")
+    _pool_clean(c, f"never clean after osd.{victim}'s respawn")
     rejoin_s = time.perf_counter() - t0
     rebuild_k = _sum_launches(_launch_delta(before, {o: c.admin(o, "kernel launches")
                                                      for o in live}))
@@ -3250,7 +3302,7 @@ def phase_rbd(smi: str, c, device: str, k: int, m: int,
         check(degraded_k["K1"] + degraded_k["K2"] > 0,
               f"the degraded export decoded no stripe on the card: {degraded_delta}")
         check(rebuild_k["K2"] > 0, f"the rebuild launched no K2: {rebuild_k}")
-    print(f"[11] osd.{victim} (data positions in {holds[victim]} of the image's PGs) "
+    print(f"[11] osd.{victim} (data positions in {held} of the image's PGs) "
           f"SIGKILLed and marked down: the degraded export took {degraded_s:.3f} s "
           f"({image_bytes / degraded_s / 1e9:.4f} GB/s), sha256 equal to the image; launches "
           f"{degraded_k}; {len(missed)} objects of its PGs rewritten while it was down; "
@@ -3275,9 +3327,7 @@ def phase_rbd(smi: str, c, device: str, k: int, m: int,
     # 7. a journaled image on a 3-replica pool mirrored into another
     c.pools["mirror_src"] = c.rados.pool_create("mirsrc", pg_num=CLUSTER_PG_NUM, size=3)
     c.pools["mirror_dst"] = c.rados.pool_create("mirdst", pg_num=CLUSTER_PG_NUM, size=3)
-    n_pgs = sum(p.pg_num for p in c.rados.monc.osdmap.pools.values())
-    epoch = c.rados.monc.osdmap.epoch
-    c.wait(lambda: c.clean(epoch, n_pgs), "the mirror pools never went active+clean")
+    _pool_clean(c, "the mirror pools never went active+clean")
     src_io, dst_io = c.rados.open_ioctx("mirsrc"), c.rados.open_ioctx("mirdst")
     RBD().create(src_io, "jimg", mirror_bytes, stripe_unit=object_bytes,
                  object_size=object_bytes, features="journaling")
@@ -3339,6 +3389,443 @@ def phase_rbd(smi: str, c, device: str, k: int, m: int,
         "seconds": {"import": import_s, "export": export_s, "random_writes": write_s,
                     "snap_overwrite_reads": snap_s, "degraded_export": degraded_s,
                     "rejoin_to_clean": rejoin_s, "cache": cache_s, "mirror": mirror_s,
+                    "phase": phase_s},
+    }
+
+
+RGW_OBJECTS = 256
+RGW_OBJECT_BYTES = 4 << 20  # rgw_max_chunk_size: one rados object a PUT
+RGW_CLIENTS = 16  # concurrent HTTP clients
+RGW_PAGE = 100  # ListObjects max-keys
+RGW_MP_BYTES = 64 << 20
+RGW_PART_BYTES = 5 << 20  # S3's and rgw_multipart_min_part_size's minimum part
+RGW_SMALL = 512
+RGW_SMALL_BYTES = 4096
+RGW_DEGRADED_PUTS = 8  # objects overwritten while an OSD is down, rebuilt on its return
+
+
+def _s3(port: int, method: str, path: str, body: bytes = b"", headers=None,
+        query: dict | None = None) -> tuple[int, bytes, dict]:
+    """One HTTP request to a gateway on 127.0.0.1: status, body, headers."""
+    import http.client
+    import urllib.parse
+
+    url = path + ("?" + urllib.parse.urlencode(query) if query else "")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=CLUSTER_WAIT_S)
+    try:
+        conn.request(method, url, body=body or None, headers=dict(headers or {}))
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _s3_many(calls, workers: int = RGW_CLIENTS) -> tuple[list, list]:
+    """``calls`` of ``_s3`` arguments, ``workers`` at a time: each
+    reply and each request's seconds, in order."""
+    def one(args):
+        t0 = time.perf_counter()
+        got = _s3(*args)
+        return got, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        done = list(ex.map(one, calls))
+    return [d[0] for d in done], [d[1] for d in done]
+
+
+def _pct(lat: list, q: float) -> float:
+    lat = sorted(lat)
+    return lat[min(len(lat) - 1, int(len(lat) * q))]
+
+
+def _fired(k: dict) -> str:
+    return "+".join(n for n in ("K1", "K2") if k[n]) or "none"
+
+
+def phase_rgw(smi: str, c, device: str, k: int, m: int, objects: int = RGW_OBJECTS,
+              object_bytes: int = RGW_OBJECT_BYTES, mp_bytes: int = RGW_MP_BYTES,
+              part_bytes: int = RGW_PART_BYTES, small: int = RGW_SMALL) -> dict:
+    """The object gateway on phase 10's fleet: an ``RGW`` in this
+    process over an isa k=m pool, serving S3 on 127.0.0.1 to
+    concurrent HTTP clients; then the fleet's own ``rgw.0`` role."""
+    import hashlib
+
+    from ceph_tpu_torch.rgw import RGW, sign_request
+
+    rng = np.random.default_rng(SEED + 13)
+    osds = c.spec.data["osds"]
+    t_phase = time.perf_counter()
+    launches0 = _launches_by_osd(c, osds)
+
+    # 1. the pool and the gateway
+    c.pools["rgw"] = c.rados.pool_create("rgwecpool", pool_type=3, pg_num=CLUSTER_PG_NUM,
+                                         erasure_code_profile="isa")
+    _pool_clean(c, "the gateway's pool never went active+clean")
+    io = c.rados.open_ioctx("rgwecpool")
+    gw = RGW(io, name="rgw.smoke")
+    agw = RGW(io, auth=True, name="rgw.smoke.auth")
+    port, aport = gw.serve(), agw.serve()
+    try:
+        check(_s3(port, "PUT", "/big")[0] == 200, "PUT bucket")
+        check(_s3(port, "PUT", "/small")[0] == 200, "PUT small bucket")
+
+        # 2. the PUTs: 16 clients at once
+        block = rng.bytes(objects * object_bytes)
+        names = [f"obj{i:03d}" for i in range(objects)]
+        model = {n: block[i * object_bytes:(i + 1) * object_bytes] for i, n in enumerate(names)}
+        del block
+        before = _launches_by_osd(c, osds)
+        enc0 = _encode_counters(c, osds)
+        t0 = time.perf_counter()
+        replies, put_lat = _s3_many([(port, "PUT", f"/big/{n}", model[n]) for n in names])
+        put_s = time.perf_counter() - t0
+        put_delta = _launch_delta(before, _launches_by_osd(c, osds))
+        put_enc = {key: v - enc0[key] for key, v in _encode_counters(c, osds).items()}
+        for n, (status, _b, hdrs) in zip(names, replies):
+            check(status == 200, f"PUT {n}: {status}")
+            check(hdrs.get("ETag") == f'"{hashlib.md5(model[n]).hexdigest()}"',
+                  f"PUT {n}: ETag {hdrs.get('ETag')} is not the body's md5")
+        put_k = _sum_launches(put_delta)
+        print(f"[13] PUT {objects} objects of {object_bytes} B, {RGW_CLIENTS} clients: "
+              f"{put_s:.3f} s ({objects * object_bytes / put_s / 1e9:.4f} GB/s), p50 "
+              f"{_pct(put_lat, 0.5) * 1e3:.1f} ms p99 {_pct(put_lat, 0.99) * 1e3:.1f} ms; "
+              f"every ETag the body's md5; launches {put_k} ({_fired(put_k)}); encode "
+              f"counters {put_enc}")
+
+        # 3. every object back, and the listing in pages
+        sha = {n: hashlib.sha256(d).hexdigest() for n, d in model.items()}
+
+        def get_all(label: str) -> float:
+            t0 = time.perf_counter()
+            replies, _lat = _s3_many([(port, "GET", f"/big/{n}") for n in names])
+            took = time.perf_counter() - t0
+            for n, (status, body, _h) in zip(names, replies):
+                check(status == 200 and hashlib.sha256(body).hexdigest() == sha[n],
+                      f"{label} GET {n}: {status}, sha256 differs")
+            return took
+
+        get_s = get_all("")
+        listed, marker, pages = [], "", 0
+        while True:
+            q = {"max-keys": str(RGW_PAGE), **({"marker": marker} if marker else {})}
+            status, body, _h = _s3(port, "GET", "/big", query=q)
+            check(status == 200, f"ListObjects page {pages}: {status}")
+            keys = re.findall(rb"<Key>([^<]*)</Key>", body)
+            listed += [x.decode() for x in keys]
+            pages += 1
+            if b"<IsTruncated>true</IsTruncated>" not in body:
+                break
+            marker = listed[-1]
+        check(listed == names, f"ListObjects listed {len(listed)} keys, not the {objects} put")
+        print(f"[13] GET every object back in {get_s:.3f} s "
+              f"({objects * object_bytes / get_s / 1e9:.4f} GB/s), sha256 equal; ListObjects "
+              f"at max-keys={RGW_PAGE}: {pages} pages, all {objects} keys in order")
+
+        # 4. a multipart upload
+        mp = rng.bytes(mp_bytes)
+        status, body, _h = _s3(port, "POST", "/big/multipart.bin", query={"uploads": ""})
+        check(status == 200, f"initiate multipart: {status}")
+        uid = re.search(rb"<UploadId>([^<]+)</UploadId>", body).group(1).decode()
+        parts = [mp[o:o + part_bytes] for o in range(0, mp_bytes, part_bytes)]
+        t0 = time.perf_counter()
+        for n, part in enumerate(parts, 1):
+            status, _b, _h = _s3(port, "PUT", "/big/multipart.bin", part,
+                                 query={"uploadId": uid, "partNumber": str(n)})
+            check(status == 200, f"part {n}: {status}")
+        status, body, _h = _s3(port, "POST", "/big/multipart.bin", query={"uploadId": uid})
+        mp_s = time.perf_counter() - t0
+        etag = re.search(rb"<ETag>\"?([^<\"]+)\"?</ETag>", body).group(1).decode()
+        check(status == 200 and etag.endswith(f"-{len(parts)}"),
+              f"complete multipart: {status}, ETag {etag}")
+        status, body, _h = _s3(port, "GET", "/big/multipart.bin")
+        check(status == 200 and body == mp, "the multipart object reads back different")
+        print(f"[13] multipart upload of {mp_bytes} B in {len(parts)} parts of {part_bytes} B "
+              f"completed in {mp_s:.3f} s, ETag {etag}, read back equal")
+
+        # 5. small objects: the index-bound case
+        smalls = [rng.bytes(RGW_SMALL_BYTES) for _ in range(small)]
+        t0 = time.perf_counter()
+        replies, small_lat = _s3_many([(port, "PUT", f"/small/s{i:04d}", d)
+                                       for i, d in enumerate(smalls)])
+        small_s = time.perf_counter() - t0
+        check(all(r[0] == 200 for r in replies), "a small PUT failed")
+        print(f"[13] {small} PUTs of {RGW_SMALL_BYTES} B, {RGW_CLIENTS} in flight: "
+              f"{small / small_s:.1f} ops/s, p50 {_pct(small_lat, 0.5) * 1e3:.2f} ms p99 "
+              f"{_pct(small_lat, 0.99) * 1e3:.2f} ms")
+
+        # 6. SigV4 on an auth=True gateway
+        access, secret = agw.create_user("smoke")
+
+        def signed(method, path, body=b""):
+            return _s3(aport, method, path, body,
+                       headers=sign_request(method, path, {}, body, access, secret))
+
+        sig_body = rng.bytes(65536)
+        check(signed("PUT", "/signed")[0] == 200, "signed PUT bucket")
+        check(signed("PUT", "/signed/o", sig_body)[0] == 200, "signed PUT")
+        got = signed("GET", "/signed/o")
+        check(got[0] == 200 and got[1] == sig_body, "signed GET")
+        anon = _s3(aport, "PUT", "/signed/anon", b"x")[0]
+        check(anon == 403, f"an unsigned PUT got {anon}, not 403")
+        print("[13] SigV4: signed PUT and GET through sign_request answered 200, equal; an "
+              f"unsigned PUT {anon}")
+
+        # 7. an OSD with data positions killed: degraded GETs, then its rebuild
+        victim, held = _busiest_data_osd(c, c.pools["rgw"], k)
+        before = _launches_by_osd(c, osds)
+        at_kill = c.admin(victim, "kernel launches")
+        c.sup.kill(f"osd.{victim}", hold=True)
+        rc, _b, outs = c.rados.mon_command({"prefix": "osd down", "id": victim})
+        check(rc == 0, f"osd down {victim}: {outs}")
+        c.wait(lambda: not c.rados.monc.osdmap.is_up(victim), f"osd.{victim} never marked down",
+               60)
+        degraded_s = get_all("degraded")
+        status, body, _h = _s3(port, "GET", "/big/multipart.bin")
+        check(status == 200 and body == mp, "the degraded multipart GET differs")
+        live = {o: c.admin(o, "kernel launches") for o in range(osds) if o != victim}
+        degraded_k = _sum_launches(_launch_delta({o: before[o] for o in live}, live))
+        # objects overwritten while it is down: its return rebuilds their shards
+        rewritten = names[:RGW_DEGRADED_PUTS]
+        for n in rewritten:
+            model[n] = rng.bytes(object_bytes)
+            sha[n] = hashlib.sha256(model[n]).hexdigest()
+        replies, _lat = _s3_many([(port, "PUT", f"/big/{n}", model[n]) for n in rewritten])
+        check(all(r[0] == 200 for r in replies), "a PUT while an OSD was down failed")
+        t0 = time.perf_counter()
+        c.sup.respawn(f"osd.{victim}")
+        c.sup.wait_ready([f"osd.{victim}"], timeout=PROC_READY_S)
+        c.wait(lambda: c.rados.monc.osdmap.is_up(victim), f"osd.{victim} never rejoined", 60)
+        _pool_clean(c, f"never clean after osd.{victim}'s respawn")
+        rejoin_s = time.perf_counter() - t0
+        after = {o: c.admin(o, "kernel launches") for o in range(osds)}
+        rebuild_k = _sum_launches(_launch_delta(live, {o: after[o] for o in live}))
+        replies, _lat = _s3_many([(port, "GET", f"/big/{n}") for n in rewritten])
+        check(all(r[0] == 200 and r[1] == model[n] for n, r in zip(rewritten, replies)),
+              "an object PUT while an OSD was down reads back different")
+        if device == "cuda":
+            check(put_k["K1"] + put_k["K2"] > 0, f"the PUTs launched no kernel: {put_delta}")
+            check(degraded_k["K1"] + degraded_k["K2"] + rebuild_k["K1"] + rebuild_k["K2"] > 0,
+                  f"the degraded GETs and the rebuild launched no kernel: {degraded_k}, "
+                  f"{rebuild_k}")
+        print(f"[13] osd.{victim} (data positions in {held} of the pool's PGs) SIGKILLed and "
+              f"marked down: every object GET back degraded in {degraded_s:.3f} s "
+              f"({objects * object_bytes / degraded_s / 1e9:.4f} GB/s), sha256 equal; launches "
+              f"{degraded_k} ({_fired(degraded_k)}); {len(rewritten)} objects PUT while it was "
+              f"down; respawned, clean {rejoin_s:.3f} s later, launches over the rebuild "
+              f"{rebuild_k} ({_fired(rebuild_k)}); the objects PUT meanwhile read back equal")
+
+        # 8. radosgw-admin as a process
+        host, mport = c.spec.mon_addrs[0]
+        stats = {}
+        for bucket, want in (("big", objects + 1), ("small", small)):
+            proc = subprocess.run(
+                [sys.executable, "-m", "ceph_tpu_torch.tools.rgw_admin", "-m",
+                 f"{host}:{mport}", "-p", "rgwecpool", "bucket", "stats", "--bucket", bucket],
+                capture_output=True, text=True, timeout=CLUSTER_WAIT_S,
+                cwd=pathlib.Path(__file__).resolve().parent)
+            check(proc.returncode == 0, f"rgw_admin bucket stats: {proc.stderr[-2000:]}")
+            stats[bucket] = json.loads(proc.stdout)
+            check(stats[bucket]["entries"] == want,
+                  f"rgw_admin counts {stats[bucket]['entries']} in {bucket}, not {want}")
+        print(f"[13] rgw_admin bucket stats (a process): big {stats['big']['entries']} "
+              f"entries, small {stats['small']['entries']}")
+    finally:
+        gw.shutdown()
+        agw.shutdown()
+
+    # 9. the fleet's own rgw.0 role, on its replicated rgwpool
+    fleet_port = c.sup.ready_info("rgw.0")["port"]
+    fbody = rng.bytes(object_bytes)
+    check(_s3(fleet_port, "PUT", "/fleet")[0] == 200, "rgw.0: PUT bucket")
+    check(_s3(fleet_port, "PUT", "/fleet/o", fbody)[0] == 200, "rgw.0: PUT")
+    got = _s3(fleet_port, "GET", "/fleet/o")
+    check(got[0] == 200 and got[1] == fbody, "rgw.0: GET differs")
+    print(f"[13] the fleet's rgw.0 (port {fleet_port}, pool rgwpool) created a bucket and "
+          f"took a {object_bytes} B PUT and GET, equal")
+
+    after = _launches_by_osd(c, osds)
+    counts = _sum_launches(_launch_delta(launches0, after, restarted={victim: at_kill}))
+    phase_s = time.perf_counter() - t_phase
+    logical = objects * object_bytes
+    out = {
+        "put_GBps": logical / put_s / 1e9, "get_GBps": logical / get_s / 1e9,
+        "degraded_get_GBps": logical / degraded_s / 1e9,
+        "small_put_ops_per_s": small / small_s,
+        "small_put_latency_ms": {"p50": _pct(small_lat, 0.5) * 1e3,
+                                 "p99": _pct(small_lat, 0.99) * 1e3},
+        "put_latency_ms": {"p50": _pct(put_lat, 0.5) * 1e3, "p99": _pct(put_lat, 0.99) * 1e3},
+    }
+    print(f"[13] gateway phase took {phase_s:.1f} s; launches {counts}; on "
+          f"{smi.splitlines()[0]} (host clock): "
+          + ", ".join(f"{key} {v}" for key, v in out.items()))
+    return {
+        "card": smi.splitlines()[0],
+        "config": {"pool": f"isa k={k} m={m}", "stripe_unit": 4096, "pg_num": CLUSTER_PG_NUM,
+                   "objects": objects, "object_bytes": object_bytes, "clients": RGW_CLIENTS,
+                   "multipart_bytes": mp_bytes, "part_bytes": part_bytes,
+                   "small_objects": small, "small_bytes": RGW_SMALL_BYTES,
+                   "osds": osds, "device": device},
+        **out, "victim": victim, "listing_pages": pages, "multipart_etag": etag,
+        "admin_entries": {b: s["entries"] for b, s in stats.items()},
+        "launches": counts, "put_encode_counters": put_enc,
+        "launches_by_step": {"put": put_k, "degraded_get": degraded_k, "rebuild": rebuild_k},
+        "seconds": {"put": put_s, "get": get_s, "multipart": mp_s, "small_puts": small_s,
+                    "degraded_get": degraded_s, "rejoin_to_clean": rejoin_s, "phase": phase_s},
+    }
+
+
+FS_FILES = 32
+FS_FILE_BYTES = 16 << 20
+FS_LAYOUT = (4 << 20, 1, 4 << 20)  # CephFS's default layout: unit, count, object size
+FS_WRITERS = 8  # files written at once
+FS_MDTEST = 1000  # the mdtest burst's files, run by ``--gateways``
+FS_BURST = 100  # the default run's burst of mdtest's shape, cut for the time budget (PERF.md §4)
+
+
+def _mds_roles(c) -> tuple[dict, list]:
+    """The MDS map's actives (rank -> role) and standby roles."""
+    rc, outb, outs = c.rados.mon_command({"prefix": "mds stat"})
+    check(rc == 0, f"mds stat: {outs}")
+    st = json.loads(outb)
+
+    def role(e):
+        return f"mds.{e['name'][3:]}" if e["name"].startswith("mds") else e["name"]
+
+    return ({r: role(e) for r, e in st.get("actives", {}).items()},
+            [role(e) for e in st.get("standbys", [])])
+
+
+def phase_fs(smi: str, c, device: str, k: int, m: int, files: int = FS_FILES,
+             file_bytes: int = FS_FILE_BYTES, burst: int = FS_BURST) -> dict:
+    """The file system on phase 10's fleet: its mds.0 and mds.1 over
+    ``fsmeta``, an ``MDSClient`` in this process with its file data on
+    an isa k=m pool; then the active MDS process killed."""
+    import hashlib
+
+    from ceph_tpu_torch.mds import MDSClient
+    from ceph_tpu_torch.osdc.striper import StripeLayout
+
+    rng = np.random.default_rng(SEED + 14)
+    osds = c.spec.data["osds"]
+    t_phase = time.perf_counter()
+    launches0 = _launches_by_osd(c, osds)
+
+    # 1. the MDS pair and the data pool
+    c.wait(lambda: len(_mds_roles(c)[0]) == 1 and len(_mds_roles(c)[1]) == 1,
+           "no active and standby MDS", 60)
+    actives, standbys = _mds_roles(c)
+    active = actives["0"]
+    c.pools["fs"] = c.rados.pool_create("fsecpool", pool_type=3, pg_num=CLUSTER_PG_NUM,
+                                        erasure_code_profile="isa")
+    _pool_clean(c, "the file data pool never went active+clean")
+    fs = MDSClient(c.rados, "fsecpool", name="smoke14", layout=StripeLayout(*FS_LAYOUT),
+                   op_timeout=CLUSTER_WAIT_S)
+    try:
+        # 2. files written and read back
+        fs.mkdir("/data")
+        block = rng.bytes(files * file_bytes)
+        model = {f"/data/f{i:02d}": block[i * file_bytes:(i + 1) * file_bytes]
+                 for i in range(files)}
+        del block
+        sha = {p: hashlib.sha256(d).hexdigest() for p, d in model.items()}
+
+        def write(path):
+            fs.create(path)
+            return fs.write(path, 0, model[path])
+
+        before = _launches_by_osd(c, osds)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(FS_WRITERS) as ex:
+            written = list(ex.map(write, model))
+        write_s = time.perf_counter() - t0
+        check(written == [file_bytes] * files, f"short writes: {written}")
+        write_k = _sum_launches(_launch_delta(before, _launches_by_osd(c, osds)))
+
+        def read_all(label: str) -> float:
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(FS_WRITERS) as ex:
+                got = list(ex.map(fs.read, model))
+            took = time.perf_counter() - t0
+            for path, data in zip(model, got):
+                check(hashlib.sha256(data).hexdigest() == sha[path],
+                      f"{label} read of {path} differs")
+            return took
+
+        read_s = read_all("")
+        if device == "cuda":
+            check(write_k["K1"] > 0, f"the file writes launched no K1: {write_k}")
+        print(f"[14] {files} files of {file_bytes} B (layout {FS_LAYOUT}), {FS_WRITERS} at "
+              f"once: written in {write_s:.3f} s ({files * file_bytes / write_s / 1e9:.4f} "
+              f"GB/s), read back in {read_s:.3f} s ({files * file_bytes / read_s / 1e9:.4f} "
+              f"GB/s), sha256 equal; launches over the writes {write_k} ({_fired(write_k)})")
+
+        # 3. a burst of mdtest's shape in one directory
+        fs.mkdir("/mdtest")
+        items = [f"/mdtest/file.{i}" for i in range(burst)]
+        rates = {}
+        t0 = time.perf_counter()
+        for p in items:
+            fs.create(p)
+        rates["create"] = burst / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for p in items:
+            check(fs.stat(p)["type"] == "file", f"stat {p}")
+        rates["stat"] = burst / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        listed = fs.readdir("/mdtest")
+        list_s = time.perf_counter() - t0
+        check(sorted(listed) == sorted(p.rsplit("/", 1)[1] for p in items),
+              f"readdir listed {len(listed)} of {burst}")
+        rates["readdir_entries"] = burst / list_s
+        t0 = time.perf_counter()
+        for p in items:
+            fs.unlink(p)
+        rates["remove"] = burst / (time.perf_counter() - t0)
+        check(fs.readdir("/mdtest") == [], "the mdtest directory is not empty")
+        print(f"[14] metadata burst of {burst} files in one directory (ops/s, one client): "
+              + ", ".join(f"{key} {v:.1f}" for key, v in rates.items()))
+
+        # 4. the active MDS process killed: the standby takes over
+        c.sup.kill(active, hold=True)
+        t0 = time.perf_counter()
+        with fs._lock:  # the stat goes to the MDS, not to the client's cache
+            fs._stat_cache.clear()
+            fs._dir_cache.clear()
+        st = fs.stat("/data/f00")
+        failover_s = time.perf_counter() - t0
+        check(st["size"] == file_bytes, f"stat after the failover: {st}")
+        actives2, _sb = _mds_roles(c)
+        check(actives2.get("0") in standbys, f"rank 0 is {actives2}, not the standby {standbys}")
+        reread_s = read_all("post-failover")
+        t0 = time.perf_counter()
+        c.sup.respawn(active)
+        c.sup.wait_ready([active], timeout=PROC_READY_S)
+        c.wait(lambda: active in _mds_roles(c)[1], f"{active} never rejoined as standby", 60)
+        rejoin_s = time.perf_counter() - t0
+        print(f"[14] {active} (rank 0) SIGKILLed: {actives2['0']} active and a client stat "
+              f"answered {failover_s:.3f} s later (the monitor's MDS grace is 4 s); every file "
+              f"read back equal in {reread_s:.3f} s; {active} respawned as standby in "
+              f"{rejoin_s:.3f} s")
+    finally:
+        fs.close()
+
+    counts = _sum_launches(_launch_delta(launches0, _launches_by_osd(c, osds)))
+    phase_s = time.perf_counter() - t_phase
+    logical = files * file_bytes
+    out = {"write_GBps": logical / write_s / 1e9, "read_GBps": logical / read_s / 1e9,
+           "metadata_ops_per_s": rates, "failover_s": failover_s}
+    print(f"[14] file system phase took {phase_s:.1f} s; launches {counts}; on "
+          f"{smi.splitlines()[0]} (host clock): " + json.dumps(out))
+    return {
+        "card": smi.splitlines()[0],
+        "config": {"data_pool": f"isa k={k} m={m}", "pg_num": CLUSTER_PG_NUM,
+                   "meta_pool": "fsmeta (the mds role's, replicated)", "files": files,
+                   "file_bytes": file_bytes, "layout": FS_LAYOUT, "writers": FS_WRITERS,
+                   "metadata_files": burst, "osds": osds, "device": device},
+        **out, "killed": active, "promoted": actives2["0"],
+        "launches": counts, "launches_by_step": {"write": write_k},
+        "seconds": {"write": write_s, "read": read_s, "readdir": list_s,
+                    "reread_after_failover": reread_s, "respawn_to_standby": rejoin_s,
                     "phase": phase_s},
     }
 
@@ -3411,10 +3898,35 @@ def _pid_alive(pid: int) -> bool:
     return True
 
 
+def gateways_at_full_size(smi: str) -> int:
+    """Phases 10, 13 and 14 alone, with the metadata burst at mdtest's
+    1000 files: the gateway and file system rates PERF.md reports."""
+    def later_phases(c, k, m) -> dict:
+        rgw = phase_rgw(smi, c, "cuda", k, m)
+        fs = phase_fs(smi, c, "cuda", k, m, burst=FS_MDTEST)
+        return {"rgw": rgw, "fs": fs, "victims": [f"osd.{rgw['victim']}", fs["killed"]]}
+
+    processes = phase_processes(smi, during=later_phases)
+    later = processes.pop("during")
+    print(json.dumps({"processes": processes}))
+    print(json.dumps({"rgw": later["rgw"]}))
+    print(json.dumps({"fs": later["fs"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] not in ([], ["--gateways"]):
+        print("usage: chip_smoke.py [--gateways]", file=sys.stderr)
+        return 2
+    if sys.argv[1:] == ["--gateways"]:
+        return gateways_at_full_size(phase_build())
     # read when the residency cache is first made, in phase 6
     os.environ["CEPH_TPU_RESIDENCY_BYTES"] = str(RESIDENCY_BYTES)
     smi = phase_build()
@@ -3430,9 +3942,16 @@ def main() -> int:
         osdmap = phase_osdmap(smi, pool)
     wire = phase_wire(smi)
     cluster = phase_cluster(smi)
-    processes = phase_processes(
-        smi, during=lambda c, k, m: phase_rbd(smi, c, "cuda", k, m))
-    rbd = processes.pop("during")
+    def later_phases(c, k, m) -> dict:
+        rbd = phase_rbd(smi, c, "cuda", k, m)
+        rgw = phase_rgw(smi, c, "cuda", k, m)
+        fs = phase_fs(smi, c, "cuda", k, m)
+        return {"rbd": rbd, "rgw": rgw, "fs": fs,
+                "victims": [f"osd.{rbd['victim']}", f"osd.{rgw['victim']}", fs["killed"]]}
+
+    processes = phase_processes(smi, during=later_phases)
+    later = processes.pop("during")
+    rbd, rgw, fs = later["rbd"], later["rgw"], later["fs"]
     thrash = phase_thrash(smi)
     note = "no PyTorch call computes a GF(2^8) region product"
     kernels = []
@@ -3453,7 +3972,9 @@ def main() -> int:
                                  "cluster (9)": cluster["launches"][key],
                                  "processes (10)": processes["launches"][key],
                                  "rbd (11)": rbd["launches"][key],
-                                 "thrash (12)": thrash["launches"][key]},
+                                 "thrash (12)": thrash["launches"][key],
+                                 "rgw (13)": rgw["launches"][key],
+                                 "fs (14)": fs["launches"][key]},
         })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
@@ -3463,6 +3984,8 @@ def main() -> int:
     print(json.dumps({"processes": processes}))
     print(json.dumps({"rbd": rbd}))
     print(json.dumps({"thrash": thrash}))
+    print(json.dumps({"rgw": rgw}))
+    print(json.dumps({"fs": fs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

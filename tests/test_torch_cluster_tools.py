@@ -7,14 +7,18 @@
   package's ``Monitor`` from the same commits; each package's tool
   prints the same status, dumps and export, and leaves the same store
   after the same rescue (rewind, import, prune).
-- ``dencoder``: every type both packages register has the same sample
-  bytes, and the port decodes and re-encodes every pinned blob of the
-  corpus byte for byte. The bucket-index types wait for rgw.
+- ``dencoder``: the port registers every type the JAX package does,
+  the bucket-index types included; each has the same sample bytes, and
+  the port decodes and re-encodes every pinned blob of the corpus byte
+  for byte.
 - ``tools.cluster``: ``start --daemonize`` thread-hosted and with
   ``--processes`` (3 monitors, a manager, 3 OSD processes), on
   ``--device cpu``; ``status``, ``addr`` and ``stop`` from other
   processes; the port's and the JAX package's ``ceph`` CLI, run as
-  subprocesses against the port's cluster, print the same output.
+  subprocesses against the port's cluster, print the same output; and
+  ``start --mds 1 --rgw 1`` (thread-hosted and ``--processes``) serves
+  an S3 PUT and GET on its gateway and a file system mkdir, write and
+  read through its MDS, and stops clean.
 
 Tolerance: exact (commands, bytes, text).
 """
@@ -172,12 +176,13 @@ def test_monstore_tool_output_equal(tmp_path, capsys, store_pkg):
 
 
 # -- dencoder ----------------------------------------------------------------------
-SHARED_TYPES = sorted(set(jdencoder.list_types()) - tdencoder.UNPORTED)
+SHARED_TYPES = sorted(jdencoder.list_types())
 
 
 def test_dencoder_registers_every_shared_type():
     assert tdencoder.list_types() == SHARED_TYPES
-    assert tdencoder.UNPORTED <= set(jdencoder.list_types())
+    assert {"rgw_bucket_record", "rgw_reshard_entry"} <= set(SHARED_TYPES)
+    assert not hasattr(tdencoder, "UNPORTED")
     assert tdencoder.check() == {}
 
 
@@ -275,8 +280,68 @@ def test_launcher_lifecycle_and_cli(tmp_path, mode):
         assert not (d / "supervisor.json").exists()
 
 
-def test_launcher_refuses_unported_daemons(tmp_path):
-    r = _run("ceph_tpu_torch.tools.cluster", "start", "--mds", "1", "--device", "cpu",
-             "-d", str(tmp_path / "c"))
-    assert r.returncode == 2
-    assert "does not have yet" in r.stderr
+def _s3(port: int, method: str, path: str, body: bytes = b"") -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=body or None)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("mode", [[], ["--processes"]], ids=["threads", "processes"])
+def test_launcher_serves_mds_and_rgw(tmp_path, mode):
+    """``start --mds 1 --rgw 1``: the gateway answers S3 and the MDS
+    serves a mount, on the CPU; then everything stops."""
+    from ceph_tpu_torch.mds import MDSClient
+    from ceph_tpu_torch.rados import Rados
+
+    d = tmp_path / "c"
+    r = _run("ceph_tpu_torch.tools.cluster", "start", "--osds", "3", "--memstore",
+             "--mds", "1", "--rgw", "1", "--device", "cpu", *mode, "-D", "-d", str(d))
+    assert r.returncode == 0, r.stderr
+    conf = json.loads(r.stdout)
+    client = fs = None
+    try:
+        assert conf["mds"] == 1 and {"fsmeta", "fsdata", "rgwpool"} <= set(conf["pools"])
+        port = conf["rgw_port"]
+        body = os.urandom(300_000)
+        deadline = time.monotonic() + 90.0
+        while _s3(port, "PUT", "/launched")[0] != 200:
+            assert time.monotonic() < deadline, "the gateway never created a bucket"
+            time.sleep(0.5)
+        assert _s3(port, "PUT", "/launched/obj", body)[0] == 200
+        assert _s3(port, "GET", "/launched/obj") == (200, body)
+        assert b"<Key>obj</Key>" in _s3(port, "GET", "/launched")[1]
+        client = Rados("launcher-fs").connect(*conf["mon_addr"])
+        deadline = time.monotonic() + 90.0
+        while fs is None:
+            try:
+                fs = MDSClient(client, "fsdata", name="launcher")
+            except Exception:  # noqa: BLE001 — no active mds yet: retried
+                assert time.monotonic() < deadline, "the mds never became active"
+                time.sleep(0.5)
+        fs.mkdir("/dir")
+        fs.create("/dir/file")
+        assert fs.write("/dir/file", 0, body) == len(body)
+        assert fs.read("/dir/file") == body
+        assert fs.readdir("/dir") == ["file"]
+        if mode:
+            for role in ("mds.0", "rgw.0"):
+                ready = json.loads((d / f"{role}.ready").read_text())
+                ps = subprocess.run(["ps", "-o", "args=", "-p", str(ready["pid"])],
+                                    capture_output=True, text=True)
+                assert "ceph_tpu_torch.proc.daemon" in ps.stdout, role
+    finally:
+        if fs is not None:
+            fs.close()
+        if client is not None:
+            client.shutdown()
+        stop = _run("ceph_tpu_torch.tools.cluster", "stop", "-d", str(d))
+    assert stop.returncode == 0, stop.stderr
+    assert not (d / "cluster.json").exists()
+    if mode:
+        assert not (d / "supervisor.json").exists()

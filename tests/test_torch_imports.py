@@ -7,8 +7,10 @@ port — its erasure-code plane, CRUSH, the OSD map and its mapping, the
 stores, residency, the profiler, the scrub functions, the monitor and
 its quorum, the manager, the process runtime, the cluster tools, the
 OSD daemon, librados and the objecter, the qa thrasher, the striper and
-the ObjectCacher, the journaler, rbd, rbd-mirror and the rbd CLI — and
-finds no ``jax`` in ``sys.modules``. Every ``python -m`` module that a
+the ObjectCacher, the journaler, rbd, rbd-mirror and the rbd CLI, the
+object gateway with its index, lifecycle, multisite and admin tool,
+the file system, its fuse mount and the MDS tier — and finds no
+``jax`` in ``sys.modules``. Every ``python -m`` module that a
 file of the port names (in code, docstrings or comments: usage lines,
 a child's argv, a repro's note) is one of the port's own.
 """
@@ -114,6 +116,10 @@ def test_import_leaves_jax_out():
         "import ceph_tpu_torch.qa, ceph_tpu_torch.qa.thrasher, ceph_tpu_torch.osdc.striper\n"
         "import ceph_tpu_torch.osdc.object_cacher, ceph_tpu_torch.mds, ceph_tpu_torch.rbd\n"
         "import ceph_tpu_torch.rbd.mirror, ceph_tpu_torch.tools.rbd_cli\n"
+        "import ceph_tpu_torch.rgw, ceph_tpu_torch.rgw.index, ceph_tpu_torch.rgw.lifecycle\n"
+        "import ceph_tpu_torch.rgw.multisite, ceph_tpu_torch.tools.rgw_admin\n"
+        "import ceph_tpu_torch.fs, ceph_tpu_torch.fs.fuse_client\n"
+        "import ceph_tpu_torch.mds.server, ceph_tpu_torch.mds.client\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -5,9 +5,14 @@ The spec grammar (with the port's ``device`` and ``osd_options`` keys),
 the supervisor's backoff schedule, its clean-exit, crash, streak-reset
 and crash-loop decisions, its live crash loop and orphan reaping run on
 both packages and agree. The port's supervisor spawns the port's daemon
-module and adds no JAX setting to a child's environment. A daemon role
+module and adds no JAX setting to a child's environment, and its stop
+ends the gateways before the OSDs, which an MDS's final flush needs
+(the JAX supervisor's does not: ROADMAP §C). A daemon role
 on a CUDA device that the machine lacks fails its boot with the reason
-in its log; the mds and rgw roles refuse. Then a real process cluster
+in its log. The mds and rgw roles boot in a process cluster of each
+package (a monitor, 2 OSDs, an MDS and a gateway), publish ready
+records with the JAX roles' keys, and serve: the MDS is the monitor's
+active, the gateway answers S3. Then a real process cluster
 of each package (a monitor and 3 OSDs, one OS process each, the port's
 on ``device="cpu"``) takes the same writes into a jerasure k=2 m=1 pool
 and a 2-replica pool: every write reads back, and after a clean stop
@@ -166,6 +171,52 @@ def test_live_children_equal(tmp_path, code):
         assert mine[1]["l_proc_crash_loops"] == 1
 
 
+_FLUSHING_MDS = """
+import pathlib, signal, sys, time
+
+def alive(pid):
+    try:
+        return open(f"/proc/{pid}/stat").read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+def term(*_):
+    time.sleep(0.5)
+    while not alive(int(sys.argv[1])):
+        time.sleep(0.1)  # a final flush retrying against a stopped OSD
+    sys.exit(0)
+
+signal.signal(signal.SIGTERM, term)
+pathlib.Path(sys.argv[2]).touch()
+while True:
+    time.sleep(0.1)
+"""
+
+
+def test_stop_waits_for_the_gateways_before_the_osds(tmp_path):
+    """An MDS needs its OSDs while it stops (the final cache flush), so
+    ``stop`` ends the gateways before the OSDs. The JAX supervisor
+    signals every child at once, and this stand-in MDS then waits out
+    the timeout and is killed (ROADMAP §C)."""
+    spec = tproc.ClusterSpec.plan(tmp_path, mons=1, osds=1, mgrs=0, memstore=True)
+    spec.dir.mkdir(exist_ok=True)
+    sup = tproc.Supervisor(spec, report_interval=3600.0)
+    osd = tsupervisor._Child("osd.0", [sys.executable, "-c", "import time; time.sleep(120)"])
+    sup.children["osd.0"] = osd
+    sup._spawn(osd)
+    mark = tmp_path / "mds.armed"
+    mds = tsupervisor._Child("mds.0", [sys.executable, "-c", _FLUSHING_MDS, str(osd.pid),
+                                       str(mark)])
+    sup.children["mds.0"] = mds
+    sup._spawn(mds)
+    try:
+        assert wait_for(mark.exists, DEADLINE)
+    finally:
+        sup.stop(timeout=5.0)
+    assert mds.proc.returncode == 0
+    assert osd.proc.returncode == -signal.SIGTERM
+
+
 def test_reap_orphans_kills_recorded_groups(tmp_path):
     victim = subprocess.Popen(
         [sys.executable, "-c", "import time; time.sleep(120)"], start_new_session=True,
@@ -241,11 +292,91 @@ def test_role_on_a_missing_card_fails_its_boot(tmp_path, role):
     assert "no usable CUDA card" in err
 
 
-@pytest.mark.parametrize("role", ["mds.0", "rgw.0"])
-def test_unported_roles_refuse(tmp_path, role):
-    rc, err = _boot_role(tmp_path, role, "cpu")
-    assert rc == 1
-    assert "does not have yet" in err
+def _role_fleet(pkg: str, root):
+    """A process cluster of ``pkg`` (the port's on ``device="cpu"``): a
+    monitor, 2 OSDs, an mds and an rgw. Function-scoped: conftest reaps
+    the JAX package's daemon processes after each test."""
+    proc, _sup = PKGS[pkg]
+    kw = {"device": "cpu"} if pkg == "torch" else {}
+    spec = proc.ClusterSpec.plan(root / pkg, mons=1, osds=2, mgrs=0, memstore=True, mds=1,
+                                 rgw=1, **kw)
+    sup = proc.Supervisor(spec, report_interval=3600.0)
+    try:
+        sup.start(ready_timeout=DEADLINE)
+    except BaseException:
+        sup.stop()
+        raise
+    return spec, sup
+
+
+def _role_serves(pkg: str, spec, role: str, ready: dict):
+    """What the role answers: the MDS map's active address for an mds,
+    the status of an S3 bucket create and object PUT and GET for an
+    rgw."""
+    if role.startswith("mds."):
+        rados = trados if pkg == "torch" else jrados
+        client = rados.Rados(f"roles-{pkg}").connect_any(spec.mon_addrs)
+        try:
+            def active():
+                rc, outb, _ = client.mon_command({"prefix": "mds stat"})
+                return rc == 0 and json.loads(outb).get("actives")
+
+            assert wait_for(active, DEADLINE), "no active mds"
+            addrs = [a["addr"] if isinstance(a, dict) else a for a in active().values()]
+            return addrs == [ready["addr"]]
+        finally:
+            client.shutdown()
+    import http.client
+
+    codes = []
+    for method, path, body in (("PUT", "/roles", b""), ("PUT", "/roles/o", b"x" * 5000),
+                               ("GET", "/roles/o", b"")):
+        conn = http.client.HTTPConnection("127.0.0.1", ready["port"], timeout=60)
+        try:
+            conn.request(method, path, body=body or None)
+            resp = conn.getresponse()
+            codes.append((resp.status, len(resp.read())))
+        finally:
+            conn.close()
+    return codes
+
+
+# the JAX roles' ready-record keys, and what each role serves
+ROLE_RECORDS = {"mds.0": (["addr", "pid", "role"], True),
+                "rgw.0": (["pid", "port", "role"], [(200, 0), (200, 0), (200, 5000)])}
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_mds_and_rgw_roles_boot_and_serve(tmp_path, pkg):
+    """Each package's fleet boots mds.0 and rgw.0, whose ready records
+    carry the same keys and which serve: the MDS as the map's active,
+    the gateway a bucket and an object."""
+    spec, sup = _role_fleet(pkg, tmp_path)
+    try:
+        got = {role: _role_record(pkg, spec, sup, role) for role in ROLE_RECORDS}
+    finally:
+        # the gateways first, while their OSDs are up (the JAX
+        # supervisor signals every child at once: ROADMAP §C)
+        for role in ROLE_RECORDS:
+            if sup.status()[role]["state"] == "running":
+                sup.kill(role, signal.SIGTERM, hold=True)
+                sup.children[role].proc.wait(timeout=DEADLINE)
+        sup.stop()
+    assert got == ROLE_RECORDS
+
+
+def _role_record(pkg: str, spec, sup, role: str) -> tuple:
+    """The ready record's keys and what the role serves, after checking
+    the record names the live process of the package's daemon module."""
+    assert sup.status()[role]["state"] == "running", (
+        pkg, (spec.dir / f"{role}.log").read_text()[-3000:])
+    ready = json.loads(spec.ready_path(role).read_text())
+    assert ready["role"] == role and ready["pid"] == sup.status()[role]["pid"]
+    ps = subprocess.run(["ps", "-o", "args=", "-p", str(ready["pid"])],
+                        capture_output=True, text=True)
+    module = "ceph_tpu_torch.proc.daemon" if pkg == "torch" else "ceph_tpu.proc.daemon"
+    assert module in ps.stdout and (pkg == "jax" or "ceph_tpu.proc" not in ps.stdout)
+    return sorted(ready), _role_serves(pkg, spec, role, ready)
 
 
 # -- a real process cluster of each package ---------------------------------------
