@@ -10,6 +10,11 @@ backend, with "the device is CUDA" in place of "the chip is a TPU":
 - otherwise ``gf_matmul.gf_matrix_regions`` / ``gf_matrix_stripes``,
   which launch kernel K2 (``bitplane_gf``) at w=8 on CUDA and run plain
   PyTorch for other word sizes and on the CPU;
+- ``matrix_stripes`` shards its batch across the default device mesh
+  (``ops.mesh``) when one exists (more than one CUDA device), the
+  backend's device belongs to it (``DeviceMesh.serves``), and the batch
+  has at least one stripe per mesh entry: each shard takes the bitplane route on its
+  device, as the JAX backend's mesh route does;
 - the batch methods take the bitplane route, as the JAX ones do, on each
   group of stripes as it is: K2 reads any batch size in place, so the
   JAX package's padding of the batch to a power of two (which keeps
@@ -39,7 +44,7 @@ import torch
 from .. import gf
 from ..ec.backend import _host_row, register_backend
 from ..ec.interface import ErasureCodeError
-from . import packed_gf
+from . import mesh, packed_gf
 from .gf_matmul import (
     bitmatrix_packet_regions,
     gf_matrix_regions,
@@ -146,6 +151,23 @@ class TorchBackend:
             dp.set_ops(1)
             dp.set_stripes(stripes.shape[0])
             dp.add_bytes_in(stripes.nbytes)
+            # the batch axis sharded across the device mesh when one
+            # exists and the batch is worth splitting: byte-identical
+            # per-stripe math, spread over the mesh's devices
+            dmesh = mesh.default_mesh()
+            if (
+                dmesh is not None
+                and stripes.shape[0] >= dmesh.n
+                and dmesh.serves(self.device)
+            ):
+                bm = matrix_to_device_bitmatrix(matrix, w, dmesh.devices[0])
+                dp.add_upload(stripes.nbytes)
+                # upload/compute/sync all live inside the sharded
+                # helper; attribute its wall to compute
+                with dp.stage("compute"):
+                    out = mesh.sharded_matrix_stripes(bm, stripes, w, dmesh)
+                kt.bytes_out = out.nbytes
+                return out
             with dp.stage("upload"):
                 dev = self._upload(stripes)
             dp.add_upload(stripes.nbytes)

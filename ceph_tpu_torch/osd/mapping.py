@@ -9,7 +9,11 @@ nonexistent/down filtering and compaction, the primary and the primary
 affinity draws.  The sparse overrides (pg_upmap, pg_upmap_items,
 pg_temp, primary_temp) touch only their rows: those are read once,
 fixed through ``OSDMap``'s scalar helpers and written back.  The four
-result arrays come back to the host in one download per pool.  A map
+result arrays come back to the host in one download per pool.  Where a
+default device mesh exists (``ops.mesh``: more than one CUDA device)
+and the mapping's device belongs to it, the CRUSH stage shards its PG
+batch across it (``osd/sharded_mapping.py``), as the JAX package's
+does.  A map
 outside the batched mapper's scope (``torchmap.UnsupportedMap``) maps
 through the scalar oracle, as does ``use_device=False``.
 """
@@ -185,9 +189,23 @@ class OSDMapMapping:
         if ruleno < 0:
             return torch.full((n, pool.size), _NONE, device=dev)
         if use_device:
+            from ..ops.mesh import default_mesh
             from ..ops.residency import note_shape
 
+            dmesh = default_mesh()
             try:
+                if dmesh is not None and dmesh.serves(self.device):
+                    with dispatch_profiler().dispatch(
+                        "crush", backend="torch"
+                    ) as dp:
+                        dp.set_ops(1)
+                        dp.set_stripes(n)
+                        dp.add_bytes_in(n * 8)
+                        note_shape("crush_batch", n, pool.size)
+                        return self._mesh_rule(
+                            dp, osdmap.crush, ruleno, pps, pool.size,
+                            osdmap.osd_weight,
+                        )
                 cm = _compiled(osdmap.crush, dev)
                 # an UnsupportedMap raised in here discards the
                 # flight-recorder entry (no commit on exception); the
@@ -216,6 +234,21 @@ class OSDMapMapping:
                 )
                 raw[i, : len(row)] = row
             return torch.as_tensor(raw, device=dev)
+
+    @staticmethod
+    def _mesh_rule(dp, crush_map, ruleno, pps, size, weights):
+        """The CRUSH stage sharded across the default mesh
+        (``mesh_batch_do_rule``: the oracle fallback applied on the
+        host), back on pps's device, positions past each count NONE."""
+        from .sharded_mapping import mesh_batch_do_rule
+
+        with dp.stage("compute"):
+            res, counts = mesh_batch_do_rule(crush_map, ruleno, pps, size, weights)
+        with dp.stage("sync"):
+            res = torch.as_tensor(np.asarray(res, dtype=np.int64), device=pps.device)
+            counts = torch.as_tensor(np.asarray(counts, dtype=np.int64), device=pps.device)
+        cols = torch.arange(size, device=pps.device)
+        return torch.where(cols[None, :] < counts[:, None], res, _NONE)
 
     @staticmethod
     def _device_rule(dp, cm, ruleno, pps, size, weights):

@@ -207,8 +207,27 @@ script exits non-zero:
    SIGKILLed, the seconds until the
    standby serves a client stat, every file read back equal, the killed
    MDS respawned as standby; one ``{"fs": ...}`` line;
-15. one JSON line describing each kernel;
-16. the last line, ``{"ok": true, "device": {...}}``.
+15. CRUSH's compiler on the card, after phase 7 in the same process
+   pool: config 5's hierarchy decompiled, compiled, encoded and decoded
+   (each timed), equal bytes and text both ways; ``crushtool -c`` to a
+   binary and ``-d`` back to the same text; ``crushtool -i MAP.BIN
+   --test --backend torch --device cuda`` for rule 0 and rule 1 over
+   2^20 PGs (mappings/s beside phase 5's), the mappings of phase 5's
+   spread sample held against the oracle in the pool; ``--compare``
+   against a copy with 1 % of the OSDs at half weight over 2^20 PGs
+   (exit 1, its delta), the second map's sample against the oracle, a
+   map against itself equivalent; one ``{"compiler": ...}`` line;
+16. the device mesh on the card: ``default_mesh()`` None on a one-card
+   host; on ``DeviceMesh(["cuda:0"] * 4)`` 1024 stripes of k=8 m=3 x
+   128 KiB (1 GiB) and a ragged 1023 through ``sharded_matrix_stripes``,
+   K2 launched once a shard and ``torch.equal`` to the single-device K2
+   output; rule 0 and rule 1 over 2^20 PGs through
+   ``sharded_batch_do_rule``, equal to torchmap's single-device output;
+   the dryrun's step (``tools/mesh_dryrun.py``); the per-device counters
+   and the times beside the single-device route's; the same over every
+   card where there is more than one; one ``{"mesh": ...}`` line;
+17. one JSON line describing each kernel;
+18. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX and nothing of the JAX package.
@@ -1642,6 +1661,288 @@ def phase_osdmap(smi: str, pool) -> dict:
                                                             "epoch2": checked2},
             "encoded_bytes": len(blob), "osdmaptool": tool, "balancer": balancer,
             "phase_s": phase_s}
+
+
+COMPILER_RULES = ((0, 3), (1, 11))
+COMPILER_SAMPLE = 2048  # phase 5's spread sample
+COMPARE_CHANGED = 100  # OSDs (1 % of config 5's 10 000) at half weight in --compare's second map
+
+
+def _crushtool(argv: list) -> tuple[int, list]:
+    """crushtool in process: (exit status, stdout lines)."""
+    from ceph_tpu_torch.tools import crushtool
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = crushtool.main(argv)
+    return rc, out.getvalue().splitlines()
+
+
+@contextlib.contextmanager
+def _kept_mappings():
+    """While crushtool runs in process, keep each (res, counts, elapsed,
+    backend, fallback) its ``_map_range`` returns, so a check holds the
+    mappings the command itself made."""
+    from ceph_tpu_torch.tools import crushtool
+
+    kept, real = [], crushtool._map_range
+
+    def keep(*args, **kwargs):
+        kept.append(real(*args, **kwargs))
+        return kept[-1]
+
+    crushtool._map_range = keep
+    try:
+        yield kept
+    finally:
+        crushtool._map_range = real
+
+
+def phase_compiler(smi: str, pool, crush: dict) -> dict:
+    """Phase 15: CRUSH's compiler and crushtool -c/-d/-i/--compare on
+    config 5's hierarchy, the mappings on the card."""
+    from ceph_tpu_torch.crush import compiler
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    t_phase = time.perf_counter()
+    work = pathlib.Path(__file__).resolve().parent / "build" / "p15"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        pm = build_hierarchy(10000, 40, 25)
+        secs = {}
+        t0 = time.perf_counter()
+        text = compiler.decompile_crushmap(pm)
+        secs["decompile"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compiled = compiler.compile_crushmap(text)
+        secs["compile"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blob = compiler.encode_crushmap(compiled)
+        secs["encode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = compiler.decode_crushmap(blob)
+        secs["decode"] = time.perf_counter() - t0
+        check(blob == compiler.encode_crushmap(pm), "compile(decompile(map)) encodes differently")
+        check(compiler.decompile_crushmap(decoded) == text, "decode(encode) decompiles differently")
+        src, binf, back = work / "map.txt", work / "map.bin", work / "back.txt"
+        src.write_text(text)
+        t0 = time.perf_counter()
+        check(_crushtool(["-c", str(src), "-o", str(binf)])[0] == 0, "crushtool -c failed")
+        check(_crushtool(["-d", str(binf), "-o", str(back)])[0] == 0, "crushtool -d failed")
+        secs["cli_round_trip"] = time.perf_counter() - t0
+        check(binf.read_bytes() == blob, "crushtool -c wrote other bytes")
+        check(back.read_text() == text, "crushtool -c then -d gave other text")
+        print(f"[15] build_hierarchy(10000, 40, 25): text {len(text)} B, binary {len(blob)} B; "
+              f"decompile {secs['decompile']:.3f} s, compile {secs['compile']:.3f} s, encode "
+              f"{secs['encode']:.3f} s, decode {secs['decode']:.3f} s; crushtool -c then -d "
+              f"{secs['cli_round_trip']:.3f} s, the text equal")
+
+        rules, tested = {}, {}
+        xs = np.linspace(0, CRUSH_PGS - 1, COMPILER_SAMPLE).astype(np.int64)
+        for rule, rmax in COMPILER_RULES:
+            argv = ["-i", str(binf), "--test", "--max-x", str(CRUSH_PGS), "--rule", str(rule),
+                    "--num-rep", str(rmax), "--backend", "torch", "--device", "cuda",
+                    "--show-statistics", "--show-bad-mappings"]
+            with _kept_mappings() as kept:
+                rc, lines = _crushtool(argv)
+            check(rc == 0 and lines[0].endswith("[torch]"), f"crushtool -i --test: {rc} {lines}")
+            rate = float(lines[0].split(" = ")[1].split()[0])
+            bad = int(lines[2].split(":")[1])
+            check(bad == 0, f"rule {rule}: bad mappings {lines}")
+            # the mappings -i --test made, held against the oracle
+            check(len(kept) == 1, f"rule {rule}: crushtool mapped {len(kept)} times")
+            res, counts, _el, backend, fallback = kept[0]
+            check(backend == "torch", f"rule {rule}: mapped by {backend}")
+            tested[rule] = res
+            t0 = time.perf_counter()
+            _hold_against_oracle(pool, compiler.decode_crushmap(blob), rule, rmax, xs, res, counts)
+            oracle_s = time.perf_counter() - t0
+            p5 = crush[f"rule{rule}"]["e2e_mappings_per_s"]
+            rules[f"rule{rule}"] = {"mappings_per_s": rate, "phase5_mappings_per_s": p5,
+                                    "fallback_lanes": fallback, "chi2_line": lines[3],
+                                    "oracle_checked": int(len(xs)), "oracle_s": oracle_s}
+            print(f"[15] crushtool -i map.bin --test rule {rule} on {smi.splitlines()[0]}: "
+                  f"{rate:.0f} mappings/s (phase 5's batch_do_rule_range route {p5:.0f}); "
+                  f"{lines[3]}; {fallback} oracle fallback lanes; {len(xs)} spread PGs equal "
+                  f"to the oracle ({oracle_s:.1f} s in the pool)")
+
+        changed = build_hierarchy(
+            10000, 40, 25,
+            weight_fn=lambda o: 0x8000 if o % (10000 // COMPARE_CHANGED) == 7 else 0x10000)
+        bin2 = work / "map2.bin"
+        bin2.write_bytes(compiler.encode_crushmap(changed))
+        t0 = time.perf_counter()
+        with _kept_mappings() as kept:
+            rc, lines = _crushtool(["-i", str(binf), "--compare", str(bin2), "--max-x",
+                                    str(CRUSH_PGS), "--rule", "0", "--num-rep", "3",
+                                    "--backend", "torch", "--device", "cuda"])
+        compare_s = time.perf_counter() - t0
+        delta = int(lines[0].split(": ")[1].split("/")[0])
+        moved = int(lines[1].split(": ")[1].split("/")[0])
+        check(rc == 1 and lines[2] == "warning: maps are NOT equivalent" and 0 < moved < delta * 3,
+              f"crushtool --compare: {rc} {lines}")
+        # the first map's mappings --compare made equal those -i --test made
+        # (held against the oracle above), the second map's held against
+        # the oracle on the sample
+        check(len(kept) == 2 and all(k[3] == "torch" for k in kept),
+              f"--compare mapped {[k[3] for k in kept]}")
+        check(np.array_equal(kept[0][0], tested[0]), "--compare's first map differs from --test's")
+        res2, counts2 = kept[1][:2]
+        _hold_against_oracle(pool, compiler.decode_crushmap(bin2.read_bytes()), 0, 3, xs,
+                             res2, counts2)
+        rc_same, same = _crushtool(["-i", str(binf), "--compare", str(binf), "--max-x", "65536",
+                                    "--backend", "torch", "--device", "cuda"])
+        check(rc_same == 0 and same[2] == "maps appear equivalent", f"--compare itself: {same}")
+        print(f"[15] crushtool --compare against {COMPARE_CHANGED} OSDs (1 %) at half weight, rule "
+              f"0 over 2^20 PGs on the card: {lines[0]!r}, {lines[1]!r}, exit 1, {compare_s:.2f} s "
+              f"(both maps mapped); the second map's sample equal to the oracle; a map against "
+              f"itself equivalent, exit 0")
+        phase_s = time.perf_counter() - t_phase
+        print(f"[15] compiler phase took {phase_s:.1f} s")
+        return {"card": smi.splitlines()[0], "text_bytes": len(text), "binary_bytes": len(blob),
+                "seconds": secs, **rules,
+                "compare": {"lines": lines, "changed": delta, "moved": moved, "s": compare_s},
+                "phase_s": phase_s}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+MESH_ENTRIES = 4  # the virtual mesh of a one-card host: cuda:0 four times
+
+
+def _mesh_counters(before: dict) -> dict:
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
+
+    after = kernel_stats().dump()
+    return {k: after[k] - before.get(k, 0) for k in sorted(after)
+            if k.startswith("l_tpu_mesh_") and isinstance(after[k], int)
+            and after[k] != before.get(k, 0)}
+
+
+def _mesh_run(label: str, dmesh, mat, host, big, pm, cm) -> dict:
+    """Encode 1 GiB and a ragged 1023 stripes, both rules over 2^20
+    PGs and the dryrun's step through ``dmesh``, each equal to the
+    single-device route, with times beside it."""
+    from ceph_tpu_torch.crush import torchmap as tm
+    from ceph_tpu_torch.ops import bitplane_gf, packed_gf
+    from ceph_tpu_torch.ops import mesh as meshmod
+    from ceph_tpu_torch.ops.gf_matmul import gf_matrix_stripes, matrix_to_device_bitmatrix
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
+    from ceph_tpu_torch.ops.residency import upload
+    from ceph_tpu_torch.osd.sharded_mapping import sharded_batch_do_rule
+    from ceph_tpu_torch.tools import mesh_dryrun
+
+    out = {"mesh": [str(d) for d in dmesh.devices]}
+    before = kernel_stats().dump()
+    path = {"K1": 0, "K2": 0}
+
+    def on_path(fn):
+        """fn() with the launch counts set to 0 just before and read
+        just after, added to the path's."""
+        packed_gf.launches = bitplane_gf.launches = 0
+        got = fn()
+        path["K1"] += packed_gf.launches
+        path["K2"] += bitplane_gf.launches
+        return got
+
+    bm = matrix_to_device_bitmatrix(mat, 8, dmesh.devices[0])
+    single = gf_matrix_stripes(matrix_to_device_bitmatrix(mat, 8, "cuda:0"), big, w=8).cpu()
+    for n in (1024, 1023):
+        k2 = path["K2"]
+        t0 = time.perf_counter()
+        got = on_path(lambda: meshmod.sharded_matrix_stripes(bm, host[:n], 8, dmesh))
+        sharded_s = time.perf_counter() - t0
+        launched = path["K2"] - k2
+        check(launched == dmesh.n, f"{label} B={n}: K2 launched {launched} times for {dmesh.n} shards")
+        check(torch.equal(torch.from_numpy(got), single[:n]), f"{label} B={n}: sharded != single K2")
+        del got
+        out[f"encode_{n}"] = {"sharded_s": sharded_s, "k2_launches": launched}
+    # the single-device route the same way (numpy in, numpy out), checked once; then
+    # both routes timed in turns, median of 3 (each first call pays pinned allocations)
+    bm0 = matrix_to_device_bitmatrix(mat, 8, "cuda:0")
+
+    def one_device():
+        return gf_matrix_stripes(bm0, upload(host, torch.device("cuda:0")).view(host.shape),
+                                 w=8).cpu()
+
+    check(torch.equal(one_device(), single), f"{label}: the single route differs")
+    del single
+    turns = {"sharded": [], "single": []}
+    for _ in range(3):
+        for name, fn in (("sharded", lambda: meshmod.sharded_matrix_stripes(bm, host, 8, dmesh)),
+                         ("single", one_device)):
+            t0 = time.perf_counter()
+            fn()
+            turns[name].append(time.perf_counter() - t0)
+    out["encode_1024"].update({f"{k}_median_s": sorted(v)[1] for k, v in turns.items()})
+    print(f"[16] {label}: 1024 stripes k=8 m=3 x 128 KiB (1 GiB) numpy in/out: sharded "
+          f"{out['encode_1024']['sharded_median_s']:.3f} s, single device "
+          f"{out['encode_1024']['single_median_s']:.3f} s (median of 3 in turns; the checked "
+          f"first sharded call {out['encode_1024']['sharded_s']:.3f} s, 1023 stripes "
+          f"{out['encode_1023']['sharded_s']:.3f} s); K2 once a shard, torch.equal to the "
+          f"single-device K2")
+    xs = np.arange(CRUSH_PGS)
+    for rule, rmax in COMPILER_RULES:
+        t0 = time.perf_counter()
+        want = tm.batch_do_rule(cm, rule, xs, rmax)
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = on_path(lambda: sharded_batch_do_rule(pm, rule, xs, rmax, dmesh=dmesh))
+        sharded_s = time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"{label} rule {rule}: sharded placement != single device")
+        out[f"rule{rule}"] = {"sharded_s": sharded_s, "single_s": single_s,
+                              "sharded_mappings_per_s": CRUSH_PGS / sharded_s,
+                              "single_mappings_per_s": CRUSH_PGS / single_s}
+        print(f"[16] {label}: rule {rule} over 2^20 PGs sharded {CRUSH_PGS / sharded_s:.0f} "
+              f"mappings/s ({sharded_s:.3f} s), single device {CRUSH_PGS / single_s:.0f} "
+              f"({single_s:.3f} s), equal")
+    t0 = time.perf_counter()
+    dry = on_path(lambda: mesh_dryrun.step(dmesh))
+    check(dry["errors"] == 0, f"{label}: the dryrun's decode had {dry['errors']} byte errors")
+    out["dryrun"] = {"checksum": dry["checksum"], "errors": dry["errors"], "pgs": dry["pgs"],
+                     "s": time.perf_counter() - t0}
+    out["counters"] = _mesh_counters(before)
+    out["launches"] = path
+    print(f"[16] {label}: the dryrun's step (k=4 m=2 encode, checksum {dry['checksum']}, "
+          f"erasures {{0, 1}} decoded with 0 errors, {dry['pgs']} PGs placed as the oracle); "
+          f"per-device counters {json.dumps(out['counters'])}")
+    return out
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 16: the device mesh on the card."""
+    from ceph_tpu_torch import gf
+    from ceph_tpu_torch.crush import torchmap as tm
+    from ceph_tpu_torch.ops import mesh as meshmod
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    t_phase = time.perf_counter()
+    default = meshmod.default_mesh()
+    cards = torch.cuda.device_count()
+    check((default is None) == (cards == 1), f"default mesh {default} on {cards} cards")
+    mat = gf.reed_sol_vandermonde_coding_matrix(8, 3, 8)
+    big = random_u8((1024, 8, 128 << 10), SEED + 16)  # 1 GiB
+    host = big.cpu().numpy()
+    pm = build_hierarchy(10000, 40, 25)
+    cm = tm.compile_map(pm)
+    runs = {"virtual": _mesh_run(f"DeviceMesh(['cuda:0'] * {MESH_ENTRIES})",
+                                 meshmod.DeviceMesh(["cuda:0"] * MESH_ENTRIES),
+                                 mat, host, big, pm, cm)}
+    if cards > 1:
+        runs["cards"] = _mesh_run(f"DeviceMesh over {cards} cards", meshmod.build_mesh(),
+                                  mat, host, big, pm, cm)
+    launches = {key: sum(r["launches"][key] for r in runs.values()) for key in ("K1", "K2")}
+    check(launches["K2"] > 0 and launches["K1"] == 0, f"mesh phase launches {launches}")
+    del big, host
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[16] mesh phase took {phase_s:.1f} s; default mesh on {cards} card(s): {default}; "
+          f"launches {launches}")
+    return {"card": smi.splitlines()[0], "default_mesh": None if default is None
+            else [str(d) for d in default.devices], "cards": cards, **runs,
+            "launches": launches, "phase_s": phase_s}
 
 
 WIRE_OBJECTS = 64  # a quarter of phase 6's PG (128 before PR 13), for the script's time budget
@@ -3940,6 +4241,8 @@ def main() -> int:
         crush = phase_crush(smi, pool)
         store = phase_store(smi)
         osdmap = phase_osdmap(smi, pool)
+        compiler = phase_compiler(smi, pool, crush)
+    mesh = phase_mesh(smi)
     wire = phase_wire(smi)
     cluster = phase_cluster(smi)
     def later_phases(c, k, m) -> dict:
@@ -3974,7 +4277,8 @@ def main() -> int:
                                  "rbd (11)": rbd["launches"][key],
                                  "thrash (12)": thrash["launches"][key],
                                  "rgw (13)": rgw["launches"][key],
-                                 "fs (14)": fs["launches"][key]},
+                                 "fs (14)": fs["launches"][key],
+                                 "mesh (16)": mesh["launches"][key]},
         })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
@@ -3986,6 +4290,8 @@ def main() -> int:
     print(json.dumps({"thrash": thrash}))
     print(json.dumps({"rgw": rgw}))
     print(json.dumps({"fs": fs}))
+    print(json.dumps({"compiler": compiler}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@ a replicated and an EC pool against the same on ``cpu``; a process
 cluster (a monitor and 3 OSD processes on ``cuda``) whose reads equal
 the same cluster's on ``cpu``; an rbd image on an EC pool of
 ``OSD(device="cuda")`` whose shards and reads equal the same on
-``cpu``.  Marked
+``cpu``; a ``["cuda:0"] * 4`` mesh's sharded encode and placement
+against the single device.  Marked
 ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -895,3 +896,38 @@ def test_kernels_take_empty_stripes_without_a_launch(cuda, shape):
 
     regions = np.zeros((k, 0), dtype=np.uint8)
     assert TorchBackend(device="cuda").matrix_regions(mat, regions, 8).shape == (3, 0)
+
+
+def test_mesh_of_one_card_repeated_equals_the_single_device(cuda):
+    """A ``["cuda:0"] * 4`` mesh (the virtual mesh of a one-card host):
+    the sharded encode launches K2 once a shard and equals the
+    single-device K2 output, ragged batch included; the sharded
+    placement equals torchmap's single-device output; the default mesh
+    of a one-card host is None."""
+    from ceph_tpu_torch.crush import torchmap
+    from ceph_tpu_torch.ops import mesh as meshmod
+    from ceph_tpu_torch.ops.gf_matmul import gf_matrix_stripes
+    from ceph_tpu_torch.osd.sharded_mapping import sharded_batch_do_rule
+    from ceph_tpu_torch.tools import mesh_dryrun
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    if torch.cuda.device_count() == 1:
+        meshmod._reset_default_mesh_for_tests()
+        assert meshmod.default_mesh() is None
+    dmesh = meshmod.DeviceMesh(["cuda:0"] * 4)
+    bm = matrix_to_device_bitmatrix(gf.reed_sol_vandermonde_coding_matrix(8, 3, 8), 8, cuda)
+    for b in (64, 63):
+        host = np.random.default_rng(b).integers(0, 256, (b, 8, 4096), dtype=np.uint8)
+        want = gf_matrix_stripes(bm, torch.from_numpy(host).to(cuda), w=8).cpu()
+        before = bitplane_gf.launches
+        got = meshmod.sharded_matrix_stripes(bm, host, 8, dmesh)
+        assert bitplane_gf.launches - before == 4
+        assert torch.equal(torch.from_numpy(got), want)
+    pm = build_hierarchy(600, 10, 6)
+    cm = torchmap.compile_map(pm, device=cuda)
+    xs = np.arange(5003)
+    for rule, rmax in ((0, 3), (1, 11)):
+        want = torchmap.batch_do_rule(cm, rule, xs, rmax)
+        got = sharded_batch_do_rule(pm, rule, xs, rmax, dmesh=dmesh)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert mesh_dryrun.step(dmesh)["errors"] == 0

@@ -13,9 +13,13 @@ in its log. The mds and rgw roles boot in a process cluster of each
 package (a monitor, 2 OSDs, an MDS and a gateway), publish ready
 records with the JAX roles' keys, and serve: the MDS is the monitor's
 active, the gateway answers S3. Then a real process cluster
-of each package (a monitor and 3 OSDs, one OS process each, the port's
-on ``device="cpu"``) takes the same writes into a jerasure k=2 m=1 pool
-and a 2-replica pool: every write reads back, and after a clean stop
+of each package (a monitor, a manager and 3 OSDs, one OS process each,
+the port's on ``device="cpu"``) takes the same writes into a jerasure
+k=2 m=1 pool and a 2-replica pool, once the manager reports every PG of
+both pools active+clean (a write that reaches a PG before its members
+have activated is rebuilt later by recovery, which stamps the shard's
+xattrs differently in the two packages): every write reads back, and
+after a clean stop
 each OSD's stored objects (shard bytes, hinfo and the other xattrs)
 are equal across the packages.
 
@@ -380,19 +384,34 @@ def _role_record(pkg: str, spec, sup, role: str) -> tuple:
 
 
 # -- a real process cluster of each package ---------------------------------------
+def _pools_clean(client, pools: set, pg_num: int) -> bool:
+    """Every PG of ``pools`` reported active+clean in the manager's
+    digest (``pg dump`` through the monitor)."""
+    rc, outb, _outs = client.mon_command({"prefix": "pg dump"})
+    if rc != 0:
+        return False
+    rows = [
+        r for r in json.loads(outb)["pg_stats"]
+        if int(r["pgid"].split(".")[0]) in pools
+    ]
+    return len(rows) == len(pools) * pg_num and all(
+        r.get("state") == "active+clean" for r in rows
+    )
+
+
 def _process_cluster(pkg: str, tmp_path) -> tuple[dict, dict]:
     proc, _sup = PKGS[pkg]
     rados = trados if pkg == "torch" else jrados
     kw = {"device": "cpu"} if pkg == "torch" else {}
-    spec = proc.ClusterSpec.plan(tmp_path / pkg, mons=1, osds=3, mgrs=0, **kw)
+    spec = proc.ClusterSpec.plan(tmp_path / pkg, mons=1, osds=3, mgrs=1, **kw)
     sup = proc.Supervisor(spec, report_interval=3600.0)
     client = None
     reads = {}
     try:
         sup.start(ready_timeout=DEADLINE)
         st = sup.status()
-        assert set(st) == {"mon.0", "osd.0", "osd.1", "osd.2"}
-        assert len({c["pid"] for c in st.values()} | {os.getpid()}) == 5
+        assert set(st) == {"mon.0", "mgr.0", "osd.0", "osd.1", "osd.2"}
+        assert len({c["pid"] for c in st.values()} | {os.getpid()}) == 6
         client = rados.Rados(f"proc-{pkg}").connect_any(spec.mon_addrs)
         client.objecter.op_timeout = DEADLINE
         rc, _b, outs = client.mon_command({
@@ -400,8 +419,13 @@ def _process_cluster(pkg: str, tmp_path) -> tuple[dict, dict]:
             "profile": ["plugin=jerasure", "technique=reed_sol_van", "k=2", "m=1"],
         })
         assert rc == 0, outs
-        client.pool_create("ec", pool_type=3, pg_num=4, erasure_code_profile="p", min_size=2)
-        client.pool_create("rep", pg_num=4, size=2)
+        pools = {
+            client.pool_create("ec", pool_type=3, pg_num=4, erasure_code_profile="p", min_size=2),
+            client.pool_create("rep", pg_num=4, size=2),
+        }
+        assert wait_for(lambda: _pools_clean(client, pools, 4), DEADLINE), (
+            f"{pkg}: the pools' PGs never went active+clean"
+        )
         rng = np.random.default_rng(11)
         writes = [(pool, f"o{i}", rng.bytes(int(rng.integers(1, 70000))))
                   for pool in ("ec", "rep") for i in range(8)]
