@@ -9,7 +9,9 @@ This module is the missing collection plane:
 
 - ``Span`` — one timed stage on one daemon: (trace_id, span_id,
   parent_id, daemon, name, start/end, tags, events).  The trace id is
-  the client reqid, exactly the id the wire already carries.
+  the client reqid, exactly the id the wire already carries.  Stamps
+  are ``time.time_ns()``, the clock kineto's device events are read
+  on, so a span can be laid over a device trace.
 - ``Tracer`` — per-daemon span factory + bounded buffer of finished
   spans.  ``dump_traces`` serves the buffer over the admin socket
   (the `dump_historic_ops`-shaped local view); ``drain`` hands
@@ -56,7 +58,7 @@ class Span:
 
     __slots__ = (
         "_tracer", "trace_id", "span_id", "parent_id", "daemon",
-        "name", "role", "start", "end", "tags", "events", "_done",
+        "name", "role", "start_ns", "end_ns", "tags", "events", "_done",
     )
 
     def __init__(
@@ -75,14 +77,14 @@ class Span:
         self.daemon = tracer.daemon
         self.name = name
         self.role = role
-        self.start = time.time()
-        self.end = 0.0
+        self.start_ns = time.time_ns()
+        self.end_ns = 0
         self.tags = dict(tags or {})
         self.events: list[tuple[float, str]] = []
         self._done = False
 
     def mark_event(self, event: str) -> None:
-        self.events.append((time.time(), event))
+        self.events.append((time.time_ns() / 1e9, event))
 
     def set_tag(self, key: str, value) -> None:
         self.tags[key] = value
@@ -91,7 +93,7 @@ class Span:
         if self._done:
             return
         self._done = True
-        self.end = time.time()
+        self.end_ns = time.time_ns()
         self._tracer._complete(self)
 
     def __enter__(self) -> "Span":
@@ -106,6 +108,7 @@ class Span:
         return False
 
     def dump(self) -> dict:
+        end_ns = self.end_ns or time.time_ns()
         return {
             "trace_id": self.trace_id,
             "span_id": self.span_id,
@@ -113,9 +116,11 @@ class Span:
             "daemon": self.daemon,
             "name": self.name,
             "role": self.role,
-            "start": self.start,
-            "end": self.end or time.time(),
-            "duration": (self.end or time.time()) - self.start,
+            "start": self.start_ns / 1e9,
+            "end": end_ns / 1e9,
+            "duration": (end_ns - self.start_ns) / 1e9,
+            "start_ns": self.start_ns,
+            "end_ns": end_ns,
             "tags": dict(self.tags),
             "events": [
                 {"time": t, "event": e} for t, e in self.events

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..common import tracing
 from .ln import _tables as _ln_tables
 from .types import (
     CRUSH_BUCKET_LIST,
@@ -79,10 +80,22 @@ SYNC_EVERY = 8  # generic chooser steps between reads of the done mask
 # Lanes re-mapped by apply_oracle_fallback since import (the speculation
 # overflow of the fast firstn path); callers zero it and read it.
 fallback_lanes = 0
+# Points where the host waited for the device (``host_wait``) since
+# import; ``OSDMapMapping`` adds each update's delta to ``host_syncs``.
+host_waits = 0
 
 
 class UnsupportedMap(ValueError):
     """Map/rule shape outside the batched mapper's scope; use the oracle."""
+
+
+def host_wait(site: str):
+    """A point where the host waits for the device: one more
+    ``host_waits``, and a ``sync.<site>`` span of the ambient tracer
+    around it (``NULL_SPAN`` without one)."""
+    global host_waits
+    host_waits += 1
+    return tracing.span("sync." + site)
 
 
 # -- primitives on tensors -------------------------------------------------
@@ -1134,7 +1147,8 @@ class _Lanes:
                 state = step(state, x32)
             taken += SYNC_EVERY
             live = ~state["done"]
-            nlive = int(live.sum())
+            with host_wait("chooser_live"):
+                nlive = int(live.sum())
             if nlive == 0:
                 break
             if taken >= bound:
@@ -1143,11 +1157,13 @@ class _Lanes:
                 )
             if nlive * 2 <= live.shape[0]:
                 gone = ~live
-                at = gone.nonzero().squeeze(1)
+                with host_wait("chooser_gone"):
+                    at = gone.nonzero().squeeze(1)
                 idx = at if lanes is None else lanes[at]
                 for k in outs:
                     final[k][idx] = state[k][at]
-                keep = live.nonzero().squeeze(1)
+                with host_wait("chooser_keep"):
+                    keep = live.nonzero().squeeze(1)
                 lanes = keep if lanes is None else lanes[keep]
                 state = {k: v[keep] for k, v in state.items()}
                 x32 = x32[keep]
@@ -1469,7 +1485,9 @@ def batch_do_rule_raw(
     window; ``apply_oracle_fallback`` finishes them."""
     plans = _plans(cm, ruleno, result_max, _spec_boost_for(weights))
     xs = torch.as_tensor(xs, device=cm.device).to(torch.int64)
-    return _run_rule(cm, plans, xs, _weight_vector(cm, weights), result_max)
+    with host_wait("weights_upload"):
+        wv = _weight_vector(cm, weights)
+    return _run_rule(cm, plans, xs, wv, result_max)
 
 
 def apply_oracle_fallback(
@@ -1490,7 +1508,10 @@ def apply_oracle_fallback(
     global fallback_lanes
 
     def host(v):
-        return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        if not isinstance(v, torch.Tensor):
+            return np.asarray(v)
+        with host_wait("oracle_download"):
+            return v.cpu().numpy()
 
     res, counts, ok = host(res), host(counts), host(ok)
     if res.dtype == np.int16:

@@ -16,6 +16,14 @@ batch across it (``osd/sharded_mapping.py``), as the JAX package's
 does.  A map
 outside the batched mapper's scope (``torchmap.UnsupportedMap``) maps
 through the scalar oracle, as does ``use_device=False``.
+
+Under an ambient tracer (``common/tracing.py``) an update opens the
+span ``osdmap_mapping.update`` and, for each pool, ``crush_stage`` (the
+dispatch recorder's ``dev_compute``/``dev_sync`` under it, and
+``oracle_fallback`` where lanes outran the fast path); each point
+where the host waits for the device, the results' download
+(``sync.download``) among them, is a ``sync.<site>`` span
+(``torchmap.host_wait``) and counts in ``host_syncs``, traced or not.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..common import tracing
 from ..crush import torchmap
 from ..crush.types import CRUSH_ITEM_NONE
 from .osdmap import (
@@ -45,9 +54,11 @@ def pool_pps_vec(pool: PgPool, ps: torch.Tensor) -> torch.Tensor:
     uint32 results as int64."""
     m = _stable_mod_vec(ps, pool.pgp_num, pool.pgp_num_mask)
     if pool.hashpspool:
-        pid = torch.tensor(
-            pool.pool_id & 0xFFFFFFFF, dtype=torch.int64, device=ps.device
-        ).to(torch.int32)
+        with torchmap.host_wait("pool_id_upload"):
+            pid = torch.tensor(
+                pool.pool_id & 0xFFFFFFFF, dtype=torch.int64, device=ps.device
+            )
+        pid = pid.to(torch.int32)
         return torchmap._u32(torchmap.hash2(m.to(torch.int32), pid))
     return (m + pool.pool_id) & 0xFFFFFFFF
 
@@ -73,8 +84,14 @@ def _build_perf():
         PerfCountersBuilder("osdmap_mapping")
         .add_u64_counter("updates", "full-map recomputes")
         .add_u64_counter("pgs_mapped", "PGs mapped across updates")
-        .add_time_avg("crush_stage", "device/oracle CRUSH stage time")
         .add_time_avg("fixup_stages", "fix-up stage time, download included")
+        .add_u64_counter(
+            "crush_oracle_lanes", "lanes the oracle re-mapped past the fast path"
+        )
+        .add_u64_counter(
+            "crush_compiles", "CRUSH tables compiled (compile_map) for updates"
+        )
+        .add_u64_counter("host_syncs", "points where the host waited for the device")
         .create_perf_counters()
     )
 
@@ -101,9 +118,15 @@ class OSDMapMapping:
         maps through the scalar oracle and fixes up on the CPU."""
         self.epoch = osdmap.epoch
         self.perf.inc("updates")
-        for pool_id, pool in osdmap.pools.items():
-            self._update_pool(osdmap, pool, use_device)
-            self.perf.inc("pgs_mapped", pool.pg_num)
+        lanes, waits = torchmap.fallback_lanes, torchmap.host_waits
+        pgs = sum(pool.pg_num for pool in osdmap.pools.values())
+        tags = {"epoch": osdmap.epoch, "pools": len(osdmap.pools), "pgs": pgs}
+        with tracing.span("osdmap_mapping.update", tags=tags):
+            for pool in osdmap.pools.values():
+                self._update_pool(osdmap, pool, use_device)
+                self.perf.inc("pgs_mapped", pool.pg_num)
+        self.perf.inc("crush_oracle_lanes", torchmap.fallback_lanes - lanes)
+        self.perf.inc("host_syncs", torchmap.host_waits - waits)
 
     def _update_pool(
         self, osdmap: OSDMap, pool: PgPool, use_device: bool
@@ -120,15 +143,15 @@ class OSDMapMapping:
             "crush", "pgs", desc="PGs mapped through the CRUSH kernel"
         )
         nbytes = n * 8
-        with self.perf.time_it("crush_stage"), ks.timed(
-            "crush", bytes_in=nbytes
-        ) as kt:
+        with ks.timed("crush", bytes_in=nbytes) as kt:
             raw = self._crush_stage(osdmap, pool, pps, use_device)
             kt.bytes_out = raw.numel() * raw.element_size()
         ks.perf.inc(pgs_counter, n)
 
         with self.perf.time_it("fixup_stages"):
-            out = self._fixup(osdmap, pool, pps, raw).cpu().numpy()
+            fixed = self._fixup(osdmap, pool, pps, raw)
+            with torchmap.host_wait("download"):
+                out = fixed.cpu().numpy()
         size = raw.shape[1]
         self.up[pool.pool_id] = out[:, :size]
         self.up_primary[pool.pool_id] = out[:, size]
@@ -145,7 +168,10 @@ class OSDMapMapping:
         exists[:-1] = torch.as_tensor(np.asarray(osdmap.osd_exists, dtype=bool))
         up_ok = exists.clone()
         up_ok[:-1] &= torch.as_tensor(np.asarray(osdmap.osd_up, dtype=bool))
-        exists, up_ok = exists.to(dev), up_ok.to(dev)
+        with torchmap.host_wait("exists_upload"):
+            exists = exists.to(dev)
+        with torchmap.host_wait("up_upload"):
+            up_ok = up_ok.to(dev)
         idx = raw.clamp(0, osdmap.max_osd)
         in_range = (raw >= 0) & (raw < osdmap.max_osd)
         raw_exists = in_range & exists[idx]
@@ -180,7 +206,17 @@ class OSDMapMapping:
         self, osdmap: OSDMap, pool: PgPool, pps: torch.Tensor, use_device: bool
     ) -> torch.Tensor:
         """(npgs, size) raw mappings on pps's device via the batched
-        mapper; the scalar oracle outside its scope."""
+        mapper; the scalar oracle outside its scope.  Spanned as
+        ``crush_stage`` (pool, PGs); the tables it compiles count in
+        ``crush_compiles``."""
+        tables = _tables_cached(osdmap.crush)
+        tags = {"pool": pool.pool_id, "pgs": pps.shape[0]}
+        with tracing.span("crush_stage", tags=tags):
+            raw = self._crush_routes(osdmap, pool, pps, use_device)
+        self.perf.inc("crush_compiles", _tables_cached(osdmap.crush) - tables)
+        return raw
+
+    def _crush_routes(self, osdmap, pool, pps, use_device):
         from ..ops.profiler import dispatch_profiler
 
         ruleno = osdmap.crush.find_rule(pool.crush_rule, pool.type, pool.size)
@@ -228,25 +264,33 @@ class OSDMapMapping:
             dp.set_stripes(n)
             dp.add_bytes_in(n * 8)
             raw = np.full((n, pool.size), _NONE, dtype=np.int64)
-            for i, x in enumerate(pps.cpu().tolist()):
+            with torchmap.host_wait("oracle_download"):
+                xs = pps.cpu().tolist()
+            for i, x in enumerate(xs):
                 row = osdmap.crush.do_rule(
                     ruleno, x, pool.size, osdmap.osd_weight
                 )
                 raw[i, : len(row)] = row
-            return torch.as_tensor(raw, device=dev)
+            with torchmap.host_wait("oracle_upload"):
+                return torch.as_tensor(raw, device=dev)
 
     @staticmethod
     def _mesh_rule(dp, crush_map, ruleno, pps, size, weights):
         """The CRUSH stage sharded across the default mesh
         (``mesh_batch_do_rule``: the oracle fallback applied on the
-        host), back on pps's device, positions past each count NONE."""
+        host), back on pps's device, positions past each count NONE.
+        The host waits inside the sharded call for its gather."""
         from .sharded_mapping import mesh_batch_do_rule
 
-        with dp.stage("compute"):
+        with dp.stage("compute"), torchmap.host_wait("mesh_gather"):
             res, counts = mesh_batch_do_rule(crush_map, ruleno, pps, size, weights)
         with dp.stage("sync"):
-            res = torch.as_tensor(np.asarray(res, dtype=np.int64), device=pps.device)
-            counts = torch.as_tensor(np.asarray(counts, dtype=np.int64), device=pps.device)
+            with torchmap.host_wait("mesh_upload"):
+                res = torch.as_tensor(np.asarray(res, dtype=np.int64), device=pps.device)
+            with torchmap.host_wait("mesh_upload"):
+                counts = torch.as_tensor(
+                    np.asarray(counts, dtype=np.int64), device=pps.device
+                )
         cols = torch.arange(size, device=pps.device)
         return torch.where(cols[None, :] < counts[:, None], res, _NONE)
 
@@ -266,16 +310,21 @@ class OSDMapMapping:
             res, counts, ok = (torch.cat(p) for p in zip(*parts))
             res, counts = res.to(torch.int64), counts.to(torch.int64)
         with dp.stage("sync"):
-            bad = (~ok).nonzero().squeeze(1)
-            if bad.numel():
-                fres, fcounts = torchmap.apply_oracle_fallback(
-                    cm, ruleno, pps[bad], res[bad], counts[bad], ok[bad],
-                    size, weights,
-                )
-                res[bad] = torch.as_tensor(fres, device=pps.device).to(torch.int64)
-                counts[bad] = torch.as_tensor(fcounts, device=pps.device).to(
-                    torch.int64
-                )
+            with torchmap.host_wait("ok_read"):
+                bad = (~ok).nonzero().squeeze(1)
+            lanes = bad.numel()
+            if lanes:
+                with tracing.span("oracle_fallback", tags={"lanes": lanes}):
+                    fres, fcounts = torchmap.apply_oracle_fallback(
+                        cm, ruleno, pps[bad], res[bad], counts[bad], ok[bad],
+                        size, weights,
+                    )
+                    with torchmap.host_wait("oracle_upload"):
+                        fres = torch.as_tensor(fres, device=pps.device)
+                    with torchmap.host_wait("oracle_upload"):
+                        fcounts = torch.as_tensor(fcounts, device=pps.device)
+                res[bad] = fres.to(torch.int64)
+                counts[bad] = fcounts.to(torch.int64)
         # positions beyond the returned count are absent, not NONE
         cols = torch.arange(size, device=pps.device)
         return torch.where(cols[None, :] < counts[:, None], res, _NONE)
@@ -294,8 +343,10 @@ class OSDMapMapping:
         )
         if not rows:
             return raw
-        at = torch.tensor(rows, device=raw.device)
-        got = raw[at].cpu().numpy()
+        with torchmap.host_wait("upmap_rows_upload"):
+            at = torch.tensor(rows, device=raw.device)
+        with torchmap.host_wait("upmap_read"):
+            got = raw[at].cpu().numpy()
         fixed = np.full_like(got, _NONE)
         for i, ps in enumerate(rows):
             cur = [int(o) for o in got[i]]
@@ -304,7 +355,9 @@ class OSDMapMapping:
             new = osdmap._apply_upmap(pool, ps, cur)
             fixed[i, : len(new)] = new
         raw = raw.clone()
-        raw[at] = torch.as_tensor(fixed, device=raw.device)
+        with torchmap.host_wait("upmap_upload"):
+            fixed = torch.as_tensor(fixed, device=raw.device)
+        raw[at] = fixed
         return raw
 
     @staticmethod
@@ -324,7 +377,8 @@ class OSDMapMapping:
         dev = up.device
         affv = torch.zeros(osdmap.max_osd + 1, dtype=torch.int64)
         affv[:-1] = torch.as_tensor(np.asarray(aff, dtype=np.int64))
-        affv = affv.to(dev)
+        with torchmap.host_wait("affinity_upload"):
+            affv = affv.to(dev)
         idx = up.clamp(0, osdmap.max_osd)
         valid = (up != _NONE) & (up >= 0) & (up < osdmap.max_osd)
         a = torch.where(valid, affv[idx], CEPH_OSD_DEFAULT_PRIMARY_AFFINITY)
@@ -375,19 +429,26 @@ class OSDMapMapping:
                 prims.append(tp)
         dev = acting.device
         if rows:
-            at = torch.tensor(rows, device=dev)
-            acting[at] = torch.tensor(temps, dtype=torch.int64, device=dev)
-            acting_primary[at] = torch.tensor(prims, dtype=torch.int64, device=dev)
+            with torchmap.host_wait("temp_upload"):
+                at = torch.tensor(rows, device=dev)
+            with torchmap.host_wait("temp_upload"):
+                acting[at] = torch.tensor(temps, dtype=torch.int64, device=dev)
+            with torchmap.host_wait("temp_upload"):
+                acting_primary[at] = torch.tensor(
+                    prims, dtype=torch.int64, device=dev
+                )
         pt = [
             (seed, tp)
             for (p, seed), tp in osdmap.primary_temp.items()
             if p == pid and seed < pool.pg_num
         ]
         if pt:
-            at = torch.tensor([s for s, _ in pt], device=dev)
-            acting_primary[at] = torch.tensor(
-                [tp for _, tp in pt], dtype=torch.int64, device=dev
-            )
+            with torchmap.host_wait("temp_upload"):
+                at = torch.tensor([s for s, _ in pt], device=dev)
+            with torchmap.host_wait("temp_upload"):
+                acting_primary[at] = torch.tensor(
+                    [tp for _, tp in pt], dtype=torch.int64, device=dev
+                )
 
     # -- queries (OSDMapMapping consumer API) ------------------------------
     def get(self, pool_id: int, ps: int):
@@ -423,3 +484,12 @@ def _compiled(crush_map, device):
     if key not in cache[1]:
         cache[1][key] = torchmap.compile_map(crush_map, device=device)
     return cache[1][key]
+
+
+def _tables_cached(crush_map) -> int:
+    """The number of devices ``_compiled`` holds tables for, for the
+    map as it stands (0 after a mutation)."""
+    cache = getattr(crush_map, "_torch_compiled", None)
+    if cache is None or cache[0] != getattr(crush_map, "mutation", 0):
+        return 0
+    return len(cache[1])

@@ -9,16 +9,25 @@ as one batched pass per pool on ``--device``):
 
 Backends: ``torch`` (``OSDMapMapping`` on ``--device``) or ``oracle``
 (the scalar pipeline's CRUSH, ``use_device=False``).
+
+``--trace`` runs the timed update under a tracer and prints where its
+time went: each span of the mapping path (``crush_stage``,
+``oracle_fallback``, each ``sync.<site>`` where the host waited for
+the device, the download among them, ...) with its count and host
+milliseconds, and
+the update's host waits, oracle lanes and table compiles.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
 import numpy as np
 
+from ..common import tracing
 from ..crush.types import (
     CRUSH_ITEM_NONE,
     PG_POOL_TYPE_ERASURE,
@@ -43,7 +52,28 @@ def parse_args(argv=None):
                    help="torch device of the torch backend (default cuda)")
     p.add_argument("--dump", action="store_true",
                    help="print per-osd pg counts")
+    p.add_argument("--trace", action="store_true",
+                   help="print the timed update's spans and host waits")
     return p.parse_args(argv)
+
+
+COUNTERS = (("host_syncs", "host waits"), ("crush_oracle_lanes", "oracle lanes"),
+            ("crush_compiles", "table compiles"))
+
+
+def format_trace(spans: list, perf0: dict, perf1: dict) -> list:
+    """The ``--trace`` lines: each span name's count and summed ms,
+    most time first, then the update's counter deltas."""
+    total: dict = {}
+    for s in spans:
+        ms, n = total.get(s["name"], (0.0, 0))
+        total[s["name"]] = (ms + (s["end_ns"] - s["start_ns"]) / 1e6, n + 1)
+    width = max(map(len, total), default=0)
+    lines = ["  trace of the timed update (span, ms, count):"]
+    for name, (ms, n) in sorted(total.items(), key=lambda kv: -kv[1][0]):
+        lines.append(f"    {name:<{width}} {ms:10.3f} {n:5d}")
+    lines.append("  " + ", ".join(f"{label} {perf1[k] - perf0[k]}" for k, label in COUNTERS))
+    return lines
 
 
 def main(argv=None) -> int:
@@ -68,8 +98,11 @@ def main(argv=None) -> int:
     mapping = OSDMapMapping(args.device)
     use_device = args.backend == "torch"
     mapping.update(om, use_device=use_device)  # warm-up
+    tracer = tracing.Tracer("osdmaptool") if args.trace else None
+    perf0 = mapping.perf.dump()
     t0 = time.perf_counter()
-    mapping.update(om, use_device=use_device)
+    with tracer.start_span("test_map_pgs") if tracer else contextlib.nullcontext():
+        mapping.update(om, use_device=use_device)
     elapsed = time.perf_counter() - t0
 
     up = mapping.up[1]
@@ -89,6 +122,9 @@ def main(argv=None) -> int:
     if args.dump:
         for osd, cnt in enumerate(per_osd):
             print(f"  osd.{osd}\t{cnt}")
+    if tracer is not None:
+        spans = tracer.dump_traces()["spans"]
+        print("\n".join(format_trace(spans, perf0, mapping.perf.dump())))
     return 0
 
 

@@ -1572,6 +1572,7 @@ def phase_osdmap(smi: str, pool) -> dict:
     """The OSD map on the card: config 5's cluster, two epochs."""
     from ceph_tpu_torch.crush import torchmap as tm
     from ceph_tpu_torch.crush.types import PG_POOL_TYPE_ERASURE, PG_POOL_TYPE_REPLICATED
+    from ceph_tpu_torch.ops.kernel_stats import kernel_stats
     from ceph_tpu_torch.ops.profiler import breakdown, dispatch_profiler
     from ceph_tpu_torch.osd import OSDMap, OSDMapMapping, PgPool
     from ceph_tpu_torch.tools import osdmaptool
@@ -1588,10 +1589,11 @@ def phase_osdmap(smi: str, pool) -> dict:
     check(mapping.device.type == "cuda", f"OSDMapMapping on {mapping.device}")
     tm.fallback_lanes = 0
     warm_s = _timed_update(mapping, om)
-    perf0 = mapping.perf.dump()
+    # a pool's CRUSH stage is timed by the kernel set's l_tpu_crush_lat
+    perf0 = {**mapping.perf.dump(), **kernel_stats().dump()}
     prof0 = dispatch_profiler().totals()
     times = [_timed_update(mapping, om) for _ in range(3)]
-    perf1 = mapping.perf.dump()
+    perf1 = {**mapping.perf.dump(), **kernel_stats().dump()}
     split = breakdown(prof0, dispatch_profiler().totals())
     fallback1 = tm.fallback_lanes
     e1 = sorted(times)[1]
@@ -1604,7 +1606,7 @@ def phase_osdmap(smi: str, pool) -> dict:
         check(mapping.up[pid].shape == (p.pg_num, p.size) and mapping.up[pid].dtype == np.int64,
               f"pool {pid}: up {mapping.up[pid].shape} {mapping.up[pid].dtype}")
     epoch1 = {"warm_s": warm_s, "update_s": e1, "pg_mappings_per_s": pgs / e1,
-              "crush_stage_avg_s": avg("crush_stage", perf0, perf1),
+              "crush_stage_avg_s": avg("l_tpu_crush_lat", perf0, perf1),
               "fixup_stages_avg_s": avg("fixup_stages", perf0, perf1),
               "fallback_lanes": fallback1, "dispatch": split}
     print(f"[7] epoch 1 on {smi}: {pgs} PGs (pool 1 2^20 x 3 rule 0, pool 2 2^18 x 11 rule 1) "
@@ -1620,10 +1622,10 @@ def phase_osdmap(smi: str, pool) -> dict:
     tm.fallback_lanes = 0
     prof0 = dispatch_profiler().totals()
     e2 = _timed_update(mapping, om)
-    perf2 = mapping.perf.dump()
+    perf2 = {**mapping.perf.dump(), **kernel_stats().dump()}
     split2 = breakdown(prof0, dispatch_profiler().totals())
     epoch2 = {"update_s": e2, "pg_mappings_per_s": pgs / e2, "incremental_bytes": wire_bytes,
-              "crush_stage_avg_s": avg("crush_stage", perf1, perf2),
+              "crush_stage_avg_s": avg("l_tpu_crush_lat", perf1, perf2),
               "fixup_stages_avg_s": avg("fixup_stages", perf1, perf2),
               "fallback_lanes": tm.fallback_lanes, "dispatch": split2,
               "touched_pgs": {pid: len(v) for pid, v in touched.items()}}

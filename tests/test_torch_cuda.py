@@ -15,7 +15,8 @@ cluster (a monitor and 3 OSD processes on ``cuda``) whose reads equal
 the same cluster's on ``cpu``; an rbd image on an EC pool of
 ``OSD(device="cuda")`` whose shards and reads equal the same on
 ``cpu``; a ``["cuda:0"] * 4`` mesh's sharded encode and placement
-against the single device.  Marked
+against the single device; program spans on kineto's clock, and every
+host wait of a remap-sized OSD-map update counted.  Marked
 ``cuda``: skips where there is no GPU.  On a
 card (whose Python has no JAX, so without the suite's conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -931,3 +932,97 @@ def test_mesh_of_one_card_repeated_equals_the_single_device(cuda):
         got = sharded_batch_do_rule(pm, rule, xs, rmax, dmesh=dmesh)
         assert all(np.array_equal(a, b) for a, b in zip(got, want))
     assert mesh_dryrun.step(dmesh)["errors"] == 0
+
+
+def test_program_spans_share_the_device_traces_clock(cuda):
+    """A program span around a ~1.3 ms kernel and a sync contains the
+    kernel's interval as ``torch.profiler`` (CUDA activity, kineto)
+    reports it, within 50 us: span stamps and device events are on one
+    clock, ``time.time_ns()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.common import tracing
+
+    a = torch.randn(4096, 2048, device=cuda)
+    b = torch.randn(2048, 4096, device=cuda)
+    a @ b
+    torch.cuda.synchronize()
+    tracer = tracing.Tracer("test")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(6):
+            with tracer.start_span("matmul"):
+                a @ b
+                torch.cuda.synchronize()
+    spans = sorted((s["start_ns"], s["end_ns"]) for s in tracer.dump_traces()["spans"])
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA)
+    assert len(kernels) == len(spans) == 6
+    for (lo, hi), (ks, ke) in zip(spans, kernels):
+        assert ke - ks > 500_000, (ks, ke)
+        assert lo - 50_000 <= ks and ke <= hi + 50_000, (lo, hi, ks, ke)
+        # and not far inside it: the span ends soon after the kernel, so
+        # no offset between the clocks hides behind the containment
+        assert hi - ke < 500_000, (lo, hi, ks, ke)
+
+
+def test_host_syncs_count_every_wait_of_a_remap_sized_update(cuda):
+    """One update of 2^20 PGs on 10,000 OSDs under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing
+    call it warns of lies inside a ``sync.<site>`` span, and there are
+    no more of them than ``host_syncs`` counts."""
+    import gc
+    import threading
+    import traceback
+    import warnings
+
+    from ceph_tpu_torch.common import tracing
+    from ceph_tpu_torch.osd import Incremental, OSDMap, OSDMapMapping, PgPool
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    # sites the debug mode does not flag (torch 2.11 flags every site of
+    # this path, the pageable uploads included)
+    unflagged: set = set()
+    om = OSDMap.build(build_hierarchy(10000, 4, 20), 10000)
+    om.add_pool(PgPool(pool_id=1, size=3, crush_rule=0, pg_num=1 << 20))
+    mapping = OSDMapMapping()
+    mapping.update(om)
+    inc = Incremental(epoch=om.epoch + 1)
+    for o in range(8, 12):
+        inc.mark_down(o)
+    om.apply_incremental(inc)
+    me = threading.get_ident()
+    seen, elsewhere = [], []
+
+    def note(message, *a, **k):
+        # the update's own waits: those raised on its thread (setting the
+        # mode also warns, once, that it is a prototype)
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        if threading.get_ident() != me:
+            elsewhere.append(threading.current_thread().name)
+            return
+        name = getattr(tracing.current_span(), "name", None)
+        if name is None:  # where it came from, for the failure's message
+            name = " < ".join(f"{f.name}:{f.lineno}" for f in traceback.extract_stack()[-6:-1])
+        seen.append(name)
+
+    tracer = tracing.Tracer("test", max_spans=4096)
+    before = mapping.perf.dump()["host_syncs"]
+    torch.cuda.synchronize()
+    gc.collect()  # no finalizer of an earlier test's objects runs inside
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with tracer.start_span("epoch"):
+                mapping.update(om)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = mapping.perf.dump()["host_syncs"] - before
+    sites = [s["name"] for s in tracer.dump_traces()["spans"] if s["name"].startswith("sync.")]
+    assert all(name.startswith("sync.") for name in seen), (seen, elsewhere)
+    assert len(seen) <= syncs == len(sites), (seen, sites, elsewhere)
+    assert set(sites) - set(seen) == unflagged, (seen, sites)
