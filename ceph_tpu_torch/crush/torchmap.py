@@ -18,7 +18,10 @@ Exactness: the rjenkins hash runs on int32 words (wrapping subtract and
 shift-left, masked logical shift-right), ``crush_ln`` gathers the three
 int64 tables of ``ln`` and does the C's integer arithmetic in int64
 (including the wrapping ``x * RH``), and the straw2 draw divides with
-truncation toward zero like ``div64_s64``.  The legacy draws stay below
+truncation toward zero like ``div64_s64``.  That is the plain version:
+on a CUDA map the straw2 draw is one launch of a hand-written kernel
+(``straw2_draw_kernel``, ``csrc/crush_kernels.cu``) that does the same
+integer arithmetic in registers.  The legacy draws stay below
 2^63 in int64: straw's and list's 16-bit hash times a u32 is under
 2^48, and tree's u32 hash times a u32 node weight, shifted right by 32,
 is taken in two 16-bit halves.  Uniform buckets rebuild the C's
@@ -49,6 +52,7 @@ import torch
 from torch.profiler import record_function
 
 from ..common import tracing
+from ..ops import _build
 from .ln import _tables as _ln_tables
 from .types import (
     CRUSH_BUCKET_LIST,
@@ -83,6 +87,10 @@ fallback_lanes = 0
 # Points where the host waited for the device (``host_wait``) since
 # import; ``OSDMapMapping`` adds each update's delta to ``host_syncs``.
 host_waits = 0
+# Launches of the straw2 draw kernel (``straw2_draw_kernel``) since
+# import; ``OSDMapMapping`` adds each update's delta to
+# ``crush_kernel_draws``.
+draw_launches = 0
 
 
 class UnsupportedMap(ValueError):
@@ -204,6 +212,73 @@ def crush_ln(u, rh_t, lh_t, ll_t):
         k = (x >> 8) - 128
         index2 = ((x * rh_t[k]) >> 48) & 0xFF
         return ((15 - shift) << 44) + ((lh_t[k] + ll_t[index2]) >> 4)
+
+
+def straw2_draw_kernel(cm, rows, x32, r32, pos, szi: int, want_item: bool):
+    """``_Lanes.draw``'s straw2 draw-argmax over bucket rows ``rows`` as
+    one launch of the CUDA kernel (``csrc/crush_kernels.cu``), the
+    arguments as ``_Lanes.pick`` takes them: ``rows`` a row shared by
+    every lane (int) or an int64 tensor, ``x32`` and ``r32`` int32
+    broadcasting against it with a trailing axis of 1, ``pos`` the
+    choose_args position shaped like ``rows`` (None for position 0).
+    The kernel reads each row's first ``szi`` columns in place from the
+    map's tables.  Returns (column (*lead, 1) int64, item (*lead) int64
+    where ``want_item``, else None).  No fallback: without the library,
+    or for tensors the kernel does not take, it raises."""
+    global draw_launches
+    lib = _build.crush_library()
+    one = isinstance(rows, int)
+    lead = torch.broadcast_shapes(
+        x32.shape[:-1], r32.shape[:-1], *(() if one else (rows.shape,))
+    )
+    if not 1 <= len(lead) <= 2:
+        raise ValueError(f"straw2 draw over lanes of shape {tuple(lead)}")
+    if cm.arg_positions:
+        ids, wdiv, wlive = cm.args_ids32, cm.args_wdiv, cm.args_wlive
+    else:
+        ids, wdiv, wlive, pos = cm.items32, cm.wdiv, cm.wlive, None
+    tables = (ids, wdiv, wlive, cm.sizes, cm.items, cm.ln_rh, cm.ln_lh, cm.ln_ll)
+    given = {"x32": (x32, torch.int32), "r32": (r32, torch.int32)}
+    if not one:
+        given["rows"] = (rows, torch.int64)
+    if pos is not None:
+        given["pos"] = (pos, torch.int64)
+    dev = x32.device
+    for name, (t, dtype) in given.items():
+        if not t.is_cuda or t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name} must be a {dtype} tensor on one CUDA device")
+    if any(t.device != dev or not t.is_contiguous() for t in tables):
+        raise ValueError("the map's tables must be contiguous on the lanes' device")
+
+    def two(t):
+        """``t`` expanded to the lanes, as (n, c) with its strides."""
+        t = t.expand(lead)
+        return t.unsqueeze(1) if t.dim() == 1 else t
+
+    xs, rs = two(x32[..., 0]), two(r32[..., 0])
+    n, c = xs.shape
+    rw = None if one else two(rows)
+    ps = None if pos is None else two(pos)
+    col = torch.empty((*lead, 1), dtype=torch.int64, device=dev)
+    item = torch.empty(lead, dtype=torch.int64, device=dev) if want_item else None
+    with torch.cuda.device(dev):
+        err = lib.crush_straw2_draw(
+            xs.data_ptr(), *xs.stride(), rs.data_ptr(), *rs.stride(),
+            None if one else rw.data_ptr(), *((0, 0) if one else rw.stride()),
+            rows if one else 0,
+            None if ps is None else ps.data_ptr(), *((0, 0) if ps is None else ps.stride()),
+            cm.arg_positions,
+            *(t.data_ptr() for t in tables[:5]), cm.nb, cm.sz, szi,
+            *(t.data_ptr() for t in tables[5:]), n, c,
+            col.data_ptr(), None if item is None else item.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"crush_straw2_draw launch failed: {lib.crush_error_string(err).decode()}"
+        )
+    draw_launches += 1
+    return col, item
 
 
 # -- map compilation -------------------------------------------------------
@@ -766,7 +841,9 @@ class _Lanes:
         hash(x, id, r) & 0xffff -> crush_ln - 2^48, divided by the item
         weight with truncation toward zero; zero weights (and columns
         past a bucket's size, which carry weight 0) draw S64_MIN; the
-        first maximum wins, like the C's strict ``>``."""
+        first maximum wins, like the C's strict ``>``.  The plain
+        version: a CPU map draws here, a CUDA map launches
+        ``straw2_draw_kernel`` (``pick``)."""
         cm = self.cm
         u = hash3(x32, ids32, r32) & 0xFFFF
         ln = crush_ln(u, cm.ln_rh, cm.ln_lh, cm.ln_ll) - (1 << 48)
@@ -820,10 +897,16 @@ class _Lanes:
             return t[rows][..., None]
 
         size = meta(cm.sizes)
-        alg = meta(cm.algs)
-        idx = None
+        alg = meta(cm.algs) if len(algs) > 1 else None
+        idx = item = None
         for a in sorted(algs):
-            if a == CRUSH_BUCKET_STRAW2:
+            if a == CRUSH_BUCKET_STRAW2 and cm.device.type == "cuda":
+                # one kernel launch; where every bucket of the step is
+                # straw2 it also reads the winning item
+                got, item = straw2_draw_kernel(
+                    cm, rows, x, r, pos, szi, want_item=len(algs) == 1
+                )
+            elif a == CRUSH_BUCKET_STRAW2:
                 if cm.arg_positions:
                     arows = rows
                     if pos is not None:
@@ -853,8 +936,10 @@ class _Lanes:
                 got = self.perm_draw(x, meta(cm.ids32), size, r, usz)
             idx = got if idx is None else torch.where(alg == a, got, idx)
         lead = idx.shape[:-1]
-        item = cols(cm.items).expand(*lead, szi).gather(-1, idx.clamp(0, szi - 1))
-        return item.squeeze(-1), size.squeeze(-1).expand(lead)
+        if item is None:
+            item = cols(cm.items).expand(*lead, szi).gather(-1, idx.clamp(0, szi - 1))
+            item = item.squeeze(-1)
+        return item, size.squeeze(-1).expand(lead)
 
     def straw_draw(self, x32, ids32, straws, size, r32):
         """Legacy straw chooser (mapper.c:227-245): (hash3(x, item, r) &

@@ -5,12 +5,16 @@ with ``nvcc`` for Hopper (``sm_90a``), into a shared library with a plain
 C interface under ``build/ceph_tpu_torch/`` at the repository root, and
 loaded with ``ctypes``.  The library name carries a digest of the source
 and flags, so an edited source is rebuilt.  There is no fallback: a
-missing ``nvcc`` or a failed build raises.  Host C sources (``csrc/*.c``:
-the crc32c of ``native``) build the same way with ``cc``.
+missing ``nvcc`` or a failed build raises.  Each ``.cu`` is its own
+library (``library()``: the GF(2^8) kernels K1/K2; ``crush_library()``:
+CRUSH's straw2 draw), so an edit to one source rebuilds only its own.
+Host C sources (``csrc/*.c``: the crc32c of ``native``) build the same
+way with ``cc``.
 
 Every C entry launches on the stream it is given, allocates nothing and
-returns ``cudaGetLastError()``; ``launch_stripes`` raises when that is
-not 0 (a refused launch never runs, and no later synchronise reports it).
+returns ``cudaGetLastError()``; ``launch_stripes`` and
+``torchmap.straw2_draw_kernel`` raise when that is not 0 (a refused
+launch never runs, and no later synchronise reports it).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ NVCC_FLAGS = (
 # library runs on any x86-64 or arm64 host that shares the build tree
 CC_FLAGS = ("-O3", "-shared", "-fPIC")
 SOURCE = "gf8_kernels.cu"
+CRUSH_SOURCE = "crush_kernels.cu"
 # (in, in_sb, in_sk, out, B, k, m, chunk, bm, stream)
 _STRIPES_ARGS = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
@@ -50,9 +55,17 @@ _WORDS_ARGS = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong,
 ]
+# (x, x0, x1, r, r0, r1, rows, w0, w1, row_const, pos, p0, p1, positions,
+#  ids, wdiv, wlive, sizes, items, nb, width, szi, rh, lh, ll, n, c, col,
+#  item, stream): pointers and strides as the C entry names them
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_STRAW2_ARGS = [
+    _P, _L, _L, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _I,
+    _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P, _L, _L, _P, _P, _P,
+]
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 # what the last build printed (ptxas registers/spills) and how long it took
 build_log: dict[str, str] = {}
 build_seconds: dict[str, float] = {}
@@ -116,7 +129,9 @@ def kernel_resources(ptxas: str) -> dict[str, str]:
     for line in ptxas.splitlines():
         hit = re.search(r"(?:entry function '|properties for )(\S+?)'?$", line)
         if hit:
-            k = re.search(r"(gf8_[a-z]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", hit.group(1))
+            k = re.search(
+                r"(gf8_[a-z]+_kernel|straw2_draw_kernel)(?:ILi(\d+)ELi(\d+)E)?", hit.group(1)
+            )
             name = hit.group(1) if k is None else (
                 k.group(1) + (f"<R={k.group(2)},W={k.group(3)}>" if k.group(2) else "")
             )
@@ -130,23 +145,47 @@ def kernel_resources(ptxas: str) -> dict[str, str]:
     return {n: ", ".join(v) for n, v in found.items()}
 
 
-def library() -> ctypes.CDLL:
-    global _lib
+def _load(source: str, bind) -> ctypes.CDLL:
+    """The library of ``csrc/<source>``, built (``build``) and bound
+    (``bind(lib)`` sets argtypes and restypes) on first use."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in ENTRIES:
-                fn = getattr(lib, name)
-                fn.argtypes = _STRIPES_ARGS
-                fn.restype = ctypes.c_int
-            lib.gf8_error_string.argtypes = [ctypes.c_int]
-            lib.gf8_error_string.restype = ctypes.c_char_p
-            lib.gf8_words_per_thread.argtypes = _WORDS_ARGS
-            lib.gf8_words_per_thread.restype = ctypes.c_int
-            lib.gf8_bitplane_rows.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.gf8_bitplane_rows.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            bind(lib)
+            _libs[source] = lib
+    return lib
+
+
+def _bind_gf8(lib: ctypes.CDLL) -> None:
+    for name in ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = _STRIPES_ARGS
+        fn.restype = ctypes.c_int
+    lib.gf8_error_string.argtypes = [ctypes.c_int]
+    lib.gf8_error_string.restype = ctypes.c_char_p
+    lib.gf8_words_per_thread.argtypes = _WORDS_ARGS
+    lib.gf8_words_per_thread.restype = ctypes.c_int
+    lib.gf8_bitplane_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gf8_bitplane_rows.restype = ctypes.c_int
+
+
+def _bind_crush(lib: ctypes.CDLL) -> None:
+    lib.crush_straw2_draw.argtypes = _STRAW2_ARGS
+    lib.crush_straw2_draw.restype = ctypes.c_int
+    lib.crush_error_string.argtypes = [ctypes.c_int]
+    lib.crush_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The GF(2^8) kernels K1 and K2 (``gf8_kernels.cu``)."""
+    return _load(SOURCE, _bind_gf8)
+
+
+def crush_library() -> ctypes.CDLL:
+    """CRUSH's straw2 draw (``crush_kernels.cu``), launched by
+    ``crush.torchmap.straw2_draw_kernel``."""
+    return _load(CRUSH_SOURCE, _bind_crush)
 
 
 def words_per_thread(stripes: torch.Tensor, out: torch.Tensor) -> int:

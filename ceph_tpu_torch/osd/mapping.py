@@ -92,6 +92,9 @@ def _build_perf():
             "crush_compiles", "CRUSH tables compiled (compile_map) for updates"
         )
         .add_u64_counter("host_syncs", "points where the host waited for the device")
+        .add_u64_counter(
+            "crush_kernel_draws", "launches of the straw2 draw kernel (CUDA maps)"
+        )
         .create_perf_counters()
     )
 
@@ -119,6 +122,7 @@ class OSDMapMapping:
         self.epoch = osdmap.epoch
         self.perf.inc("updates")
         lanes, waits = torchmap.fallback_lanes, torchmap.host_waits
+        draws = torchmap.draw_launches
         pgs = sum(pool.pg_num for pool in osdmap.pools.values())
         tags = {"epoch": osdmap.epoch, "pools": len(osdmap.pools), "pgs": pgs}
         with tracing.span("osdmap_mapping.update", tags=tags):
@@ -127,6 +131,7 @@ class OSDMapMapping:
                 self.perf.inc("pgs_mapped", pool.pg_num)
         self.perf.inc("crush_oracle_lanes", torchmap.fallback_lanes - lanes)
         self.perf.inc("host_syncs", torchmap.host_waits - waits)
+        self.perf.inc("crush_kernel_draws", torchmap.draw_launches - draws)
 
     def _update_pool(
         self, osdmap: OSDMap, pool: PgPool, use_device: bool

@@ -58,7 +58,7 @@ def parse_args(argv=None):
 
 
 COUNTERS = (("host_syncs", "host waits"), ("crush_oracle_lanes", "oracle lanes"),
-            ("crush_compiles", "table compiles"))
+            ("crush_compiles", "table compiles"), ("crush_kernel_draws", "kernel draws"))
 
 
 def format_trace(spans: list, perf0: dict, perf1: dict) -> list:

@@ -8,8 +8,9 @@ Phases, each reported on its own lines; any mismatch raises and the
 script exits non-zero:
 
 1. the card (nvidia-smi name and power limit), CUDA version, and the
-   nvcc build of ``ceph_tpu_torch/csrc/gf8_kernels.cu`` with its time and
-   the registers and spills of each kernel instance;
+   nvcc builds of ``ceph_tpu_torch/csrc/gf8_kernels.cu`` and
+   ``crush_kernels.cu`` with their times and the registers and spills of
+   each kernel instance;
 2. kernels K1 (packed) and K2 (bitplane) against their plain PyTorch
    versions on the card, exactly (``torch.equal``), for the coding and
    decoding matrices of the main path and m = 1, 9 and 32 at widths 4096,
@@ -60,7 +61,12 @@ script exits non-zero:
    against the oracle; every golden vector of the reference C (scenarios
    0 to 4 and the choose_args lines) on the card, but scenario 3, whose
    argonaut tunables are outside the batched mapper and map through the
-   oracle; one ``{"crush": ...}`` line;
+   oracle; the straw2 draw kernel's launches over the phase (zeroed
+   before, non-zero after), and the kernel at the remap cell's four draw
+   levels (2^19 lanes x 5 candidates: the 63-wide root, 2-wide rows,
+   20-wide racks, 4-wide hosts) equal to the plain draw on the card and
+   timed beside it and its instruction-issue bound; one ``{"crush": ...}``
+   line;
 6. the store data plane on ``device="cuda"`` at one PG's size, with the
    launch counts zeroed before and both non-zero after: an ``ECStore``
    (isa k=8 m=3, stripe unit 4096) over 11 ``MemStore``s with 256
@@ -302,6 +308,14 @@ def phase_build():
           f"{_build.build_seconds.get(_build.SOURCE, 0.0):.2f} s compile, "
           f"{time.perf_counter() - t0:.2f} s to load")
     for name, res in _build.kernel_resources(_build.build_log.get(_build.SOURCE, "")).items():
+        print(f"    ptxas {name}: {res}")
+    t0 = time.perf_counter()
+    _build.crush_library()
+    print(f"[1] nvcc build of {_build.CRUSH_SOURCE}: "
+          f"{_build.build_seconds.get(_build.CRUSH_SOURCE, 0.0):.2f} s compile, "
+          f"{time.perf_counter() - t0:.2f} s to load")
+    ptxas = _build.build_log.get(_build.CRUSH_SOURCE, "")
+    for name, res in _build.kernel_resources(ptxas).items():
         print(f"    ptxas {name}: {res}")
     return smi
 
@@ -1136,11 +1150,83 @@ def _variant_maps() -> dict:
     return {"straw_hosts": straw, "compat_weight_set": compat}
 
 
+# the card's instruction issue rate: one warp instruction a clock from
+# each of the 4 schedulers of each of the H100 SXM's 132 SMs, 32 lanes,
+# at its 1,980 MHz boost clock
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
+# instructions a thread issues for one live column (cuobjdump -sass of
+# the build, sm_90a): 214 of the loop body's 234 on the live path (the
+# hash, crush_ln, the compare, the loads) and the 68 of the 64-bit
+# division routine it calls
+STRAW2_INSTR_PER_DRAW = 282
+
+
+def _straw2_kernel_times(smi: str) -> dict:
+    """The straw2 draw kernel at the remap cell's four draw levels, one
+    2^19-lane chunk x 5 candidates each (the root as one shared row, the
+    other levels through (N, 5) row tensors), equal to the plain draw on
+    the card (its column gathers, ``_Lanes.draw`` and the item gather,
+    as ``pick`` ran them before the kernel) and timed beside it with CUDA
+    events; the bound is the live draws' instructions at the card's
+    issue rate."""
+    from ceph_tpu_torch.crush import torchmap as tm
+    from ceph_tpu_torch.tools.timing import time_ms
+    from perfbench import maps
+    from perfbench.drivers import _program
+
+    # the remap cell's map (perfbench/configs/osdmap_10k_straw2.json)
+    cm = tm.compile_map(_program.crush_map(maps.hierarchy(10000, [4, 20, 2])))
+    lanes = tm._Lanes(cm, torch.full((cm.max_devices,), 0x10000, device="cuda"))
+    n, c = CRUSH_CHUNK, 5
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randint(-(1 << 31), 1 << 31, (n, 1, 1), dtype=torch.int64, device="cuda",
+                      generator=gen).to(torch.int32)
+    r = torch.arange(c, dtype=torch.int32, device="cuda").view(1, c, 1)
+    out = {}
+    for level, btype in (("root", 4), ("rows", 3), ("racks", 2), ("hosts", 1)):
+        of_type = np.nonzero(cm.np_types == btype)[0]
+        szi = int(cm.np_sizes[of_type].max())
+        if len(of_type) == 1:
+            rows = int(of_type[0])
+        else:
+            pick = torch.randint(0, len(of_type), (n, c), device="cuda", generator=gen)
+            rows = torch.from_numpy(of_type).cuda()[pick]
+
+        def cols(t, at=rows):
+            return t[at, :szi] if isinstance(rows, int) else t[:, :szi][at]
+
+        def plain():
+            col = lanes.draw(x, cols(cm.items32), cols(cm.wdiv), cols(cm.wlive), r)
+            item = cols(cm.items).expand(n, c, szi).gather(-1, col)
+            return col, item.squeeze(-1)
+
+        def kernel():
+            return tm.straw2_draw_kernel(cm, rows, x, r, None, szi, True)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"straw2 kernel != plain draw at the {level} level")
+        if isinstance(rows, int):
+            live = int(cm.wlive[rows, :szi].sum()) * n * c
+        else:
+            live = int(cm.wlive[:, :szi].sum(1)[rows].sum())
+        row = {"lanes": n, "candidates": c, "width": szi, "draws": live,
+               "kernel_ms": time_ms(kernel, iters=20),
+               "plain_ms": time_ms(plain, iters=3, warmup=1),
+               "bound_ms": live * STRAW2_INSTR_PER_DRAW / ISSUE_PER_S * 1e3}
+        out[level] = row
+        print(f"[5] straw2 kernel at the cell's {level} level ({n} x {c} x {szi}) on {smi}: "
+              f"{json.dumps(row)}")
+    return out
+
+
 def phase_crush(smi: str, pool) -> dict:
     from ceph_tpu_torch.crush import torchmap as tm
     from ceph_tpu_torch.tools.crushtool import build_hierarchy
 
     t0 = time.perf_counter()
+    tm.draw_launches = 0
     pm = build_hierarchy(10000, 40, 25)
     cm = tm.compile_map(pm)
     tables = {k: v for k, v in vars(cm).items() if isinstance(v, torch.Tensor)}
@@ -1163,11 +1249,16 @@ def phase_crush(smi: str, pool) -> dict:
     print(f"[5] golden vectors of the reference C: on cuda {golden['card']}, through the "
           f"oracle {golden['oracle']} (refused by the batched mapper, as by jaxmap: "
           f"{golden['refused']}), every line equal to the file")
+    launches = tm.draw_launches
+    check(launches > 0, "the straw2 draw kernel was never launched")
+    print(f"[5] straw2 draw kernel: {launches} launches over the phase")
+    kernel = _straw2_kernel_times(smi)
     print(f"[5] CRUSH phase took {time.perf_counter() - t0:.1f} s")
     return {"card": smi.splitlines()[0],
             "map": {"osds": pm.max_devices, "hosts": hosts, "racks": racks, "buckets": cm.nb,
                     "table_bytes": table_bytes},
-            **rows, "variants": variants, "golden": golden}
+            **rows, "variants": variants, "golden": golden, "draw_launches": launches,
+            "straw2_kernel": kernel}
 
 
 STORE_OBJECTS = 256
@@ -4282,6 +4373,17 @@ def main() -> int:
                                  "fs (14)": fs["launches"][key],
                                  "mesh (16)": mesh["launches"][key]},
         })
+    root = crush["straw2_kernel"]["root"]
+    kernels.append({
+        "name": "straw2_draw", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_kernels.cu",
+        "replaces": "ceph_tpu/crush/jaxmap.py:811 (straw2_draw, XLA)",
+        "launches": crush["draw_launches"], "ms": root["kernel_ms"],
+        "plain_ms": root["plain_ms"], "bound_ms": root["bound_ms"],
+        "bound_by": "instructions issued", "library_ms": None,
+        "library_note": "no PyTorch call computes a straw2 draw",
+        "shape": "the remap cell's root: 2^19 lanes x 5 candidates x 63 columns",
+    })
     print(json.dumps({"crush": crush}))
     print(json.dumps({"store": store}))
     print(json.dumps({"osdmap": osdmap}))

@@ -213,6 +213,71 @@ def test_straw2_draw_first_index_wins_a_tie():
         assert am.squeeze(1).tolist() == [first] * 64, w
 
 
+def test_straw2_draw_on_the_cpu_is_the_plain_version():
+    """A CPU map draws through ``_Lanes.draw`` and launches nothing:
+    pick's items are the plain draw's columns, and a whole rule counts
+    no kernel launch."""
+    pm, cm = _port(three_level_map())
+    lanes = torchmap._Lanes(cm, torch.full((cm.max_devices,), 0x10000))
+    rows = torch.from_numpy(np.nonzero(cm.np_types == 1)[0]).repeat(50)[:, None]
+    x = torch.arange(rows.shape[0], dtype=torch.int32)[:, None]
+    r = torch.full((1, 1), 3, dtype=torch.int32)
+    before = torchmap.draw_launches
+    item, _ = lanes.pick(rows.squeeze(1), x, r, None, cm.sz, (CRUSH_BUCKET_STRAW2,), 1)
+    col = lanes.draw(x, cm.items32[rows.squeeze(1)], cm.wdiv[rows.squeeze(1)],
+                     cm.wlive[rows.squeeze(1)], r)
+    assert torch.equal(item, cm.items[rows.squeeze(1)].gather(1, col).squeeze(1))
+    res, counts, ok = torchmap.batch_do_rule_raw(cm, 0, np.arange(256), 3)
+    _assert_matches_oracle(pm, res, counts, 0, np.arange(256), 3)
+    assert torchmap.draw_launches == before
+
+
+def test_straw2_cuda_route_without_the_library_raises(monkeypatch, tmp_path):
+    """A CUDA map's straw2 draw goes to the kernel and nowhere else:
+    with no library and no nvcc to build one it raises, launches
+    nothing, and does not fall back to the plain draw."""
+    import dataclasses
+
+    from ceph_tpu_torch.ops import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc", no_nvcc)
+    monkeypatch.setattr(torchmap._Lanes, "draw", lambda *a: pytest.fail("plain draw taken"))
+    _, cm = _port(three_level_map())
+    card = dataclasses.replace(cm, device=torch.device("cuda"))
+    lanes = torchmap._Lanes(card, torch.full((cm.max_devices,), 0x10000))
+    before = torchmap.draw_launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        lanes.pick(0, torch.zeros((4, 1, 1), dtype=torch.int32),
+                   torch.zeros((1, 2, 1), dtype=torch.int32), None, 2,
+                   (CRUSH_BUCKET_STRAW2,), 1)
+    assert torchmap.draw_launches == before
+
+
+def test_kernel_resources_name_the_straw2_kernel():
+    """ptxas's report of ``crush_kernels.cu`` read back under the
+    kernel's own name, beside K1's template instances."""
+    from ceph_tpu_torch.ops import _build
+
+    names = ("_ZN57_GLOBAL__N__3f2a_16_crush_kernels_cu_9c1d18straw2_draw_kernelENS_8DrawArgsE",
+             "_ZN12_GLOBAL__N_117gf8_packed_kernelILi3ELi4EEEvNS_10StripeArgsEii")
+    ptxas = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, 616 bytes cmem[0]\n"
+        for name, regs in zip(names, (38, 40))
+    )
+    assert _build.kernel_resources(ptxas) == {
+        "straw2_draw_kernel": "38 registers, 0 bytes spill stores, 0 bytes spill loads",
+        "gf8_packed_kernel<R=3,W=4>": "40 registers, 0 bytes spill stores, 0 bytes spill loads",
+    }
+
+
 # -- the compiled map -------------------------------------------------------
 
 

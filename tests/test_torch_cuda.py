@@ -4,7 +4,9 @@ oracle, and the registry path on
 ``device="cuda"``: jerasure and isa, the layered plugins (equal to
 ``device="cpu"``), ``ec_benchmark`` over them, and ECCodec's batch
 routes with their K2 launch counts; the CRUSH mapper's hash,
-``crush_ln`` and raw output on ``cuda`` against ``cpu``; the store plane:
+``crush_ln`` and raw output on ``cuda`` against ``cpu`` (the benchmark's
+10,000-OSD map among the maps), the straw2 draw kernel against the plain
+draw on the CPU bit for bit, with its launch counts; the store plane:
 ``DeviceBuf`` on the card, the crc at 64 MiB against the host C crc,
 resident scrub and compare with no upload, ``ECStore`` on ``cuda``
 against ``cpu``; the durable stores: ``build_scrub_map`` over BlockStore
@@ -529,6 +531,197 @@ def test_crush_legacy_and_choose_args_on_the_card_equal_cpu(cuda, name, rule, rm
     res, counts = torchmap.apply_oracle_fallback(card, rule, xs, *got, rmax, w)
     for i in range(0, len(xs), 131):
         assert res[i, : counts[i]].tolist() == m.do_rule(rule, int(xs[i]), rmax, list(w))
+
+
+# -- CRUSH: the straw2 draw kernel against the plain draw on the CPU ------------
+
+
+def _bench_map():
+    """The benchmark's map: 10,000 straw2 OSDs, 4 a host, 20 hosts a
+    rack, 2 racks a row, 63 rows under the root; rules 0 (firstn) and 1
+    (indep) choose leaves over hosts."""
+    from perfbench import maps
+    from perfbench.drivers import _program
+
+    return _program.crush_map(maps.hierarchy(10000, [4, 20, 2]))
+
+
+def _straw2_cols(cm, rows, pos, szi):
+    """The (ids, divisors, live) columns ``_Lanes.pick`` hands the plain
+    draw for bucket rows ``rows`` at choose_args position ``pos``."""
+    one = isinstance(rows, int)
+
+    def cols(t, at=rows):
+        return t[at, :szi] if one else t[:, :szi][at]
+
+    if not cm.arg_positions:
+        return cols(cm.items32), cols(cm.wdiv), cols(cm.wlive)
+    arows = rows
+    if pos is not None:
+        arows = rows * cm.arg_positions + pos.clamp(0, cm.arg_positions - 1)
+    return cols(cm.args_ids32), cols(cm.args_wdiv, arows), cols(cm.args_wlive, arows)
+
+
+def _kernel_equals_plain_draw(card, cpu, rows, x, r, pos, szi):
+    """One kernel launch on ``card`` against the plain draw and pick on
+    ``cpu`` (the same map), bit for bit: the winning column and its
+    item."""
+    from ceph_tpu_torch.crush import torchmap
+    from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW2
+
+    def on(t):
+        return t if t is None or isinstance(t, int) else t.cuda()
+
+    before = torchmap.draw_launches
+    col, item = torchmap.straw2_draw_kernel(card, on(rows), on(x), on(r), on(pos), szi, True)
+    torch.cuda.synchronize()
+    assert torchmap.draw_launches == before + 1
+    lanes = torchmap._Lanes(cpu, torch.full((max(cpu.max_devices, 1),), 0x10000))
+    want = lanes.draw(x, *_straw2_cols(cpu, rows, pos, szi), r)
+    assert col.dtype == torch.int64 and torch.equal(col.cpu(), want)
+    want_item, _ = lanes.pick(rows, x, r, pos, szi, (CRUSH_BUCKET_STRAW2,), 1)
+    assert torch.equal(item.cpu(), want_item)
+    return col.cpu()
+
+
+def _lanes_x(n, seed):
+    """n inputs over the whole int32 range, its ends and -1 among them,
+    shaped (n, 1, 1) like the fast path's."""
+    x = np.random.default_rng(seed).integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+    x[:5] = [-(1 << 31), -1, 0, 1, (1 << 31) - 1]
+    return torch.from_numpy(x.astype(np.int32)).view(n, 1, 1)
+
+
+@pytest.mark.parametrize("level,btype", [("root", 4), ("row", 3), ("rack", 2), ("host", 1)])
+def test_straw2_kernel_equals_plain_at_the_cells_shapes(cuda, level, btype):
+    """The remap cell's four draw levels over 2^16 lanes x 5 candidates:
+    the 63-wide root as one row shared by every lane, then (N, 5) row
+    tensors of 2-wide rows, 20-wide racks and 4-wide hosts."""
+    from ceph_tpu_torch.crush import torchmap
+
+    m = _bench_map()
+    card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
+    n, c = 1 << 16, 5
+    x = _lanes_x(n, btype)
+    r = torch.arange(c, dtype=torch.int32).view(1, c, 1)
+    of_type = np.nonzero(cpu.np_types == btype)[0]
+    szi = int(cpu.np_sizes[of_type].max())
+    assert szi == {4: 63, 3: 2, 2: 20, 1: 4}[btype]
+    if level == "root":
+        (rows,) = of_type.tolist()
+    else:
+        rng = np.random.default_rng(btype)
+        rows = torch.from_numpy(rng.choice(of_type, (n, c)).astype(np.int64))
+    col = _kernel_equals_plain_draw(card, cpu, rows, x, r, None, szi)
+    assert col.shape == (n, c, 1) and len(torch.unique(col)) == szi
+
+
+def test_straw2_kernel_zero_weights_and_ties(cuda):
+    """Zero-weight columns never win while another draws and an all-zero
+    row takes column 0; equal draws (one id repeated, equal weights)
+    take the first column, like the C's strict ``>``."""
+    import dataclasses
+
+    from ceph_tpu_torch.crush import torchmap
+    from ceph_tpu_torch.tools.crushtool import build_hierarchy
+
+    m = build_hierarchy(48, 4, weight_fn=lambda o: 0 if o % 5 == 0 or 8 <= o < 12 else 0x10000)
+    card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
+    hosts = torch.from_numpy(np.nonzero(cpu.np_types == 1)[0])
+    n = 4096
+    x = _lanes_x(n, 7)
+    r = torch.arange(3, dtype=torch.int32).view(1, 3, 1)
+    rows = hosts[torch.arange(n * 3) % len(hosts)].view(n, 3)
+    col = _kernel_equals_plain_draw(card, cpu, rows, x, r, None, 4)
+    dead = cpu.wlive[rows].sum(-1) == 0
+    assert dead.any() and (col.squeeze(-1)[dead] == 0).all()
+    # ties: every column of every row hashes id 7 and weighs one of the
+    # patterns below, the first live maximum winning
+    pats = [[3, 3, 3, 3], [0, 3, 3, 3], [0, 0, 5, 5], [0, 0, 0, 0], [1, 2, 2, 1]]
+    w = torch.zeros((cpu.nb, cpu.sz), dtype=torch.int64)
+    w[: len(pats), :4] = torch.tensor(pats)
+    tie = {"items32": torch.full((cpu.nb, cpu.sz), 7, dtype=torch.int32),
+           "wdiv": torch.where(w > 0, w, 1), "wlive": w > 0,
+           "sizes": torch.full((cpu.nb,), 4, dtype=torch.int64)}
+    tcpu = dataclasses.replace(cpu, **tie)
+    tcard = dataclasses.replace(card, **{k: v.cuda() for k, v in tie.items()})
+    rows = torch.arange(len(pats)).repeat(n, 1)
+    r = torch.zeros((1, 1, 1), dtype=torch.int32)
+    col = _kernel_equals_plain_draw(tcard, tcpu, rows, x, r, None, 4)
+    assert col.squeeze(-1)[0].tolist() == [0, 1, 2, 0, 1]
+
+
+@pytest.mark.parametrize("name", ["choose_args1", "choose_args2"])
+def test_straw2_kernel_choose_args_tables(cuda, name):
+    """choose_args: the hash ids of ``args_ids32`` and the weight-set row
+    of each lane's position, clamped to the positions there are, as the
+    generic chooser draws (one row and position a lane), and position 0
+    as the fast path draws."""
+    from ceph_tpu_torch.crush import torchmap
+
+    m = _legacy_card_maps()[name]
+    card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
+    assert cpu.arg_positions == int(name[-1])
+    n = 8192
+    rng = np.random.default_rng(cpu.arg_positions)
+    hosts = np.nonzero(cpu.np_types == 1)[0]
+    rows = torch.from_numpy(rng.choice(hosts, n).astype(np.int64))
+    pos = torch.from_numpy(rng.integers(-1, 4, n))
+    x = _lanes_x(n, 11)[:, :, 0]
+    r = torch.from_numpy(rng.integers(0, 60, (n, 1)).astype(np.int32))
+    _kernel_equals_plain_draw(card, cpu, rows, x, r, pos, cpu.sz)
+    if cpu.arg_positions == 1:
+        _kernel_equals_plain_draw(card, cpu, rows.view(n // 4, 4), _lanes_x(n // 4, 12),
+                                  torch.arange(4, dtype=torch.int32).view(1, 4, 1), None, 4)
+
+
+def test_straw2_kernel_counts_launches_and_raises_on_a_refused_one(cuda):
+    """One launch a straw2 level of a chunk (the cell's rule 0: root, rows,
+    racks, hosts), ``crush_kernel_draws`` an update's launches (two
+    chunks of 2^19 at 2^20 PGs), and a launch the C entry refuses (a
+    width past the table's) or inputs it does not take raise and count
+    nothing."""
+    from ceph_tpu_torch.crush import torchmap
+    from ceph_tpu_torch.osd import OSDMap, OSDMapMapping, PgPool
+
+    m = _bench_map()
+    card = torchmap.compile_map(m)
+    before = torchmap.draw_launches
+    torchmap.batch_do_rule_raw(card, 0, np.arange(4096), 3)
+    assert torchmap.draw_launches - before == 4
+    om = OSDMap.build(m, 10000)
+    om.add_pool(PgPool(pool_id=1, size=3, crush_rule=0, pg_num=1 << 20))
+    mapping = OSDMapMapping()
+    mapping.update(om)
+    assert mapping.perf.dump()["crush_kernel_draws"] == 8
+    x = _lanes_x(64, 3).cuda()
+    r = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
+    before = torchmap.draw_launches
+    with pytest.raises(RuntimeError, match="crush_straw2_draw launch failed"):
+        torchmap.straw2_draw_kernel(card, 0, x, r, None, card.sz + 1, True)
+    with pytest.raises(ValueError):
+        torchmap.straw2_draw_kernel(card, 0, x.to(torch.int64), r, None, 4, True)
+    with pytest.raises(ValueError):
+        torchmap.straw2_draw_kernel(card, 0, x.cpu(), r, None, 4, True)
+    assert torchmap.draw_launches == before
+
+
+@pytest.mark.parametrize("rule,rmax", [(0, 3), (1, 6)])
+def test_crush_raw_output_of_the_benchmark_map_equals_cpu(cuda, rule, rmax):
+    """Rules 0 (the fast firstn path) and 1 (the generic indep chooser)
+    of the benchmark's 10,000-OSD map, one host's OSDs out, over 2^16
+    PGs: the raw output on the card equals the CPU's."""
+    from ceph_tpu_torch.crush import torchmap
+
+    m = _bench_map()
+    w = np.full(m.max_devices, 0x10000, dtype=np.int64)
+    w[4 * 1234 : 4 * 1235] = 0
+    card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
+    xs = np.arange(1 << 16)
+    got = torchmap.batch_do_rule_raw(card, rule, xs, rmax, w)
+    want = torchmap.batch_do_rule_raw(cpu, rule, xs, rmax, w)
+    for g, v in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), v)
 
 
 def _card_cluster():

@@ -242,7 +242,9 @@ def test_osdmaptool_trace_prints_the_spans_and_the_waits(capsys, backend):
             "sync.download"} <= set(rows)
     assert all(float(ms) >= 0 and int(n) == 1 for ms, n in rows.values())
     waits = sum(name.startswith("sync.") for name in rows)
-    assert lines[-1] == f"  host waits {waits}, oracle lanes 0, table compiles 0"
+    assert lines[-1] == (
+        f"  host waits {waits}, oracle lanes 0, table compiles 0, kernel draws 0"
+    )
 
 
 @pytest.mark.parametrize("finished", [True, False])
