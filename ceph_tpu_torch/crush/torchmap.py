@@ -10,9 +10,12 @@ the lanes, and every branch is a ``torch.where``.
 Scope: every bucket algorithm (uniform, list, tree, straw, straw2),
 choose_args weight-sets and id remaps, tunables with
 choose_local_tries == choose_local_fallback_tries == 0, rule programs
-of [SET_*...] TAKE CHOOSE[LEAF] EMIT groups, firstn and indep.  Maps
-outside the reference device kernel's scope raise ``UnsupportedMap``
-(callers use the exact oracle, ``mapper``).
+of [SET_*...] TAKE CHOOSE[LEAF]... EMIT groups, firstn and indep, with
+one choose step or several (lrc's ``choose indep <groups> type
+<locality>; chooseleaf indep <l+1> type <failure domain>``: each
+chained step runs over the previous step's output, ``_chained_step``).
+Maps outside that scope raise ``UnsupportedMap`` (callers use the exact
+oracle, ``mapper``).
 
 Exactness: the rjenkins hash runs on int32 words (wrapping subtract and
 shift-left, masked logical shift-right), ``crush_ln`` gathers the three
@@ -37,13 +40,16 @@ kernel:
   (``apply_oracle_fallback``).
 * GENERIC (everything else): one bucket draw per lane per loop step;
   descent levels, retries and the chooseleaf recursion are registers.
-  Finished lanes are dropped from the batch as the loop goes.
+  On the card a batch of GRAPH_LANES lanes or more replays a CUDA graph
+  of SYNC_EVERY loop steps recorded once (``_Block``) over every lane;
+  elsewhere finished lanes are dropped from the batch as the loop goes.
 """
 
 from __future__ import annotations
 
 import collections
 import math
+import threading
 import time
 from dataclasses import dataclass
 
@@ -80,6 +86,9 @@ MAX_DEPTH = 16  # CRUSH_MAX_DEPTH is 10
 S64_MIN = -(1 << 63)
 CHUNK = 1 << 19  # lanes a call of batch_do_rule maps at once
 SYNC_EVERY = 8  # generic chooser steps between reads of the done mask
+# generic chooser batches at least this wide replay a recorded block of
+# SYNC_EVERY steps on the card (``_Block``) instead of launching each op
+GRAPH_LANES = 1 << 16
 
 # Lanes re-mapped by apply_oracle_fallback since import (the speculation
 # overflow of the fast firstn path); callers zero it and read it.
@@ -91,6 +100,10 @@ host_waits = 0
 # import; ``OSDMapMapping`` adds each update's delta to
 # ``crush_kernel_draws``.
 draw_launches = 0
+# Sub-lanes run by chained choose steps (one a lane and item of the
+# working vector) since import; ``OSDMapMapping`` adds each update's
+# delta to ``crush_chained_lanes``.
+chained_lanes = 0
 
 
 class UnsupportedMap(ValueError):
@@ -548,12 +561,15 @@ def compile_map(cmap, device=None) -> CompiledMap:
 
 
 def _compile_rule(rule):
-    """Rule -> tuple of (op, arg1, arg2) groups: [set-overrides..., take,
-    choose, emit] repeated; raises UnsupportedMap on other shapes."""
+    """Rule -> tuple of groups (take, steps), one a TAKE ... EMIT run:
+    ``steps`` the group's choose steps in order, each (op, arg1, arg2,
+    overrides) with the tries/vary_r/stable overrides in force where the
+    step stands, as crush_do_rule reads them while it walks the rule;
+    raises UnsupportedMap on other shapes."""
     groups = []
     overrides = {}
     take = None
-    choose = None
+    steps = []
     for step in rule.steps:
         if step.op in (
             CRUSH_RULE_SET_CHOOSE_TRIES,
@@ -581,6 +597,8 @@ def _compile_rule(rule):
             elif step.arg1 >= 0:
                 overrides[step.op] = step.arg1
         elif step.op == CRUSH_RULE_TAKE:
+            if steps:
+                raise UnsupportedMap("rule shape: take after choose")
             take = step.arg1
         elif step.op in (
             CRUSH_RULE_CHOOSE_FIRSTN,
@@ -588,19 +606,19 @@ def _compile_rule(rule):
             CRUSH_RULE_CHOOSE_INDEP,
             CRUSH_RULE_CHOOSELEAF_INDEP,
         ):
-            if take is None or choose is not None:
+            if take is None:
                 raise UnsupportedMap("rule shape: choose without take")
-            choose = (step.op, step.arg1, step.arg2)
-        elif step.op == CRUSH_RULE_EMIT:
-            if take is None or choose is None:
-                raise UnsupportedMap("rule shape: emit without choose")
-            groups.append(
-                (take, choose, tuple(sorted(overrides.items())))
+            steps.append(
+                (step.op, step.arg1, step.arg2, tuple(sorted(overrides.items())))
             )
-            take = choose = None
+        elif step.op == CRUSH_RULE_EMIT:
+            if take is None or not steps:
+                raise UnsupportedMap("rule shape: emit without choose")
+            groups.append((take, tuple(steps)))
+            take, steps = None, []
         else:
             raise UnsupportedMap(f"rule op {step.op}")
-    if take is not None or choose is not None:
+    if take is not None or steps:
         raise UnsupportedMap("rule does not end with EMIT")
     return tuple(groups)
 
@@ -676,24 +694,57 @@ def _plan_groups(
     cm: CompiledMap, ruleno: int, result_max: int, spec_boost: int = 0
 ):
     """Host-side pre-pass over a rule's groups: resolve TAKE rows,
-    tries/tunables, and decide per group whether the speculative fast
-    path applies (firstn, acyclic bounded-depth descent, at most one
-    choose_args position)."""
+    tries/tunables, and decide per single-step group whether the
+    speculative fast path applies (firstn, acyclic bounded-depth
+    descent, at most one choose_args position).  Returns one plan a
+    choose step, in rule order; a group's first step carries its
+    ``take_row``, a chained step ``take_row`` None (its start rows are
+    the previous step's output).  A group with a step of numrep <= 0
+    places nothing (mapper.c's ``continue`` empties the working vector)
+    and is left out."""
     groups = cm.rules[ruleno]
     if groups is None:
         raise UnsupportedMap(f"no rule {ruleno}")
     total_tries, descend_once, vary_r_t, stable_t = cm.tunables
     plans = []
-    for take, (op, arg1, arg2), overrides in groups:
-        ov = dict(overrides)
-        tries = ov.get(CRUSH_RULE_SET_CHOOSE_TRIES, total_tries)
-        leaf_override = ov.get(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 0)
-        vary_r = ov.get(CRUSH_RULE_SET_CHOOSELEAF_VARY_R, vary_r_t)
-        stable = ov.get(CRUSH_RULE_SET_CHOOSELEAF_STABLE, stable_t)
-        numrep = arg1 if arg1 > 0 else result_max + arg1
-        if numrep <= 0:
+    for take, steps in groups:
+        group = []
+        for op, arg1, arg2, overrides in steps:
+            ov = dict(overrides)
+            tries = ov.get(CRUSH_RULE_SET_CHOOSE_TRIES, total_tries)
+            leaf_override = ov.get(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 0)
+            numrep = arg1 if arg1 > 0 else result_max + arg1
+            firstn = op in (
+                CRUSH_RULE_CHOOSE_FIRSTN,
+                CRUSH_RULE_CHOOSELEAF_FIRSTN,
+            )
+            if firstn:
+                if leaf_override:
+                    leaf_tries = leaf_override
+                elif descend_once:
+                    leaf_tries = 1
+                else:
+                    leaf_tries = tries
+            else:
+                leaf_tries = leaf_override if leaf_override else 1
+            group.append({
+                "take_row": None,
+                "ttype": arg2,
+                "numrep": numrep,
+                "nslots": min(numrep, result_max),
+                "tries": tries,
+                "leaf_tries": leaf_tries,
+                "vary_r": ov.get(CRUSH_RULE_SET_CHOOSELEAF_VARY_R, vary_r_t),
+                "stable": ov.get(CRUSH_RULE_SET_CHOOSELEAF_STABLE, stable_t),
+                "firstn": firstn,
+                "leaf": op in (
+                    CRUSH_RULE_CHOOSELEAF_FIRSTN,
+                    CRUSH_RULE_CHOOSELEAF_INDEP,
+                ),
+                "fast": None,
+            })
+        if any(plan["numrep"] <= 0 for plan in group):
             continue
-        nslots = min(numrep, result_max)
         if take >= 0:
             raise UnsupportedMap("TAKE of a device (not a bucket)")
         if -1 - take >= len(cm.host_bidx):
@@ -701,91 +752,69 @@ def _plan_groups(
         take_row = cm.host_bidx[-1 - take]
         if take_row < 0:
             raise UnsupportedMap(f"TAKE of unknown bucket {take}")
-        firstn = op in (
-            CRUSH_RULE_CHOOSE_FIRSTN,
-            CRUSH_RULE_CHOOSELEAF_FIRSTN,
-        )
-        leaf = op in (
-            CRUSH_RULE_CHOOSELEAF_FIRSTN,
-            CRUSH_RULE_CHOOSELEAF_INDEP,
-        )
-        if firstn:
-            if leaf_override:
-                leaf_tries = leaf_override
-            elif descend_once:
-                leaf_tries = 1
-            else:
-                leaf_tries = tries
-        else:
-            leaf_tries = leaf_override if leaf_override else 1
-        plan = {
-            "take_row": take_row,
-            "ttype": arg2,
-            "numrep": numrep,
-            "nslots": nslots,
-            "tries": tries,
-            "leaf_tries": leaf_tries,
-            "vary_r": vary_r,
-            "stable": stable,
-            "firstn": firstn,
-            "leaf": leaf,
-            "fast": None,
-        }
-        plans.append(plan)
-        # -- fast-path qualification ----------------------------------
-        if not firstn or cm.arg_positions > 1:
-            continue  # multi-position choose_args keeps the generic path
-        if leaf and arg2 == 0:
-            continue  # chooseleaf targeting devices: degenerate shape
-        outer_steps, domains = _descent_steps(cm, [take_row], arg2)
-        if outer_steps is None or len(outer_steps) > MAX_DEPTH - 1:
-            continue
-        # Adaptive speculation width: the retry probability per
-        # replica is roughly numrep / (number of distinct targets), so
-        # wide maps (many hosts) need only a couple of speculated
-        # retries while narrow test maps need the full window.  Sized
-        # so the expected oracle-fallback count stays ~10 lanes per
-        # million mapped PGs.
-        if arg2 == 0:
-            ntargets = max(cm.max_devices, 1)
-        else:
-            ntargets = max(len(domains), 1)
-        p_retry = min(numrep / ntargets, 0.9)
-        if spec_boost:
-            # a non-trivial reweight vector: is_out() rejects add retry
-            # pressure the topology-derived estimate cannot see, so
-            # take the full speculation window
-            spec = _SPEC_TRIES
-        else:
-            spec = max(
-                2,
-                min(
-                    _SPEC_TRIES,
-                    math.ceil(
-                        math.log(1e-5 / max(numrep, 1))
-                        / math.log(max(p_retry, 1e-9))
-                    )
-                    - 1,
-                ),
-            )
-        r0 = min(numrep + spec, numrep + tries - 1)
-        fast = {
-            "R0": r0,
-            "outer_steps": outer_steps,
-        }
-        draws = r0 * len(outer_steps)
-        if leaf:
-            leaf_steps, _ = _descent_steps(cm, sorted(domains), 0)
-            if leaf_steps is None or len(leaf_steps) > MAX_DEPTH - 1:
-                continue
-            l0 = min(leaf_tries, _LEAF_SPEC)
-            pd = 1 if stable else nslots
-            fast.update({"leaf_steps": leaf_steps, "L0": l0, "Pd": pd})
-            draws += r0 * pd * l0 * len(leaf_steps)
-        if draws > _SPEC_BUDGET:
-            continue
-        plan["fast"] = fast
+        group[0]["take_row"] = take_row
+        if len(group) == 1:
+            group[0]["fast"] = _fast_plan(cm, group[0], spec_boost)
+        plans.extend(group)
     return plans
+
+
+def _fast_plan(cm: CompiledMap, plan: dict, spec_boost: int):
+    """The fast firstn path's speculation plan for a single-step group,
+    or None where the group keeps the generic chooser."""
+    ttype, numrep, leaf = plan["ttype"], plan["numrep"], plan["leaf"]
+    if not plan["firstn"] or cm.arg_positions > 1:
+        return None  # multi-position choose_args keeps the generic path
+    if leaf and ttype == 0:
+        return None  # chooseleaf targeting devices: degenerate shape
+    outer_steps, domains = _descent_steps(cm, [plan["take_row"]], ttype)
+    if outer_steps is None or len(outer_steps) > MAX_DEPTH - 1:
+        return None
+    # Adaptive speculation width: the retry probability per
+    # replica is roughly numrep / (number of distinct targets), so
+    # wide maps (many hosts) need only a couple of speculated
+    # retries while narrow test maps need the full window.  Sized
+    # so the expected oracle-fallback count stays ~10 lanes per
+    # million mapped PGs.
+    if ttype == 0:
+        ntargets = max(cm.max_devices, 1)
+    else:
+        ntargets = max(len(domains), 1)
+    p_retry = min(numrep / ntargets, 0.9)
+    if spec_boost:
+        # a non-trivial reweight vector: is_out() rejects add retry
+        # pressure the topology-derived estimate cannot see, so
+        # take the full speculation window
+        spec = _SPEC_TRIES
+    else:
+        spec = max(
+            2,
+            min(
+                _SPEC_TRIES,
+                math.ceil(
+                    math.log(1e-5 / max(numrep, 1))
+                    / math.log(max(p_retry, 1e-9))
+                )
+                - 1,
+            ),
+        )
+    r0 = min(numrep + spec, numrep + plan["tries"] - 1)
+    fast = {
+        "R0": r0,
+        "outer_steps": outer_steps,
+    }
+    draws = r0 * len(outer_steps)
+    if leaf:
+        leaf_steps, _ = _descent_steps(cm, sorted(domains), 0)
+        if leaf_steps is None or len(leaf_steps) > MAX_DEPTH - 1:
+            return None
+        l0 = min(plan["leaf_tries"], _LEAF_SPEC)
+        pd = 1 if plan["stable"] else plan["nslots"]
+        fast.update({"leaf_steps": leaf_steps, "L0": l0, "Pd": pd})
+        draws += r0 * pd * l0 * len(leaf_steps)
+    if draws > _SPEC_BUDGET:
+        return None
+    return fast
 
 
 def _spec_boost_for(weights) -> int:
@@ -1000,7 +1029,8 @@ class _Lanes:
         slots = torch.arange(usz, device=dev)
         perm = slots.expand(*lead[:-1], usz)
         for p in range(usz):
-            h = _u32(hash3(x32, bid32, torch.tensor(p, dtype=torch.int32, device=dev)))
+            # made on the device: a recorded block may hold no upload
+            h = _u32(hash3(x32, bid32, torch.full((), p, dtype=torch.int32, device=dev)))
             with record_function("crush.draw"):
                 active = (pr >= p) & (size - 1 > p)
                 j = (p + h % (size1 - p).clamp_min(1)).clamp(max=usz - 1)
@@ -1219,11 +1249,17 @@ class _Lanes:
 
     # -- generic choosers (one draw per lane per step) -----------------
 
-    def _loop(self, step, state, outs, x32, bound):
-        """Run ``step(state, x32) -> state`` until every lane is done,
-        reading ``done`` every SYNC_EVERY steps and dropping the
-        finished lanes once they are half the batch.  Returns the
-        ``outs`` fields of the final state over all lanes."""
+    def _loop(self, step, init, start, slots, outs, x32, bound, key):
+        """Run ``step(state, x32) -> state`` from ``init(start, slots)``
+        until every lane is done, reading ``done`` every SYNC_EVERY
+        steps.  A batch ``_replays`` takes runs every lane through
+        replays of a block of SYNC_EVERY steps recorded once for ``key``
+        (``_Block``); another drops the finished lanes once they are
+        half the batch (a finished lane's outputs no longer change).
+        Returns the ``outs`` fields of the final state over all lanes."""
+        if _replays(self.cm, x32.shape[0]):
+            return self._replayed(step, init, start, slots, outs, x32, bound, key)
+        state = init(start, slots)
         final = {k: state[k].clone() for k in outs}
         lanes = None  # global index of each live lane; None = all
         taken = 0
@@ -1259,17 +1295,46 @@ class _Lanes:
                 final[k][lanes] = state[k]
         return final
 
-    def choose_firstn(self, plan, x32):
+    def _replayed(self, step, init, start, slots, outs, x32, bound, key):
+        """``_loop`` over every lane by replays of the block recorded for
+        ``key`` and this batch's shapes, recorded on a first call.  The
+        outputs are the block's own tensors, valid until its next load."""
+        key = (key, x32.shape[0], self.nw, str(self.cm.device))
+        blocks = _block_cache()
+        block = blocks.get(key)
+        if block is None or block.cm is not self.cm:
+            block = blocks[key] = _Block(self, step, init, start, slots, x32)
+            while len(blocks) > _BLOCKS_MAX:
+                blocks.popitem(last=False)
+        else:
+            blocks.move_to_end(key)
+        block.load(start, slots, x32, self.wv)
+        taken = 0
+        while True:
+            block.replay()
+            taken += SYNC_EVERY
+            with host_wait("chooser_live"):
+                nlive = int((~block.ins["done"]).sum())
+            if nlive == 0:
+                break
+            if taken >= bound:
+                raise RuntimeError(
+                    f"CRUSH chooser did not finish in {bound} steps"
+                )
+        return {k: block.ins[k] for k in outs}
+
+    def choose_firstn(self, plan, x32, start=None, slots=None):
         """crush_choose_firstn (mapper.c:460-648) as a state machine.
 
         rep/outpos/ftotal track the C loop variables; ``leaf`` switches
         between the outer descent (toward ttype) and the chooseleaf
         descent (toward a device under ``domain``); every reject path
         advances r' exactly as the C does.  ``numrep`` bounds the reps,
-        ``nslots`` the placements."""
+        ``nslots`` the placements.  ``start`` (N,), the bucket row each
+        lane descends from, and ``slots`` (N,), each lane's out_size (at
+        most ``nslots``), default to the plan's take_row and nslots."""
         cm = self.cm
         dev = cm.device
-        take_row = plan["take_row"]
         ttype = plan["ttype"]
         numrep, nslots = plan["numrep"], plan["nslots"]
         tries, leaf_tries = plan["tries"], plan["leaf_tries"]
@@ -1336,7 +1401,7 @@ class _Lanes:
                 outpos = outpos + place
                 domain = torch.where(enter_leaf, item, st["domain"])
                 return {
-                    "done": st["done"] | (rep >= numrep) | (outpos >= nslots),
+                    "done": st["done"] | (rep >= numrep) | (outpos >= st["slots"]),
                     "rep": rep,
                     "outpos": outpos,
                     "ftotal": torch.where(
@@ -1349,30 +1414,43 @@ class _Lanes:
                     "row": torch.where(
                         o_desc | l_desc | enter_leaf,
                         nrow,
-                        torch.where(l_retry, self.row_of(domain), take_row),
+                        torch.where(l_retry, self.row_of(domain), st["start"]),
                     ),
+                    "start": st["start"],
+                    "slots": st["slots"],
                     "domain": domain,
                     "depth": torch.where(o_desc | l_desc, st["depth"] + 1, 0),
                     "out": out,
                     "out2": out2,
                 }
 
-        zero = torch.zeros(n, dtype=torch.int64, device=dev)
-        state = {
-            "done": torch.full((n,), numrep <= 0 or R == 0, device=dev),
-            "rep": zero, "outpos": zero, "ftotal": zero, "lftotal": zero,
-            "leaf": torch.zeros(n, dtype=torch.bool, device=dev),
-            "row": torch.full((n,), take_row, device=dev),
-            "domain": zero, "depth": zero,
-            "out": torch.full((n, R), CRUSH_ITEM_NONE, device=dev),
-            "out2": torch.full((n, R), CRUSH_ITEM_NONE, device=dev),
-        }
-        bound = numrep * tries * MAX_DEPTH * (1 + leaf_tries) + 8
-        final = self._loop(step, state, ("outpos", "out", "out2"), x32, bound)
-        ok = torch.ones(n, dtype=torch.bool, device=dev)
-        return (final["out2"] if leaf else final["out"]), final["outpos"], ok
+        def init(start, slots):
+            zero = torch.zeros(n, dtype=torch.int64, device=dev)
+            return {
+                "done": (slots <= 0) | (numrep <= 0 or R == 0),
+                "rep": zero, "outpos": zero, "ftotal": zero, "lftotal": zero,
+                "leaf": torch.zeros(n, dtype=torch.bool, device=dev),
+                "row": start, "start": start, "slots": slots,
+                "domain": zero, "depth": zero,
+                "out": torch.full((n, R), CRUSH_ITEM_NONE, device=dev),
+                "out2": torch.full((n, R), CRUSH_ITEM_NONE, device=dev),
+            }
 
-    def choose_indep(self, plan, x32):
+        if start is None:
+            start = torch.full((n,), plan["take_row"], device=dev)
+        if slots is None:
+            slots = torch.full((n,), nslots, device=dev)
+        bound = numrep * tries * MAX_DEPTH * (1 + leaf_tries) + 8
+        final = self._loop(
+            step, init, start, slots, ("outpos", "out", "out2"), x32, bound,
+            ("firstn", _plan_key(plan)),
+        )
+        ok = torch.ones(n, dtype=torch.bool, device=dev)
+        # copies: a replayed block's outputs change at its next load
+        got = (final["out2"] if leaf else final["out"]).clone()
+        return got, final["outpos"].clone(), ok
+
+    def choose_indep(self, plan, x32, start=None, slots=None):
         """crush_choose_indep (mapper.c:655-843) as a state machine.
 
         ``slot`` scans the UNDEF positions of each round; finishing a
@@ -1380,10 +1458,12 @@ class _Lanes:
         advances the round (ftotal).  r' = slot + numrep*ftotal at the
         outer level and slot + r_outer + numrep*lftotal inside
         chooseleaf, the C's advancement (numrep, unclamped, is the
-        stride)."""
+        stride).  ``start`` (N,), the bucket row each lane descends
+        from, and ``slots`` (N,), each lane's ``left`` (at most
+        ``nslots``; the positions past it stay NONE), default to the
+        plan's take_row and nslots."""
         cm = self.cm
         dev = cm.device
-        take_row = plan["take_row"]
         ttype = plan["ttype"]
         numrep, nslots = plan["numrep"], plan["nslots"]
         tries, leaf_tries = plan["tries"], plan["leaf_tries"]
@@ -1486,9 +1566,10 @@ class _Lanes:
                         o_desc | l_desc | enter_leaf,
                         nrow,
                         torch.where(
-                            l_retry & ~finished, self.row_of(domain), take_row
+                            l_retry & ~finished, self.row_of(domain), st["start"]
                         ),
                     ),
+                    "start": st["start"],
                     "domain": domain,
                     "lftotal": torch.where(
                         enter_leaf, 0, torch.where(l_retry, lftotal + 1, lftotal)
@@ -1499,29 +1580,199 @@ class _Lanes:
                     "out2": out2,
                 }
 
-        zero = torch.zeros(n, dtype=torch.int64, device=dev)
-        state = {
-            "done": torch.full((n,), R == 0 or tries <= 0, device=dev),
-            "slot": zero, "left": torch.full((n,), R, device=dev),
-            "ftotal": zero,
-            "leaf": torch.zeros(n, dtype=torch.bool, device=dev),
-            "row": torch.full((n,), take_row, device=dev),
-            "domain": zero, "lftotal": zero, "depth": zero, "parent_r": zero,
-            "out": torch.full((n, R), CRUSH_ITEM_UNDEF, device=dev),
-            "out2": torch.full((n, R), CRUSH_ITEM_UNDEF, device=dev),
-        }
+        def init(start, slots):
+            zero = torch.zeros(n, dtype=torch.int64, device=dev)
+            blank = torch.where(colsR < slots[:, None], CRUSH_ITEM_UNDEF, CRUSH_ITEM_NONE)
+            return {
+                "done": (slots <= 0) | (R == 0 or tries <= 0),
+                "slot": zero, "left": slots,
+                "ftotal": zero,
+                "leaf": torch.zeros(n, dtype=torch.bool, device=dev),
+                "row": start, "start": start,
+                "domain": zero, "lftotal": zero, "depth": zero, "parent_r": zero,
+                "out": blank,
+                "out2": blank,
+            }
+
+        if start is None:
+            start = torch.full((n,), plan["take_row"], device=dev)
+        if slots is None:
+            slots = torch.full((n,), R, device=dev)
         bound = tries * R * MAX_DEPTH * (1 + leaf_tries) + 8
-        final = self._loop(step, state, ("out", "out2"), x32, bound)
+        final = self._loop(
+            step, init, start, slots, ("out", "out2"), x32, bound,
+            ("indep", _plan_key(plan)),
+        )
         got = final["out2"] if leaf else final["out"]
+        # a new tensor: a replayed block's outputs change at its next load
         got = torch.where(got == CRUSH_ITEM_UNDEF, CRUSH_ITEM_NONE, got)
-        count = torch.full((n,), R, dtype=torch.int64, device=dev)
-        return got, count, torch.ones(n, dtype=torch.bool, device=dev)
+        return got, slots, torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def _plan_key(plan: dict) -> tuple:
+    """What a generic chooser's step depends on in its plan: everything
+    but the start row (a state tensor) and the fast path's tables."""
+    return tuple(
+        (k, v) for k, v in sorted(plan.items()) if k not in ("take_row", "fast")
+    )
+
+
+def _replays(cm: CompiledMap, lanes: int) -> bool:
+    """Whether a generic chooser over ``lanes`` lanes replays a recorded
+    block: on the card, where a batch this wide makes each of the ~200
+    launches of a step worth saving."""
+    return cm.device.type == "cuda" and lanes >= GRAPH_LANES
+
+
+class _Block:
+    """SYNC_EVERY steps of a generic chooser, from static input tensors
+    to static outputs, recorded once as a CUDA graph on the card (one
+    launch a replay for the ~200 of each step; the steps themselves on
+    another device), and the chooser's starting state built from its
+    start rows and slots, recorded as a second graph.  The recordings
+    read the map's tables, the input tensors and the recording lanes'
+    weight vector in place, so a call first loads its start rows,
+    slots, lanes and weights into them and replays the start; each
+    replay leaves the state it reached in the state tensors for the
+    next.  Every lane steps in every replay: a finished lane's outputs
+    do not change."""
+
+    def __init__(self, lanes: _Lanes, step, init, start, slots, x32):
+        global draw_launches
+        self.cm, self.step, self.init, self.wv = lanes.cm, step, init, lanes.wv
+        self.start, self.slots, self.x32 = start.clone(), slots.clone(), x32.clone()
+        self.ins = {k: v.clone() for k, v in init(self.start, self.slots).items()}
+        self.graph = self.first = None
+        if self.cm.device.type != "cuda":
+            return
+        # one pass outside the recordings loads every kernel they launch
+        self._init()
+        self._steps()
+        self.first = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.first, capture_error_mode="thread_local"):
+            self._init()
+        before = draw_launches
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self._steps()
+        self.draws = draw_launches - before
+        draw_launches = before  # recorded, not run
+
+    def _init(self) -> None:
+        """The starting state from the start rows and slots, written into
+        the state tensors."""
+        for k, v in self.init(self.start, self.slots).items():
+            self.ins[k].copy_(v)
+
+    def _steps(self) -> None:
+        """SYNC_EVERY steps from the input tensors, the state reached
+        written back into them."""
+        st = self.ins
+        for _ in range(SYNC_EVERY):
+            st = self.step(st, self.x32)
+        for k, v in st.items():
+            if v is not self.ins[k]:
+                self.ins[k].copy_(v)
+
+    def load(self, start, slots, x32, wv) -> None:
+        self.start.copy_(start)
+        self.slots.copy_(slots)
+        self.x32.copy_(x32)
+        self.wv.copy_(wv)
+        if self.first is None:
+            self._init()
+        else:
+            self.first.replay()
+
+    def replay(self) -> None:
+        global draw_launches
+        if self.graph is None:
+            self._steps()
+            return
+        self.graph.replay()
+        draw_launches += self.draws
+
+
+# Each thread's recorded blocks by (chooser, plan, lanes, weights,
+# device), the newest last: a replay loads its inputs into the block's
+# own tensors, so two threads never share one.
+_BLOCKS = threading.local()
+_BLOCKS_MAX = 16
+
+
+def _block_cache() -> collections.OrderedDict:
+    cache = getattr(_BLOCKS, "cache", None)
+    if cache is None:
+        cache = _BLOCKS.cache = collections.OrderedDict()
+    return cache
+
+
+def step_span(step: int, plan: dict, lanes: int, chained: bool):
+    """The ``crush_step`` span of the ambient tracer around one choose
+    step of a rule (``NULL_SPAN`` without one)."""
+    return tracing.span("crush_step", tags={
+        "step": step,
+        "op": "chooseleaf" if plan["leaf"] else "choose",
+        "mode": "firstn" if plan["firstn"] else "indep",
+        "numrep": plan["numrep"],
+        "type": plan["ttype"],
+        "lanes": lanes,
+        "chained": chained,
+    })
+
+
+def _chained_step(lanes: _Lanes, plan, x32, w, result_max: int):
+    """A chained choose step over the working vector ``w`` (N, W), NONE
+    past each lane's count: for each lane and each of its items,
+    crush_do_rule's call of the chooser on that item's bucket
+    (mapper.c:1040-1090), as one sub-lane with the lane's x, outpos 0
+    and parent_r 0.  An item that is not a bucket (NONE, a device) is
+    skipped and adds no slots.  An indep sub-lane gets min(numrep,
+    result_max - osize) slots, osize counting the slots of the lane's
+    earlier items; a firstn sub-lane runs to ``nslots`` and keeps what
+    fits, the same first placements.  The results are packed per lane
+    in item order: (w' (N, W'), count (N,))."""
+    global chained_lanes
+    dev = lanes.cm.device
+    n, width = w.shape
+    nslots = plan["nslots"]
+    rows = lanes.row_of(w)
+    live = rows >= 0
+    if plan["firstn"]:
+        slots = torch.where(live, nslots, 0)
+    else:
+        # the lane's earlier live items took nslots each, up to
+        # result_max: osize = min(result_max, nslots * those items)
+        before = live.cumsum(1) - live.to(torch.int64)
+        slots = torch.where(live, (result_max - nslots * before).clamp(0, nslots), 0)
+    chained_lanes += n * width
+    chooser = lanes.choose_firstn if plan["firstn"] else lanes.choose_indep
+    got, cnt, _ok = chooser(
+        plan, x32.repeat_interleave(width),
+        start=rows.reshape(-1).clamp_min(0), slots=slots.reshape(-1),
+    )
+    with record_function("crush.pack"):
+        cnt = cnt.view(n, width)
+        out_w = min(width * nslots, result_max)
+        # item i keeps what fits after the earlier items' counts, each
+        # sum clamped to result_max; its slots go to that sum + j, the
+        # rest to a spare column
+        total = cnt.cumsum(1)
+        begins = (total - cnt).clamp_max(result_max)
+        take = total.clamp_max(result_max) - begins
+        cols = torch.arange(nslots, device=dev)
+        dest = torch.where(cols < take[..., None], begins[..., None] + cols, out_w)
+        out = torch.full((n, out_w + 1), CRUSH_ITEM_NONE, device=dev)
+        out.scatter_(1, dest.view(n, -1), got.view(n, -1))
+    return out[:, :out_w], take.sum(1)
 
 
 def _run_rule(cm: CompiledMap, plans, xs, wv, result_max: int):
     """The rule program over emit groups for lanes ``xs`` (N,) on the
     map's device: (result (N, result_max) int32 padded with
-    CRUSH_ITEM_NONE, count (N,) int32, ok (N,) bool)."""
+    CRUSH_ITEM_NONE, count (N,) int32, ok (N,) bool).  A group's steps
+    run in turn, each chained step over the previous one's output, and
+    the last one's output is emitted."""
     lanes = _Lanes(cm, wv)
     x32 = _i32(xs)
     n = xs.shape[0]
@@ -1530,17 +1781,33 @@ def _run_rule(cm: CompiledMap, plans, xs, wv, result_max: int):
     result = torch.full((n, result_max), CRUSH_ITEM_NONE, device=dev)
     rlen = torch.zeros(n, dtype=torch.int64, device=dev)
     ok = torch.ones(n, dtype=torch.bool, device=dev)
-    for plan in plans:
-        if plan["fast"] is not None:
-            got, cnt, okg = lanes.fast_firstn(plan, x32)
-        elif plan["firstn"]:
-            got, cnt, okg = lanes.choose_firstn(plan, x32)
-        else:
-            got, cnt, okg = lanes.choose_indep(plan, x32)
+    emitted = False
+    for k, plan in enumerate(plans):
+        chained = plan["take_row"] is None
+        with step_span(k, plan, n * got.shape[1] if chained else n, chained):
+            if chained:
+                got, cnt = _chained_step(lanes, plan, x32, got, result_max)
+            elif plan["fast"] is not None:
+                got, cnt, okg = lanes.fast_firstn(plan, x32)
+            elif plan["firstn"]:
+                got, cnt, okg = lanes.choose_firstn(plan, x32)
+            else:
+                got, cnt, okg = lanes.choose_indep(plan, x32)
+        if k + 1 < len(plans) and plans[k + 1]["take_row"] is None:
+            continue  # the group goes on
+        if chained and not emitted:
+            # a chained step's output is packed, NONE past each count:
+            # the rule's first emit copies it whole
+            with record_function("crush.emit"):
+                result[:, : got.shape[1]] = got
+                rlen = cnt
+            emitted = True
+            continue
+        emitted = True
         with record_function("crush.emit"):
             ok = ok & okg
             # append got[:cnt] to result at rlen
-            for i in range(plan["nslots"]):
+            for i in range(got.shape[1]):
                 slot = rlen + i
                 valid = (i < cnt) & (slot < result_max)
                 result = torch.where(
@@ -1568,6 +1835,8 @@ def batch_do_rule_raw(
     tensors: (results (N, result_max) int32, counts (N,) int32, ok (N,)
     bool).  Lanes with ok == False outran the fast path's speculation
     window; ``apply_oracle_fallback`` finishes them."""
+    if weights is not None:  # one conversion of a list for both readers
+        weights = np.asarray(weights, dtype=np.int64)
     plans = _plans(cm, ruleno, result_max, _spec_boost_for(weights))
     xs = torch.as_tensor(xs, device=cm.device).to(torch.int64)
     with host_wait("weights_upload"):

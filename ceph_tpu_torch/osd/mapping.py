@@ -9,7 +9,11 @@ nonexistent/down filtering and compaction, the primary and the primary
 affinity draws.  The sparse overrides (pg_upmap, pg_upmap_items,
 pg_temp, primary_temp) touch only their rows: those are read once,
 fixed through ``OSDMap``'s scalar helpers and written back.  The four
-result arrays come back to the host in one download per pool.  Where a
+result arrays come back to the host in one download per pool, into
+page-locked memory where the pool was mapped on the card.  A pool's
+placement seeds are hashed once and kept while its ``pg_num``,
+``pgp_num`` and hashing stand: no epoch's up, in or weight change
+moves them.  Where a
 default device mesh exists (``ops.mesh``: more than one CUDA device)
 and the mapping's device belongs to it, the CRUSH stage shards its PG
 batch across it (``osd/sharded_mapping.py``), as the JAX package's
@@ -24,6 +28,10 @@ dispatch recorder's ``dev_compute``/``dev_sync`` under it, and
 where the host waits for the device, the results' download
 (``sync.download``) among them, is a ``sync.<site>`` span
 (``torchmap.host_wait``) and counts in ``host_syncs``, traced or not.
+Inside the stage each choose step of the rule is a ``crush_step`` span
+(``torchmap.step_span``); ``crush_chained_lanes`` counts the sub-lanes
+of chained steps and ``crush_host_route_pgs`` the PGs the oracle mapped
+because the batched mapper refused the map, traced or not.
 """
 
 from __future__ import annotations
@@ -77,6 +85,19 @@ def _first(mask: torch.Tensor) -> torch.Tensor:
     return mask.to(torch.uint8).argmax(1)
 
 
+def _download(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array.  From the card it lands in page-locked
+    memory: one DMA, where a pageable copy is staged through a driver
+    buffer by the CPU (slower, and as slow as the host is busy).
+    PyTorch's host allocator takes the block back once the arrays that
+    view it are gone."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out.numpy()
+
+
 def _build_perf():
     from ..common import PerfCountersBuilder
 
@@ -94,6 +115,14 @@ def _build_perf():
         .add_u64_counter("host_syncs", "points where the host waited for the device")
         .add_u64_counter(
             "crush_kernel_draws", "launches of the straw2 draw kernel (CUDA maps)"
+        )
+        .add_u64_counter(
+            "crush_chained_lanes",
+            "sub-lanes of chained choose steps (a PG and an item of its working vector)",
+        )
+        .add_u64_counter(
+            "crush_host_route_pgs",
+            "PGs mapped by the scalar oracle because the batched mapper refused the map",
         )
         .create_perf_counters()
     )
@@ -114,6 +143,8 @@ class OSDMapMapping:
         self.acting_primary: dict[int, np.ndarray] = {}
         self.epoch = 0
         self.perf = _build_perf()
+        # pool id -> (what its seeds depend on, the seeds on the device)
+        self._seeds: dict[int, tuple] = {}
 
     # -- batch pipeline ----------------------------------------------------
     def update(self, osdmap: OSDMap, use_device: bool = True) -> None:
@@ -122,16 +153,18 @@ class OSDMapMapping:
         self.epoch = osdmap.epoch
         self.perf.inc("updates")
         lanes, waits = torchmap.fallback_lanes, torchmap.host_waits
-        draws = torchmap.draw_launches
+        draws, chained = torchmap.draw_launches, torchmap.chained_lanes
         pgs = sum(pool.pg_num for pool in osdmap.pools.values())
         tags = {"epoch": osdmap.epoch, "pools": len(osdmap.pools), "pgs": pgs}
         with tracing.span("osdmap_mapping.update", tags=tags):
             for pool in osdmap.pools.values():
                 self._update_pool(osdmap, pool, use_device)
                 self.perf.inc("pgs_mapped", pool.pg_num)
+        self._seeds = {k: v for k, v in self._seeds.items() if k in osdmap.pools}
         self.perf.inc("crush_oracle_lanes", torchmap.fallback_lanes - lanes)
         self.perf.inc("host_syncs", torchmap.host_waits - waits)
         self.perf.inc("crush_kernel_draws", torchmap.draw_launches - draws)
+        self.perf.inc("crush_chained_lanes", torchmap.chained_lanes - chained)
 
     def _update_pool(
         self, osdmap: OSDMap, pool: PgPool, use_device: bool
@@ -140,8 +173,7 @@ class OSDMapMapping:
 
         dev = self.device if use_device else torch.device("cpu")
         n = pool.pg_num
-        ps = torch.arange(n, dtype=torch.int64, device=dev)
-        pps = pool_pps_vec(pool, ps)
+        pps = self._pps(pool, dev)
 
         ks = kernel_stats()
         pgs_counter = ks.counter(
@@ -156,12 +188,23 @@ class OSDMapMapping:
         with self.perf.time_it("fixup_stages"):
             fixed = self._fixup(osdmap, pool, pps, raw)
             with torchmap.host_wait("download"):
-                out = fixed.cpu().numpy()
+                out = _download(fixed)
         size = raw.shape[1]
         self.up[pool.pool_id] = out[:, :size]
         self.up_primary[pool.pool_id] = out[:, size]
         self.acting[pool.pool_id] = out[:, size + 1 : 2 * size + 1]
         self.acting_primary[pool.pool_id] = out[:, 2 * size + 1]
+
+    def _pps(self, pool: PgPool, dev: torch.device) -> torch.Tensor:
+        """The pool's placement seeds on ``dev`` (``pool_pps_vec`` over
+        every PG), hashed again only where what they depend on changed.
+        Nothing writes into them."""
+        key = (pool.pg_num, pool.pgp_num, pool.hashpspool, str(dev))
+        kept = self._seeds.get(pool.pool_id)
+        if kept is None or kept[0] != key:
+            ps = torch.arange(pool.pg_num, dtype=torch.int64, device=dev)
+            kept = self._seeds[pool.pool_id] = (key, pool_pps_vec(pool, ps))
+        return kept[1]
 
     def _fixup(self, osdmap, pool, pps, raw):
         """The stages after CRUSH on raw's device; returns one (n,
@@ -262,7 +305,7 @@ class OSDMapMapping:
                         dp, cm, ruleno, pps, pool.size, osdmap.osd_weight
                     )
             except torchmap.UnsupportedMap:
-                pass
+                self.perf.inc("crush_host_route_pgs", n)
 
         with dispatch_profiler().dispatch("crush", backend="cpu") as dp:
             dp.set_ops(1)
@@ -312,7 +355,9 @@ class OSDMapMapping:
                 )
                 for i in range(0, n, torchmap.CHUNK)
             ]
-            res, counts, ok = (torch.cat(p) for p in zip(*parts))
+            res, counts, ok = (
+                parts[0] if len(parts) == 1 else (torch.cat(p) for p in zip(*parts))
+            )
             res, counts = res.to(torch.int64), counts.to(torch.int64)
         with dp.stage("sync"):
             with torchmap.host_wait("ok_read"):

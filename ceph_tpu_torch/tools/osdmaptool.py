@@ -12,10 +12,10 @@ Backends: ``torch`` (``OSDMapMapping`` on ``--device``) or ``oracle``
 
 ``--trace`` runs the timed update under a tracer and prints where its
 time went: each span of the mapping path (``crush_stage``,
-``oracle_fallback``, each ``sync.<site>`` where the host waited for
-the device, the download among them, ...) with its count and host
-milliseconds, and
-the update's host waits, oracle lanes and table compiles.
+``crush_step``, ``oracle_fallback``, each ``sync.<site>`` where the
+host waited for the device, the download among them, ...) with its
+count and host milliseconds, and the update's host waits, oracle lanes,
+table compiles, kernel draws, chained lanes and host route PGs.
 """
 
 from __future__ import annotations
@@ -58,7 +58,9 @@ def parse_args(argv=None):
 
 
 COUNTERS = (("host_syncs", "host waits"), ("crush_oracle_lanes", "oracle lanes"),
-            ("crush_compiles", "table compiles"), ("crush_kernel_draws", "kernel draws"))
+            ("crush_compiles", "table compiles"), ("crush_kernel_draws", "kernel draws"),
+            ("crush_chained_lanes", "chained lanes"),
+            ("crush_host_route_pgs", "host route pgs"))
 
 
 def format_trace(spans: list, perf0: dict, perf1: dict) -> list:

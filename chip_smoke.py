@@ -86,8 +86,10 @@ script exits non-zero:
    host C crc's time and the dispatch profiler's breakdown, beside the
    card's name and power limit; one ``{"store": ...}`` line;
 7. the OSD map on the card: config 5's cluster (10 000 OSDs) with a
-   replicated pool of 2^20 PGs (size 3, rule 0) and an EC pool of 2^18
-   (size 11, rule 1) through ``OSDMapMapping`` on cuda: a warm update and
+   replicated pool of 2^20 PGs (size 3, rule 0), an EC pool of 2^18
+   (size 11, rule 1) and an lrc pool of 2^17 (k=4 m=2 l=3, rack
+   locality: two chained choose steps, every PG on the card) through
+   ``OSDMapMapping`` on cuda: a warm update and
    three timed ones (PG mappings/s, numpy out; the perf counters' CRUSH
    and fix-up stages; the dispatch profiler's split), then a seeded
    incremental (encoded and decoded: OSDs down, out and reweighted,
@@ -1531,6 +1533,8 @@ def phase_store(smi: str) -> dict:
 
 
 OSDMAP_POOLS = ((1, "replicated", 3, 0, 1 << 20), (2, "erasure", 11, 1, 1 << 18))
+# pool 3: lrc k=4 m=2 l=3 with rack locality (two chained choose steps)
+OSDMAP_LRC = (3, {"k": "4", "m": "2", "l": "3", "crush-locality": "rack"}, 1 << 17)
 OSDMAP_SAMPLE = 2048
 
 
@@ -1663,6 +1667,7 @@ def phase_osdmap(smi: str, pool) -> dict:
     """The OSD map on the card: config 5's cluster, two epochs."""
     from ceph_tpu_torch.crush import torchmap as tm
     from ceph_tpu_torch.crush.types import PG_POOL_TYPE_ERASURE, PG_POOL_TYPE_REPLICATED
+    from ceph_tpu_torch.ec import ErasureCodeProfile, registry_instance
     from ceph_tpu_torch.ops.kernel_stats import kernel_stats
     from ceph_tpu_torch.ops.profiler import breakdown, dispatch_profiler
     from ceph_tpu_torch.osd import OSDMap, OSDMapMapping, PgPool
@@ -1675,6 +1680,10 @@ def phase_osdmap(smi: str, pool) -> dict:
         om.add_pool(PgPool(pool_id=pid, size=size, crush_rule=rule, pg_num=pg_num,
                            type=PG_POOL_TYPE_REPLICATED if kind == "replicated"
                            else PG_POOL_TYPE_ERASURE))
+    lrc_id, lrc_profile, lrc_pgs = OSDMAP_LRC
+    lrc = registry_instance().factory("lrc", ErasureCodeProfile(lrc_profile, device="cpu"))
+    om.add_pool(PgPool(pool_id=lrc_id, size=lrc.get_chunk_count(), crush_rule=lrc.create_rule(
+        "lrc", om.crush), pg_num=lrc_pgs, type=PG_POOL_TYPE_ERASURE))
     pgs = sum(p.pg_num for p in om.pools.values())
     mapping = OSDMapMapping()
     check(mapping.device.type == "cuda", f"OSDMapMapping on {mapping.device}")
@@ -1688,6 +1697,11 @@ def phase_osdmap(smi: str, pool) -> dict:
     split = breakdown(prof0, dispatch_profiler().totals())
     fallback1 = tm.fallback_lanes
     e1 = sorted(times)[1]
+    chained = (perf1["crush_chained_lanes"] - perf0["crush_chained_lanes"]) / 3
+    host_route = perf1["crush_host_route_pgs"] - perf0["crush_host_route_pgs"]
+    check(chained == 2 * lrc_pgs and host_route == 0,
+          f"lrc pool: {chained} chained lanes an update (want {2 * lrc_pgs}), "
+          f"{host_route} PGs on the host route")
 
     def avg(key, before, after):
         n = after[key]["avgcount"] - before[key]["avgcount"]
@@ -1699,8 +1713,9 @@ def phase_osdmap(smi: str, pool) -> dict:
     epoch1 = {"warm_s": warm_s, "update_s": e1, "pg_mappings_per_s": pgs / e1,
               "crush_stage_avg_s": avg("l_tpu_crush_lat", perf0, perf1),
               "fixup_stages_avg_s": avg("fixup_stages", perf0, perf1),
-              "fallback_lanes": fallback1, "dispatch": split}
-    print(f"[7] epoch 1 on {smi}: {pgs} PGs (pool 1 2^20 x 3 rule 0, pool 2 2^18 x 11 rule 1) "
+              "fallback_lanes": fallback1, "chained_lanes": chained, "dispatch": split}
+    print(f"[7] epoch 1 on {smi}: {pgs} PGs (pool 1 2^20 x 3 rule 0, pool 2 2^18 x 11 rule 1, "
+          f"pool 3 2^17 x 8 lrc's two-step rule, {chained:.0f} chained lanes an update) "
           f"in {e1:.4f} s median of 3 = {pgs / e1:.0f} PG mappings/s end to end, numpy out "
           f"(first update {warm_s:.3f} s); a pool's crush_stage {epoch1['crush_stage_avg_s']:.4f}"
           f" s, fixup_stages {epoch1['fixup_stages_avg_s']:.4f} s on average; "
@@ -1749,7 +1764,9 @@ def phase_osdmap(smi: str, pool) -> dict:
     print(f"[7] OSD-map phase took {phase_s:.1f} s")
     return {"card": smi.splitlines()[0], "osds": om.max_osd,
             "pools": [dict(zip(("pool", "type", "size", "rule", "pg_num"), p))
-                      for p in OSDMAP_POOLS],
+                      for p in OSDMAP_POOLS]
+            + [{"pool": lrc_id, "type": "erasure", "size": lrc.get_chunk_count(),
+                "profile": lrc_profile, "pg_num": lrc_pgs}],
             "epoch1": epoch1, "epoch2": epoch2, "checked": {"epoch1": checked1,
                                                             "epoch2": checked2},
             "encoded_bytes": len(blob), "osdmaptool": tool, "balancer": balancer,

@@ -6,7 +6,8 @@ oracle, and the registry path on
 routes with their K2 launch counts; the CRUSH mapper's hash,
 ``crush_ln`` and raw output on ``cuda`` against ``cpu`` (the benchmark's
 10,000-OSD map among the maps), the straw2 draw kernel against the plain
-draw on the CPU bit for bit, with its launch counts; the store plane:
+draw on the CPU bit for bit, with its launch counts, and lrc's two-step
+rule on that map against the oracle; the store plane:
 ``DeviceBuf`` on the card, the crc at 64 MiB against the host C crc,
 resident scrub and compare with no upload, ``ECStore`` on ``cuda``
 against ``cpu``; the durable stores: ``build_scrub_map`` over BlockStore
@@ -531,6 +532,57 @@ def test_crush_legacy_and_choose_args_on_the_card_equal_cpu(cuda, name, rule, rm
     res, counts = torchmap.apply_oracle_fallback(card, rule, xs, *got, rmax, w)
     for i in range(0, len(xs), 131):
         assert res[i, : counts[i]].tolist() == m.do_rule(rule, int(xs[i]), rmax, list(w))
+
+
+@pytest.mark.parametrize("name,rule", [(n, 1) for n in ("straw", "list", "tree", "uniform",
+                                                          "choose_args1", "choose_args2")]
+                         + [("choose_args2", 0)])
+def test_recorded_chooser_blocks_on_the_card_equal_cpu(cuda, name, rule):
+    """A generic chooser over GRAPH_LANES lanes replays its recorded
+    blocks (CUDA graphs) on the card, on every bucket algorithm: the raw
+    output equals the CPU's dropping loop, and a second reweight vector
+    through the same blocks equals the CPU's too."""
+    from ceph_tpu_torch.crush import torchmap
+
+    m = _legacy_card_maps()[name]
+    card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
+    xs = np.arange(torchmap.GRAPH_LANES)
+    for seed in (4, 5):
+        w = _mixed_weights(m.max_devices, seed)
+        got = torchmap.batch_do_rule_raw(card, rule, xs, 6, w)
+        want = torchmap.batch_do_rule_raw(cpu, rule, xs, 6, w)
+        for g, v in zip(got, want):
+            assert torch.equal(g.cpu(), v)
+    assert torchmap._block_cache()
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["full", "mixed"])
+def test_lrc_chained_rule_on_the_card_equals_the_oracle(cuda, mixed):
+    """lrc's rack-local rule (k=4 m=2 l=3: choose indep 2 type rack, then
+    chooseleaf indep 4 type host) on the benchmark's 10,000-OSD map:
+    2^17 PGs in one call on the card, both steps through the straw2
+    kernel in the chooser's recorded blocks (CUDA graphs), against the
+    oracle on 2,048 seeded PGs."""
+    from ceph_tpu_torch.crush import torchmap
+
+    pm = _bench_map()
+    prof = {"k": "4", "m": "2", "l": "3", "crush-locality": "rack"}
+    rule = registry_instance().factory("lrc", ErasureCodeProfile(prof, device="cpu")).create_rule(
+        "lrc", pm
+    )
+    w = _mixed_weights(pm.max_devices, 17) if mixed else None
+    cm = torchmap.compile_map(pm)
+    xs = np.random.default_rng(2**31 + 17).integers(0, 1 << 32, 1 << 17)
+    draws, lanes = torchmap.draw_launches, torchmap.chained_lanes
+    res, counts, ok = (t.cpu().numpy() for t in torchmap.batch_do_rule_raw(cm, rule, xs, 8, w))
+    assert ok.all() and (counts == 8).all()
+    assert torchmap.chained_lanes - lanes == 2 << 17
+    assert torchmap.draw_launches > draws
+    # 2^17 lanes and more replay the chooser's recorded blocks
+    assert torchmap._block_cache()
+    wl = None if w is None else [int(v) for v in w]
+    for i in np.random.default_rng(5).choice(1 << 17, 2048, replace=False):
+        assert res[i].tolist() == pm.do_rule(rule, int(xs[i]), 8, wl), int(xs[i])
 
 
 # -- CRUSH: the straw2 draw kernel against the plain draw on the CPU ------------

@@ -80,11 +80,11 @@ def test_update_yields_the_span_tree():
     assert by_name["osdmap_mapping.update"][0]["tags"] == {
         "epoch": om.epoch, "pools": 1, "pgs": 512}
     assert by_name["crush_stage"][0]["tags"] == {"pool": 1, "pgs": 512}
-    # every host wait is a sync.<site> span, one for each count
+    # every host wait is a sync.<site> span, one for each count; the
+    # seeds hashed by the first update are kept (no pool_id_upload)
     sites = {s["name"]: parent[s["parent_id"]]["name"] for s in spans
              if s["name"].startswith("sync.")}
     assert sites == {
-        "sync.pool_id_upload": "osdmap_mapping.update",
         "sync.weights_upload": "dev_compute",
         "sync.ok_read": "dev_sync",
         "sync.exists_upload": "osdmap_mapping.update",
@@ -92,9 +92,36 @@ def test_update_yields_the_span_tree():
         "sync.download": "osdmap_mapping.update",
     }
     syncs = mapping.perf.dump()["host_syncs"] - syncs
-    assert sum(s["name"].startswith("sync.") for s in spans) == syncs == 6
+    assert sum(s["name"].startswith("sync.") for s in spans) == syncs == 5
     assert len({s["trace_id"] for s in spans}) == 1
     assert tracer.dump_traces()["spans_dropped"] == 0
+
+
+@pytest.mark.parametrize("change", ["none", "pgp_num", "hashpspool", "pool_gone"])
+def test_seeds_are_hashed_again_only_where_the_pool_changed(change):
+    """An update hashes a pool's seeds (``sync.pool_id_upload``) when it
+    first maps the pool or after its pgp_num or hashing changed; every
+    update's rows equal the scalar map's."""
+    om = cluster()
+    om.add_pool(PgPool(pool_id=2, size=3, crush_rule=0, pg_num=64))
+    mapping = OSDMapMapping(device="cpu")
+    mapping.update(om)
+    assert set(mapping._seeds) == {1, 2}
+    if change == "pgp_num":
+        om.pools[1].pgp_num = 256
+    elif change == "hashpspool":
+        om.pools[1].hashpspool = False
+    elif change == "pool_gone":
+        del om.pools[2]
+    tracer = tracing.Tracer("test")
+    with tracer.start_span("epoch"):
+        mapping.update(om)
+    hashed = [s for s in tracer.dump_traces()["spans"] if s["name"] == "sync.pool_id_upload"]
+    assert len(hashed) == (change == "pgp_num")  # seeds without hashpspool upload nothing
+    assert set(mapping._seeds) == ({1} if change == "pool_gone" else {1, 2})
+    for ps in range(0, 512, 5):
+        got, want = mapping.get(1, ps), om.pg_to_up_acting_osds(1, ps)
+        assert got == (want[0], want[1], want[2], want[3])
 
 
 def test_without_a_tracer_no_span_is_made_and_results_are_equal(monkeypatch):
@@ -243,7 +270,8 @@ def test_osdmaptool_trace_prints_the_spans_and_the_waits(capsys, backend):
     assert all(float(ms) >= 0 and int(n) == 1 for ms, n in rows.values())
     waits = sum(name.startswith("sync.") for name in rows)
     assert lines[-1] == (
-        f"  host waits {waits}, oracle lanes 0, table compiles 0, kernel draws 0"
+        f"  host waits {waits}, oracle lanes 0, table compiles 0, kernel draws 0, "
+        "chained lanes 0, host route pgs 0"
     )
 
 
