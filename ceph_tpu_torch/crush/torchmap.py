@@ -37,7 +37,9 @@ kernel:
   up front, then a masked loop replays the C state machine over those
   tables; lanes whose retries outrun the window come back with
   ``ok == False`` and are re-mapped by the oracle
-  (``apply_oracle_fallback``).
+  (``apply_oracle_fallback``).  On the card a batch of GRAPH_LANES
+  lanes or more replays the whole path, recorded once as a CUDA graph
+  in its second call for a width (``_FastBlock``).
 * GENERIC (everything else): one bucket draw per lane per loop step;
   descent levels, retries and the chooseleaf recursion are registers.
   On the card a batch of GRAPH_LANES lanes or more replays a CUDA graph
@@ -100,6 +102,10 @@ host_waits = 0
 # import; ``OSDMapMapping`` adds each update's delta to
 # ``crush_kernel_draws``.
 draw_launches = 0
+# Batches the fast firstn path mapped through its recording
+# (``_FastBlock``: one a CHUNK-lane chunk) since import;
+# ``OSDMapMapping`` adds each update's delta to ``crush_fast_replays``.
+fast_replays = 0
 # Sub-lanes run by chained choose steps (one a lane and item of the
 # working vector) since import; ``OSDMapMapping`` adds each update's
 # delta to ``crush_chained_lanes``.
@@ -1108,7 +1114,18 @@ class _Lanes:
         outer descents for r' = 0..R0-1 and, for chooseleaf, the leaf
         descents of each (r', position, leaf retry); then the C's state
         machine replayed over the tables for a number of steps bounded
-        on the host, with no sync.  Returns (out, count, ok)."""
+        on the host, with no sync.  A batch ``_replays`` takes runs
+        through the path recorded once for this plan and width
+        (``_FastBlock``).  Returns (out, count, ok)."""
+        if not _replays(self.cm, x32.shape[0]):
+            return self._fast_firstn(plan, x32)
+        # the recording holds its plan, so no other plan takes its id
+        key = (("fast", id(plan)), x32.shape[0], self.nw, str(self.cm.device))
+        block = _recorded(key, self.cm, lambda: _FastBlock(self, plan, x32))
+        return block.run(x32, self.wv)
+
+    def _fast_firstn(self, plan, x32):
+        """``fast_firstn``'s steps, launched one by one."""
         cm = self.cm
         dev = cm.device
         f = plan["fast"]
@@ -1300,14 +1317,9 @@ class _Lanes:
         ``key`` and this batch's shapes, recorded on a first call.  The
         outputs are the block's own tensors, valid until its next load."""
         key = (key, x32.shape[0], self.nw, str(self.cm.device))
-        blocks = _block_cache()
-        block = blocks.get(key)
-        if block is None or block.cm is not self.cm:
-            block = blocks[key] = _Block(self, step, init, start, slots, x32)
-            while len(blocks) > _BLOCKS_MAX:
-                blocks.popitem(last=False)
-        else:
-            blocks.move_to_end(key)
+        block = _recorded(
+            key, self.cm, lambda: _Block(self, step, init, start, slots, x32)
+        )
         block.load(start, slots, x32, self.wv)
         taken = 0
         while True:
@@ -1618,9 +1630,9 @@ def _plan_key(plan: dict) -> tuple:
 
 
 def _replays(cm: CompiledMap, lanes: int) -> bool:
-    """Whether a generic chooser over ``lanes`` lanes replays a recorded
-    block: on the card, where a batch this wide makes each of the ~200
-    launches of a step worth saving."""
+    """Whether a chooser over ``lanes`` lanes replays a recording (a
+    generic chooser's ``_Block``, the fast path's ``_FastBlock``): on the
+    card, where a batch this wide makes each launch worth saving."""
     return cm.device.type == "cuda" and lanes >= GRAPH_LANES
 
 
@@ -1638,25 +1650,19 @@ class _Block:
     do not change."""
 
     def __init__(self, lanes: _Lanes, step, init, start, slots, x32):
-        global draw_launches
         self.cm, self.step, self.init, self.wv = lanes.cm, step, init, lanes.wv
         self.start, self.slots, self.x32 = start.clone(), slots.clone(), x32.clone()
         self.ins = {k: v.clone() for k, v in init(self.start, self.slots).items()}
         self.graph = self.first = None
         if self.cm.device.type != "cuda":
             return
-        # one pass outside the recordings loads every kernel they launch
+        # one pass outside the recordings loads every kernel they launch;
+        # unlike the fast path's, the recording pays off in its first call,
+        # which replays it until every lane is done
         self._init()
         self._steps()
-        self.first = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.first, capture_error_mode="thread_local"):
-            self._init()
-        before = draw_launches
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self._steps()
-        self.draws = draw_launches - before
-        draw_launches = before  # recorded, not run
+        self.first, _, _ = _capture(self.cm, self._init)
+        self.graph, _, self.draws = _capture(self.cm, self._steps)
 
     def _init(self) -> None:
         """The starting state from the start rows and slots, written into
@@ -1682,20 +1688,90 @@ class _Block:
         if self.first is None:
             self._init()
         else:
-            self.first.replay()
+            _replay(self.cm, self.first, 0)
 
     def replay(self) -> None:
-        global draw_launches
         if self.graph is None:
             self._steps()
-            return
-        self.graph.replay()
-        draw_launches += self.draws
+        else:
+            _replay(self.cm, self.graph, self.draws)
 
 
-# Each thread's recorded blocks by (chooser, plan, lanes, weights,
-# device), the newest last: a replay loads its inputs into the block's
-# own tensors, so two threads never share one.
+class _FastBlock:
+    """The fast firstn path of one plan over one batch width, from a
+    static lanes tensor and weight vector to static outputs, recorded
+    as a CUDA graph on the card: both candidate descents, ``is_out`` and
+    the state machine's replay, thousands of launches, as one.  The
+    recording bakes in the plan's take row and candidate tables and
+    reads the map's tables and its inputs in place, so a call loads its
+    lanes and weights, replays, and returns copies of the outputs (the
+    next call's replay overwrites them).  The first call runs the steps
+    eagerly, which loads every kernel the recording launches; the second
+    records, so a width mapped once never pays for a recording; on
+    another device every call runs the steps eagerly."""
+
+    def __init__(self, lanes: _Lanes, plan: dict, x32):
+        self.cm, self.plan = lanes.cm, plan
+        self.x32 = torch.empty_like(x32)
+        self.lanes = _Lanes(lanes.cm, torch.empty_like(lanes.wv))
+        self.graph = self.outs = None
+        self.calls = self.draws = 0
+
+    def _steps(self):
+        return self.lanes._fast_firstn(self.plan, self.x32)
+
+    def run(self, x32, wv):
+        global fast_replays
+        self.x32.copy_(x32)
+        self.lanes.wv.copy_(wv)
+        fast_replays += 1
+        self.calls += 1
+        if self.calls == 2 and self.cm.device.type == "cuda":
+            self.graph, self.outs, self.draws = _capture(self.cm, self._steps)
+        if self.graph is None:
+            return self._steps()
+        _replay(self.cm, self.graph, self.draws)
+        return tuple(t.clone() for t in self.outs)
+
+
+def _capture(cm: CompiledMap, fn):
+    """``fn()`` recorded as a CUDA graph on the card that holds ``cm``'s
+    tables, under that card and on a capture stream of this thread's
+    there, whichever card is current (the mesh route maps each shard on
+    its own card from one thread).  Returns (graph, ``fn``'s outputs,
+    the straw2 launches recorded), the launches taken off
+    ``draw_launches`` again: recorded, not run."""
+    global draw_launches
+    dev = cm.items.device
+    streams = getattr(_BLOCKS, "streams", None)
+    if streams is None:
+        streams = _BLOCKS.streams = {}
+    if dev not in streams:
+        streams[dev] = torch.cuda.Stream(dev)
+    before = draw_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), torch.cuda.graph(
+        graph, stream=streams[dev], capture_error_mode="thread_local"
+    ):
+        outs = fn()
+    draws = draw_launches - before
+    draw_launches = before
+    return graph, outs, draws
+
+
+def _replay(cm: CompiledMap, graph, draws: int) -> None:
+    """One replay of ``graph`` (recorded by ``_capture``) on ``cm``'s
+    card's current stream, after the loads of its inputs there; counts
+    its ``draws`` straw2 launches."""
+    global draw_launches
+    with torch.cuda.device(cm.items.device):
+        graph.replay()
+    draw_launches += draws
+
+
+# Each thread's recordings by (chooser, plan, lanes, weights, device),
+# the newest last: a replay loads its inputs into the recording's own
+# tensors, so two threads never share one.
 _BLOCKS = threading.local()
 _BLOCKS_MAX = 16
 
@@ -1705,6 +1781,20 @@ def _block_cache() -> collections.OrderedDict:
     if cache is None:
         cache = _BLOCKS.cache = collections.OrderedDict()
     return cache
+
+
+def _recorded(key, cm: CompiledMap, make):
+    """This thread's recording for ``key``, made by ``make()`` where it
+    has none or one made against another compiled map."""
+    blocks = _block_cache()
+    block = blocks.get(key)
+    if block is None or block.cm is not cm:
+        block = blocks[key] = make()
+        while len(blocks) > _BLOCKS_MAX:
+            blocks.popitem(last=False)
+    else:
+        blocks.move_to_end(key)
+    return block
 
 
 def step_span(step: int, plan: dict, lanes: int, chained: bool):

@@ -30,8 +30,10 @@ where the host waits for the device, the results' download
 (``torchmap.host_wait``) and counts in ``host_syncs``, traced or not.
 Inside the stage each choose step of the rule is a ``crush_step`` span
 (``torchmap.step_span``); ``crush_chained_lanes`` counts the sub-lanes
-of chained steps and ``crush_host_route_pgs`` the PGs the oracle mapped
-because the batched mapper refused the map, traced or not.
+of chained steps, ``crush_fast_replays`` the chunks the fast firstn
+path mapped through its recording (a CUDA graph on the card) and
+``crush_host_route_pgs`` the PGs the oracle mapped because the batched
+mapper refused the map, traced or not.
 """
 
 from __future__ import annotations
@@ -121,6 +123,10 @@ def _build_perf():
             "sub-lanes of chained choose steps (a PG and an item of its working vector)",
         )
         .add_u64_counter(
+            "crush_fast_replays",
+            "chunks the fast firstn path mapped through its recording (a CUDA graph)",
+        )
+        .add_u64_counter(
             "crush_host_route_pgs",
             "PGs mapped by the scalar oracle because the batched mapper refused the map",
         )
@@ -154,6 +160,7 @@ class OSDMapMapping:
         self.perf.inc("updates")
         lanes, waits = torchmap.fallback_lanes, torchmap.host_waits
         draws, chained = torchmap.draw_launches, torchmap.chained_lanes
+        replays = torchmap.fast_replays
         pgs = sum(pool.pg_num for pool in osdmap.pools.values())
         tags = {"epoch": osdmap.epoch, "pools": len(osdmap.pools), "pgs": pgs}
         with tracing.span("osdmap_mapping.update", tags=tags):
@@ -165,6 +172,7 @@ class OSDMapMapping:
         self.perf.inc("host_syncs", torchmap.host_waits - waits)
         self.perf.inc("crush_kernel_draws", torchmap.draw_launches - draws)
         self.perf.inc("crush_chained_lanes", torchmap.chained_lanes - chained)
+        self.perf.inc("crush_fast_replays", torchmap.fast_replays - replays)
 
     def _update_pool(
         self, osdmap: OSDMap, pool: PgPool, use_device: bool

@@ -15,7 +15,8 @@ time went: each span of the mapping path (``crush_stage``,
 ``crush_step``, ``oracle_fallback``, each ``sync.<site>`` where the
 host waited for the device, the download among them, ...) with its
 count and host milliseconds, and the update's host waits, oracle lanes,
-table compiles, kernel draws, chained lanes and host route PGs.
+table compiles, kernel draws, chained lanes, fast replays and host
+route PGs.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def parse_args(argv=None):
 
 COUNTERS = (("host_syncs", "host waits"), ("crush_oracle_lanes", "oracle lanes"),
             ("crush_compiles", "table compiles"), ("crush_kernel_draws", "kernel draws"),
-            ("crush_chained_lanes", "chained lanes"),
+            ("crush_chained_lanes", "chained lanes"), ("crush_fast_replays", "fast replays"),
             ("crush_host_route_pgs", "host route pgs"))
 
 

@@ -1932,8 +1932,9 @@ def _mesh_counters(before: dict) -> dict:
 
 def _mesh_run(label: str, dmesh, mat, host, big, pm, cm) -> dict:
     """Encode 1 GiB and a ragged 1023 stripes, both rules over 2^20
-    PGs and the dryrun's step through ``dmesh``, each equal to the
-    single-device route, with times beside it."""
+    PGs (twice: the second call replays recordings on every card) and
+    the dryrun's step through ``dmesh``, each equal to the single-device
+    route, with times beside it."""
     from ceph_tpu_torch.crush import torchmap as tm
     from ceph_tpu_torch.ops import bitplane_gf, packed_gf
     from ceph_tpu_torch.ops import mesh as meshmod
@@ -2000,7 +2001,10 @@ def _mesh_run(label: str, dmesh, mat, host, big, pm, cm) -> dict:
         t0 = time.perf_counter()
         got = on_path(lambda: sharded_batch_do_rule(pm, rule, xs, rmax, dmesh=dmesh))
         sharded_s = time.perf_counter() - t0
-        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+        # the second call records the fast path on each shard's card and replays it
+        again = on_path(lambda: sharded_batch_do_rule(pm, rule, xs, rmax, dmesh=dmesh))
+        check(all(np.array_equal(a, b) and np.array_equal(c, b)
+                  for a, c, b in zip(got, again, want)),
               f"{label} rule {rule}: sharded placement != single device")
         out[f"rule{rule}"] = {"sharded_s": sharded_s, "single_s": single_s,
                               "sharded_mappings_per_s": CRUSH_PGS / sharded_s,

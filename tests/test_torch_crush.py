@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import gzip
 import pathlib
+import threading
 
 import numpy as np
 import pytest
@@ -483,6 +484,67 @@ def test_set_tries_zero_override_ignored_like_c():
     pm, cm = _port(m)
     got, counts = torchmap.batch_do_rule(cm, 0, np.arange(50), 3)
     _assert_matches_oracle(pm, got, counts, 0, range(50), 3)
+
+
+def _choose_hosts_map():
+    """two_level_map with a third rule, choose firstn 0 type host: the
+    fast path's outer descent alone, over buckets."""
+    m = two_level_map()
+    m.add_rule(Rule(steps=[RuleStep(CRUSH_RULE_TAKE, min(m.buckets)),
+                           RuleStep(CRUSH_RULE_CHOOSE_FIRSTN, 0, 1),
+                           RuleStep(CRUSH_RULE_EMIT)], type=1), 2)
+    return m
+
+
+# name -> (map, rule): chooseleaf firstn over hosts (the remap cell's
+# rule), choose firstn of hosts, choose firstn of devices (``is_out`` on
+# the outer draw)
+FAST_CASES = {"chooseleaf_hosts": (three_level_map, 0), "choose_hosts": (_choose_hosts_map, 2),
+              "choose_devices": (flat_map, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(FAST_CASES))
+def test_recorded_fast_path_equals_the_eager_one(monkeypatch, name):
+    """The fast firstn path through its recording (a CUDA graph on the
+    card; here the same steps run eagerly through ``_FastBlock``): two
+    chunks of one width under two reweight vectors, all through one
+    recording, equal the eager path lane for lane, ``ok`` included, and
+    the JAX package's scalar mapper where ``ok``; a chunk's outputs are
+    unchanged by the next chunk's run."""
+    mk, rule = FAST_CASES[name]
+    m = mk()
+    pm, cm = _port(m)
+    rmax = 3
+    chunks = [torch.as_tensor(np.random.default_rng([5, i]).integers(0, 2**32, 96)).to(torch.int32)
+              for i in range(2)]
+    vectors = [mixed_weight_vector(pm.max_devices, seed) for seed in (3, 4)]
+    plan, = torchmap._plans(cm, rule, rmax, 1)  # both vectors boost the speculation
+    assert plan["fast"] is not None
+
+    def lanes(w):
+        return torchmap._Lanes(cm, torchmap._weight_vector(cm, w))
+
+    want = [[lanes(w).fast_firstn(plan, x32) for x32 in chunks] for w in vectors]
+    monkeypatch.setattr(torchmap, "_replays", lambda cm, lanes: True)
+    monkeypatch.setattr(torchmap, "_BLOCKS", threading.local())
+    replays = torchmap.fast_replays
+    for w, eager in zip(vectors, want):
+        first = lanes(w).fast_firstn(plan, chunks[0])
+        kept = [t.clone() for t in first]
+        second = lanes(w).fast_firstn(plan, chunks[1])
+        for got, exp in zip((first, second), eager):
+            for g, e in zip(got, exp):
+                assert torch.equal(g, e)
+        for g, k in zip(first, kept):
+            assert torch.equal(g, k)
+        wl = [int(v) for v in w]
+        for x32, (out, cnt, ok) in zip(chunks, (first, second)):
+            assert ok.any()
+            for i in np.nonzero(ok.numpy())[0]:
+                x = int(x32[i]) & 0xFFFFFFFF
+                assert out[i, : cnt[i]].tolist() == m.do_rule(rule, x, rmax, wl), x
+    assert torchmap.fast_replays - replays == 4
+    assert len(torchmap._block_cache()) == 1  # recorded once, run for both vectors
 
 
 def test_range_packed_chained_and_fallback_guard():

@@ -762,7 +762,11 @@ def test_straw2_kernel_counts_launches_and_raises_on_a_refused_one(cuda):
 def test_crush_raw_output_of_the_benchmark_map_equals_cpu(cuda, rule, rmax):
     """Rules 0 (the fast firstn path) and 1 (the generic indep chooser)
     of the benchmark's 10,000-OSD map, one host's OSDs out, over 2^16
-    PGs: the raw output on the card equals the CPU's."""
+    PGs: the raw output on the card equals the CPU's.  Three calls on
+    the card: rule 0's first runs the fast path op by op and its second,
+    over the lanes reversed, records its graph and replays it; rule 1's
+    first records the chooser's blocks.  Later calls replay, and a
+    replay's outputs outlive the next replay."""
     from ceph_tpu_torch.crush import torchmap
 
     m = _bench_map()
@@ -771,9 +775,110 @@ def test_crush_raw_output_of_the_benchmark_map_equals_cpu(cuda, rule, rmax):
     card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
     xs = np.arange(1 << 16)
     got = torchmap.batch_do_rule_raw(card, rule, xs, rmax, w)
+    back = torchmap.batch_do_rule_raw(card, rule, xs[::-1].copy(), rmax, w)
+    again = torchmap.batch_do_rule_raw(card, rule, xs, rmax, w)
     want = torchmap.batch_do_rule_raw(cpu, rule, xs, rmax, w)
-    for g, v in zip(got, want):
+    for g, b, a, v in zip(got, back, again, want):
         assert g.device.type == "cuda" and torch.equal(g.cpu(), v)
+        assert torch.equal(b.cpu(), v.flip(0))
+        assert torch.equal(a.cpu(), v)
+    if rule == 0:
+        assert any(isinstance(b, torchmap._FastBlock) and b.cm is card and b.graph is not None
+                   for b in torchmap._block_cache().values())
+
+
+def test_fast_path_recording_over_remap_updates_equals_the_eager_path(cuda, monkeypatch):
+    """The benchmark's map with a pool of 2^20 PGs, as the remap cell
+    maps it: a base update, one host down, then the same host out.  The
+    fast firstn path runs through its recording (a CUDA graph, recorded
+    in the first update and run once a 2^19-lane chunk): every update
+    equals the same update with the path launched op by op, all four
+    arrays of every PG, and the scalar oracle on 2,048 seeded PGs;
+    ``crush_fast_replays`` reads 2 an update and ``crush_kernel_draws``
+    8, and no recording is made after the first update."""
+    from ceph_tpu_torch.crush import torchmap
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osd import Incremental, OSDMap, OSDMapMapping, PgPool
+
+    def trim(v):
+        v = list(v)
+        while v and v[-1] == CRUSH_ITEM_NONE:
+            v.pop()
+        return v
+
+    om = OSDMap.build(_bench_map(), 10000)
+    om.add_pool(PgPool(pool_id=1, size=3, crush_rule=0, pg_num=1 << 20))
+    mapping = OSDMapMapping()
+    cache = torchmap._block_cache()
+    recorded = None
+    for epoch in ("base", "down", "out"):
+        inc = Incremental(epoch=om.epoch + 1)
+        for o in range(4 * 1234, 4 * 1235):
+            if epoch == "down":
+                inc.mark_down(o)
+            elif epoch == "out":
+                inc.new_weight[o] = 0
+        om.apply_incremental(inc)
+        before = mapping.perf.dump()
+        mapping.update(om)
+        after = mapping.perf.dump()
+        assert after["crush_fast_replays"] - before["crush_fast_replays"] == 2
+        assert after["crush_kernel_draws"] - before["crush_kernel_draws"] == 8
+        if recorded is None:
+            recorded = dict(cache)
+            assert any(isinstance(b, torchmap._FastBlock) and b.graph is not None
+                       for b in recorded.values())
+        assert list(cache) == list(recorded)
+        assert all(cache[k] is b for k, b in recorded.items())
+        eager = OSDMapMapping()
+        with monkeypatch.context() as patch:
+            patch.setattr(torchmap, "_replays", lambda cm, lanes: False)
+            eager.update(om)
+        for name in ("up", "up_primary", "acting", "acting_primary"):
+            np.testing.assert_array_equal(getattr(mapping, name)[1], getattr(eager, name)[1])
+        for ps in np.random.default_rng(2**31 + 21).choice(1 << 20, 2048, replace=False):
+            up, upp, acting, actp = om.pg_to_up_acting_osds(1, int(ps))
+            assert mapping.get(1, int(ps)) == (trim(up), upp, trim(acting), actp)
+
+
+def test_recordings_follow_the_maps_card_not_the_current_one(cuda):
+    """A map's tables on the second card while the first is current, as
+    the mesh route maps its shards from one thread: rule 0's fast path
+    (recorded in its second call) and rule 1's chooser blocks record
+    and replay on the map's card, three calls each equal to the CPU;
+    then both rules through the mesh over every card, twice (the second
+    call records the fast path on each shard's card), equal to one
+    card's mapping."""
+    from ceph_tpu_torch.crush import torchmap
+    from ceph_tpu_torch.ops import mesh as meshmod
+    from ceph_tpu_torch.osd.sharded_mapping import sharded_batch_do_rule
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    m = _bench_map()
+    w = np.full(m.max_devices, 0x10000, np.int64)
+    w[4 * 1234 : 4 * 1235] = 0
+    second, cpu = torchmap.compile_map(m, device="cuda:1"), torchmap.compile_map(m, device="cpu")
+    xs = np.arange(torchmap.GRAPH_LANES)
+    with torch.cuda.device(0):
+        for rule, rmax in ((0, 3), (1, 6)):
+            want = torchmap.batch_do_rule_raw(cpu, rule, xs, rmax, w)
+            runs = [torchmap.batch_do_rule_raw(second, rule, xs, rmax, w) for _ in range(3)]
+            for got in runs:
+                for g, v in zip(got, want):
+                    assert g.device == torch.device("cuda:1") and torch.equal(g.cpu(), v)
+        recorded = [b for b in torchmap._block_cache().values() if b.cm is second]
+        assert any(isinstance(b, torchmap._FastBlock) and b.graph is not None for b in recorded)
+        assert any(isinstance(b, torchmap._Block) and b.graph is not None for b in recorded)
+        dmesh = meshmod.build_mesh()
+        assert dmesh.n == torch.cuda.device_count()
+        pgs = np.arange(1 << 20)
+        for rule, rmax in ((0, 3), (1, 6)):
+            want = torchmap.batch_do_rule(torchmap.compile_map(m, device="cuda:0"), rule, pgs,
+                                          rmax, w)
+            for _ in range(2):
+                got = sharded_batch_do_rule(m, rule, pgs, rmax, w, dmesh)
+                assert all(np.array_equal(g, v) for g, v in zip(got, want))
 
 
 def _card_cluster():

@@ -271,7 +271,7 @@ def test_osdmaptool_trace_prints_the_spans_and_the_waits(capsys, backend):
     waits = sum(name.startswith("sync.") for name in rows)
     assert lines[-1] == (
         f"  host waits {waits}, oracle lanes 0, table compiles 0, kernel draws 0, "
-        "chained lanes 0, host route pgs 0"
+        "chained lanes 0, fast replays 0, host route pgs 0"
     )
 
 
