@@ -39,12 +39,13 @@ kernel:
   ``ok == False`` and are re-mapped by the oracle
   (``apply_oracle_fallback``).  On the card a batch of GRAPH_LANES
   lanes or more replays the whole path, recorded once as a CUDA graph
-  in its second call for a width (``_FastBlock``).
+  (``_Recorder``).
 * GENERIC (everything else): one bucket draw per lane per loop step;
   descent levels, retries and the chooseleaf recursion are registers.
   On the card a batch of GRAPH_LANES lanes or more replays a CUDA graph
-  of SYNC_EVERY loop steps recorded once (``_Block``) over every lane;
-  elsewhere finished lanes are dropped from the batch as the loop goes.
+  of SYNC_EVERY loop steps recorded once (``_Recorder``) over every
+  lane; elsewhere finished lanes are dropped from the batch as the loop
+  goes.
 """
 
 from __future__ import annotations
@@ -57,7 +58,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..common import tracing
 from ..ops import _build
@@ -86,30 +86,26 @@ from .types import (
 
 MAX_DEPTH = 16  # CRUSH_MAX_DEPTH is 10
 S64_MIN = -(1 << 63)
-CHUNK = 1 << 19  # lanes a call of batch_do_rule maps at once
+CHUNK = 1 << 19  # lanes batch_do_rule_raw maps at once
 SYNC_EVERY = 8  # generic chooser steps between reads of the done mask
-# generic chooser batches at least this wide replay a recorded block of
-# SYNC_EVERY steps on the card (``_Block``) instead of launching each op
+# choosers at least this wide replay recordings on the card (``_replays``)
+# instead of launching each op
 GRAPH_LANES = 1 << 16
 
-# Lanes re-mapped by apply_oracle_fallback since import (the speculation
-# overflow of the fast firstn path); callers zero it and read it.
-fallback_lanes = 0
-# Points where the host waited for the device (``host_wait``) since
-# import; ``OSDMapMapping`` adds each update's delta to ``host_syncs``.
-host_waits = 0
-# Launches of the straw2 draw kernel (``straw2_draw_kernel``) since
-# import; ``OSDMapMapping`` adds each update's delta to
-# ``crush_kernel_draws``.
-draw_launches = 0
-# Batches the fast firstn path mapped through its recording
-# (``_FastBlock``: one a CHUNK-lane chunk) since import;
-# ``OSDMapMapping`` adds each update's delta to ``crush_fast_replays``.
-fast_replays = 0
-# Sub-lanes run by chained choose steps (one a lane and item of the
-# working vector) since import; ``OSDMapMapping`` adds each update's
-# delta to ``crush_chained_lanes``.
-chained_lanes = 0
+# What the layer did since import, under the ``osdmap_mapping`` perf
+# counter each count feeds (``OSDMapMapping.update`` adds an update's
+# deltas):
+#   crush_oracle_lanes   lanes apply_oracle_fallback re-mapped (the fast
+#                        firstn path's speculation overflow)
+#   host_syncs           points where the host waited for the device
+#                        (``host_wait``)
+#   crush_kernel_draws   launches of the straw2 draw kernel, a replay
+#                        counting those its recording holds
+#   crush_chained_lanes  sub-lanes run by chained choose steps (a lane
+#                        and an item of its working vector)
+#   crush_fast_replays   CHUNK-lane chunks the fast firstn path mapped
+#                        through its recorder
+counts: collections.Counter = collections.Counter()
 
 
 class UnsupportedMap(ValueError):
@@ -118,10 +114,9 @@ class UnsupportedMap(ValueError):
 
 def host_wait(site: str):
     """A point where the host waits for the device: one more
-    ``host_waits``, and a ``sync.<site>`` span of the ambient tracer
+    ``host_syncs``, and a ``sync.<site>`` span of the ambient tracer
     around it (``NULL_SPAN`` without one)."""
-    global host_waits
-    host_waits += 1
+    counts["host_syncs"] += 1
     return tracing.span("sync." + site)
 
 
@@ -172,37 +167,34 @@ def _mix(a, b, c):
 def hash3(a, b, c):
     """rjenkins1 arity 3 (hash.c:48-59) on int32 tensors (broadcast);
     the result is the uint32 hash's bit pattern as int32."""
-    with record_function("crush.hash"):
-        h = a ^ b ^ c ^ _SEED
-        a, b, h = _mix(a, b, h)
-        c, x, h = _mix(c, _X0, h)
-        y, a, h = _mix(_Y0, a, h)
-        b, x, h = _mix(b, x, h)
-        y, c, h = _mix(y, c, h)
-        return h
+    h = a ^ b ^ c ^ _SEED
+    a, b, h = _mix(a, b, h)
+    c, x, h = _mix(c, _X0, h)
+    y, a, h = _mix(_Y0, a, h)
+    b, x, h = _mix(b, x, h)
+    y, c, h = _mix(y, c, h)
+    return h
 
 
 def hash2(a, b):
     """rjenkins1 arity 2 (hash.c:37-46) on int32 tensors."""
-    with record_function("crush.hash"):
-        h = a ^ b ^ _SEED
-        a, b, h = _mix(a, b, h)
-        x, a, h = _mix(_X0, a, h)
-        b, y, h = _mix(b, _Y0, h)
-        return h
+    h = a ^ b ^ _SEED
+    a, b, h = _mix(a, b, h)
+    x, a, h = _mix(_X0, a, h)
+    b, y, h = _mix(b, _Y0, h)
+    return h
 
 
 def hash4(a, b, c, d):
     """rjenkins1 arity 4 (hash.c:61-74) on int32 tensors."""
-    with record_function("crush.hash"):
-        h = a ^ b ^ c ^ d ^ _SEED
-        a, b, h = _mix(a, b, h)
-        c, d, h = _mix(c, d, h)
-        a, x, h = _mix(a, _X0, h)
-        y, b, h = _mix(_Y0, b, h)
-        c, x, h = _mix(c, x, h)
-        y, d, h = _mix(y, d, h)
-        return h
+    h = a ^ b ^ c ^ d ^ _SEED
+    a, b, h = _mix(a, b, h)
+    c, d, h = _mix(c, d, h)
+    a, x, h = _mix(a, _X0, h)
+    y, b, h = _mix(_Y0, b, h)
+    c, x, h = _mix(c, x, h)
+    y, d, h = _mix(y, d, h)
+    return h
 
 
 def _u32(h):
@@ -223,14 +215,13 @@ def crush_ln(u, rh_t, lh_t, ll_t):
     ``rh_t``, ``lh_t``, ``ll_t`` are ``ln._tables()`` on u's device.
     ``x * RH`` reaches 2^63 and wraps, like the C; only bits 48-55 of it
     are used."""
-    with record_function("crush.ln"):
-        x = u.to(torch.int64) + 1
-        bitlen = torch.frexp(x.to(torch.float32)).exponent.to(torch.int64)
-        shift = torch.where((x & 0x18000) == 0, 16 - bitlen, 0)
-        x = x << shift
-        k = (x >> 8) - 128
-        index2 = ((x * rh_t[k]) >> 48) & 0xFF
-        return ((15 - shift) << 44) + ((lh_t[k] + ll_t[index2]) >> 4)
+    x = u.to(torch.int64) + 1
+    bitlen = torch.frexp(x.to(torch.float32)).exponent.to(torch.int64)
+    shift = torch.where((x & 0x18000) == 0, 16 - bitlen, 0)
+    x = x << shift
+    k = (x >> 8) - 128
+    index2 = ((x * rh_t[k]) >> 48) & 0xFF
+    return ((15 - shift) << 44) + ((lh_t[k] + ll_t[index2]) >> 4)
 
 
 def straw2_draw_kernel(cm, rows, x32, r32, pos, szi: int, want_item: bool):
@@ -244,7 +235,6 @@ def straw2_draw_kernel(cm, rows, x32, r32, pos, szi: int, want_item: bool):
     map's tables.  Returns (column (*lead, 1) int64, item (*lead) int64
     where ``want_item``, else None).  No fallback: without the library,
     or for tensors the kernel does not take, it raises."""
-    global draw_launches
     lib = _build.crush_library()
     one = isinstance(rows, int)
     lead = torch.broadcast_shapes(
@@ -296,7 +286,7 @@ def straw2_draw_kernel(cm, rows, x32, r32, pos, szi: int, want_item: bool):
         raise RuntimeError(
             f"crush_straw2_draw launch failed: {lib.crush_error_string(err).decode()}"
         )
-    draw_launches += 1
+    counts["crush_kernel_draws"] += 1
     return col, item
 
 
@@ -882,10 +872,9 @@ class _Lanes:
         cm = self.cm
         u = hash3(x32, ids32, r32) & 0xFFFF
         ln = crush_ln(u, cm.ln_rh, cm.ln_lh, cm.ln_ll) - (1 << 48)
-        with record_function("crush.draw"):
-            q = torch.div(ln, wdiv, rounding_mode="trunc")
-            q = torch.where(wlive, q, S64_MIN)
-            return q.argmax(-1, keepdim=True)
+        q = torch.div(ln, wdiv, rounding_mode="trunc")
+        q = torch.where(wlive, q, S64_MIN)
+        return q.argmax(-1, keepdim=True)
 
     def row_of(self, item):
         """Bucket row for a (negative) item; -1 if invalid."""
@@ -981,10 +970,9 @@ class _Lanes:
         0xffff) * straw length, the first maximum of a bucket's columns;
         a u16 times a u32 is exact in int64."""
         u = (hash3(x32, ids32, r32) & 0xFFFF).to(torch.int64)
-        with record_function("crush.draw"):
-            col = torch.arange(straws.shape[-1], device=straws.device)
-            d = torch.where(col < size, u * straws, -1)
-            return d.argmax(-1, keepdim=True)
+        col = torch.arange(straws.shape[-1], device=straws.device)
+        d = torch.where(col < size, u * straws, -1)
+        return d.argmax(-1, keepdim=True)
 
     def list_draw(self, x32, ids32, weights, sums, size, bid32, r32):
         """List chooser (mapper.c:141-164): walking tail to head, item i
@@ -992,10 +980,9 @@ class _Lanes:
         < weight_i, so the highest accepting column wins; column 0 when
         none accepts."""
         u = (hash4(x32, ids32, r32, bid32) & 0xFFFF).to(torch.int64)
-        with record_function("crush.draw"):
-            col = torch.arange(sums.shape[-1], device=sums.device)
-            accept = (((u * sums) >> 16) < weights) & (col < size)
-            return torch.where(accept, col, -1).amax(-1, keepdim=True).clamp_min(0)
+        col = torch.arange(sums.shape[-1], device=sums.device)
+        accept = (((u * sums) >> 16) < weights) & (col < size)
+        return torch.where(accept, col, -1).amax(-1, keepdim=True).clamp_min(0)
 
     def tree_draw(self, x32, nw, start, bid32, r32):
         """Tree chooser (mapper.c:195-222): descend the implicit binary
@@ -1011,13 +998,12 @@ class _Lanes:
         n = start.expand(*lead, 1)
         for _ in range(max(tn.bit_length(), 1)):
             h = _u32(hash4(x32, _i32(n), r32, bid32))
-            with record_function("crush.draw"):
-                w = nw.gather(-1, n)
-                t = _mulhi32(h, w)
-                low = (n & -n) >> 1
-                left = n - low
-                nxt = torch.where(t < nw.gather(-1, left), left, n + low)
-                n = torch.where((n & 1) == 1, n, nxt)
+            w = nw.gather(-1, n)
+            t = _mulhi32(h, w)
+            low = (n & -n) >> 1
+            left = n - low
+            nxt = torch.where(t < nw.gather(-1, left), left, n + low)
+            n = torch.where((n & 1) == 1, n, nxt)
         return n >> 1
 
     def perm_draw(self, x32, bid32, size, r32, usz):
@@ -1037,15 +1023,14 @@ class _Lanes:
         for p in range(usz):
             # made on the device: a recorded block may hold no upload
             h = _u32(hash3(x32, bid32, torch.full((), p, dtype=torch.int32, device=dev)))
-            with record_function("crush.draw"):
-                active = (pr >= p) & (size - 1 > p)
-                j = (p + h % (size1 - p).clamp_min(1)).clamp(max=usz - 1)
-                vp = perm[..., p : p + 1]
-                vj = perm.gather(-1, j.expand(*lead[:-1], 1))
-                swapped = torch.where(
-                    slots == p, vj, torch.where(slots == j, vp, perm)
-                )
-                perm = torch.where(active, swapped, perm)
+            active = (pr >= p) & (size - 1 > p)
+            j = (p + h % (size1 - p).clamp_min(1)).clamp(max=usz - 1)
+            vp = perm[..., p : p + 1]
+            vj = perm.gather(-1, j.expand(*lead[:-1], 1))
+            swapped = torch.where(
+                slots == p, vj, torch.where(slots == j, vp, perm)
+            )
+            perm = torch.where(active, swapped, perm)
         return perm.gather(-1, pr.clamp(max=usz - 1).expand(*lead[:-1], 1))
 
     def bucket_draw(self, rows, x32, r32, pos):
@@ -1064,14 +1049,13 @@ class _Lanes:
         chooseleaf): (item, empty, found, descend, hard_bad, nrow).  A
         descent past MAX_DEPTH counts as a bad item."""
         item, bsize = self.bucket_draw(st["row"], x32, r, pos)
-        with record_function("crush.choose"):
-            empty = bsize == 0
-            target = torch.where(st["leaf"], 0, ttype)
-            found, desc, hard_bad, nrow = self.classify(item, target)
-            too_deep = desc & (st["depth"] + 1 >= MAX_DEPTH)
-            hard_bad = (~empty) & (hard_bad | too_deep)
-            desc = (~empty) & desc & ~too_deep
-            return item, empty, (~empty) & found, desc, hard_bad, nrow
+        empty = bsize == 0
+        target = torch.where(st["leaf"], 0, ttype)
+        found, desc, hard_bad, nrow = self.classify(item, target)
+        too_deep = desc & (st["depth"] + 1 >= MAX_DEPTH)
+        hard_bad = (~empty) & (hard_bad | too_deep)
+        desc = (~empty) & desc & ~too_deep
+        return item, empty, (~empty) & found, desc, hard_bad, nrow
 
     # -- fast firstn: speculative tables + table-driven replay ---------
 
@@ -1115,14 +1099,27 @@ class _Lanes:
         descents of each (r', position, leaf retry); then the C's state
         machine replayed over the tables for a number of steps bounded
         on the host, with no sync.  A batch ``_replays`` takes runs
-        through the path recorded once for this plan and width
-        (``_FastBlock``).  Returns (out, count, ok)."""
+        through one recorder of the path for this plan and width, from
+        static lanes and weights, and returns copies of its outputs (the
+        next run overwrites a recording's).  Returns (out, count, ok)."""
         if not _replays(self.cm, x32.shape[0]):
             return self._fast_firstn(plan, x32)
         # the recording holds its plan, so no other plan takes its id
         key = (("fast", id(plan)), x32.shape[0], self.nw, str(self.cm.device))
-        block = _recorded(key, self.cm, lambda: _FastBlock(self, plan, x32))
-        return block.run(x32, self.wv)
+        (run,) = _recorded(key, self.cm, lambda: (self._fast_recorder(plan, x32),))
+        run.load(x32=x32, wv=self.wv)
+        counts["crush_fast_replays"] += 1
+        return tuple(t.clone() for t in run())
+
+    def _fast_recorder(self, plan, x32) -> "_Recorder":
+        """A recorder of ``_fast_firstn`` for ``plan`` over static lanes
+        shaped like ``x32`` and a static weight vector: both candidate
+        descents, ``is_out`` and the state machine's replay, thousands of
+        launches, as one.  A recording bakes in the plan's take row and
+        candidate tables."""
+        lanes = _Lanes(self.cm, torch.empty_like(self.wv))
+        ins = {"x32": torch.empty_like(x32), "wv": lanes.wv}
+        return _Recorder(self.cm, lambda: lanes._fast_firstn(plan, ins["x32"]), ins)
 
     def _fast_firstn(self, plan, x32):
         """``fast_firstn``'s steps, launched one by one."""
@@ -1165,103 +1162,102 @@ class _Lanes:
             )
             lisout = self.is_out(litems, x32[:, None]) & (lkinds == _K_FOUND)
 
-        with record_function("crush.replay"):
-            colsR = torch.arange(R, device=dev)
-            zero = torch.zeros(n, dtype=torch.int64, device=dev)
-            done = torch.full((n,), numrep <= 0 or R == 0, device=dev)
-            okf = torch.ones(n, dtype=torch.bool, device=dev)
-            rep, outpos, ftotal, lftotal = zero, zero, zero, zero
-            dom_r, domain = zero, zero
-            in_leaf = torch.zeros(n, dtype=torch.bool, device=dev)
-            out = torch.full((n, R), CRUSH_ITEM_NONE, device=dev)
-            out2 = out.clone()
-            # each replica takes at most R0 - rep outer attempts, each
-            # at most L0 + 1 leaf steps after it, then one failing step
-            steps = numrep * R0 * ((f["L0"] if leaf else 0) + 2) + 1
-            for _ in range(steps):
-                act = ~done
-                r = rep + ftotal
-                over_r = (~in_leaf) & (r >= R0)
-                rc = r.clamp(0, R0 - 1)[:, None]
-                k = kinds.gather(1, rc).squeeze(1)
-                it = items.gather(1, rc).squeeze(1)
-                o = (~in_leaf) & ~over_r
-                o_found = o & (k == _K_FOUND)
-                o_bad = o & (k == _K_BAD)
-                o_retry = o & (k == _K_RETRY)
-                o_over = (~in_leaf) & (over_r | (k == _K_OVER))
-                prior = colsR < outpos[:, None]
-                collide = o_found & (prior & (out == it[:, None])).any(1)
-                direct = o_found & ~collide
-                if leaf:
-                    enter_leaf = direct & (it < 0)
-                    direct = direct & (it >= 0)
-                if ttype == 0:
-                    direct_out = direct & oisout.gather(1, rc).squeeze(1)
-                    place_direct = direct & ~direct_out
-                else:
-                    direct_out = None
-                    place_direct = direct
-                outer_reject = o_retry | collide
-                if direct_out is not None:
-                    outer_reject = outer_reject | direct_out
-                fail = o_over
-                if leaf:
-                    l_over_idx = lftotal >= L0
-                    pos_comp = 0 if stable else outpos.clamp(0, Pd - 1)
-                    fidx = (
-                        dom_r * (Pd * L0)
-                        + pos_comp * L0
-                        + lftotal.clamp(0, L0 - 1)
-                    )[:, None]
-                    lk = lkinds.gather(1, fidx).squeeze(1)
-                    lit = litems.gather(1, fidx).squeeze(1)
-                    lio = lisout.gather(1, fidx).squeeze(1)
-                    lc = in_leaf & ~l_over_idx
-                    l_found = lc & (lk == _K_FOUND)
-                    l_bad = lc & (lk == _K_BAD)
-                    l_empty = lc & (lk == _K_RETRY)
-                    fail = fail | (in_leaf & (l_over_idx | (lk == _K_OVER)))
-                    l_rej = l_found & (
-                        (prior & (out2 == lit[:, None])).any(1) | lio
-                    )
-                    l_place = l_found & ~l_rej
-                    l_retry_cand = l_empty | l_rej
-                    l_exhaust = l_retry_cand & (lftotal + 1 >= leaf_tries)
-                    l_retry = l_retry_cand & ~l_exhaust
-                    outer_reject = outer_reject | l_bad | l_exhaust
-                    place = (place_direct | l_place) & act
-                else:
-                    place = place_direct & act
-                or_skip = outer_reject & (ftotal + 1 >= tries)
-                or_retry = outer_reject & ~or_skip
-                advance = place | o_bad | or_skip
-                fail = fail & act
-
-                sel = place[:, None] & (colsR == outpos[:, None])
-                if leaf:
-                    out = torch.where(
-                        sel, torch.where(l_place, domain, it)[:, None], out
-                    )
-                    out2 = torch.where(sel, lit[:, None], out2)
-                else:
-                    out = torch.where(sel, it[:, None], out)
-                rep = rep + advance
-                outpos = outpos + place
-                ftotal = torch.where(
-                    advance, 0, torch.where(or_retry, ftotal + 1, ftotal)
+        colsR = torch.arange(R, device=dev)
+        zero = torch.zeros(n, dtype=torch.int64, device=dev)
+        done = torch.full((n,), numrep <= 0 or R == 0, device=dev)
+        okf = torch.ones(n, dtype=torch.bool, device=dev)
+        rep, outpos, ftotal, lftotal = zero, zero, zero, zero
+        dom_r, domain = zero, zero
+        in_leaf = torch.zeros(n, dtype=torch.bool, device=dev)
+        out = torch.full((n, R), CRUSH_ITEM_NONE, device=dev)
+        out2 = out.clone()
+        # each replica takes at most R0 - rep outer attempts, each
+        # at most L0 + 1 leaf steps after it, then one failing step
+        steps = numrep * R0 * ((f["L0"] if leaf else 0) + 2) + 1
+        for _ in range(steps):
+            act = ~done
+            r = rep + ftotal
+            over_r = (~in_leaf) & (r >= R0)
+            rc = r.clamp(0, R0 - 1)[:, None]
+            k = kinds.gather(1, rc).squeeze(1)
+            it = items.gather(1, rc).squeeze(1)
+            o = (~in_leaf) & ~over_r
+            o_found = o & (k == _K_FOUND)
+            o_bad = o & (k == _K_BAD)
+            o_retry = o & (k == _K_RETRY)
+            o_over = (~in_leaf) & (over_r | (k == _K_OVER))
+            prior = colsR < outpos[:, None]
+            collide = o_found & (prior & (out == it[:, None])).any(1)
+            direct = o_found & ~collide
+            if leaf:
+                enter_leaf = direct & (it < 0)
+                direct = direct & (it >= 0)
+            if ttype == 0:
+                direct_out = direct & oisout.gather(1, rc).squeeze(1)
+                place_direct = direct & ~direct_out
+            else:
+                direct_out = None
+                place_direct = direct
+            outer_reject = o_retry | collide
+            if direct_out is not None:
+                outer_reject = outer_reject | direct_out
+            fail = o_over
+            if leaf:
+                l_over_idx = lftotal >= L0
+                pos_comp = 0 if stable else outpos.clamp(0, Pd - 1)
+                fidx = (
+                    dom_r * (Pd * L0)
+                    + pos_comp * L0
+                    + lftotal.clamp(0, L0 - 1)
+                )[:, None]
+                lk = lkinds.gather(1, fidx).squeeze(1)
+                lit = litems.gather(1, fidx).squeeze(1)
+                lio = lisout.gather(1, fidx).squeeze(1)
+                lc = in_leaf & ~l_over_idx
+                l_found = lc & (lk == _K_FOUND)
+                l_bad = lc & (lk == _K_BAD)
+                l_empty = lc & (lk == _K_RETRY)
+                fail = fail | (in_leaf & (l_over_idx | (lk == _K_OVER)))
+                l_rej = l_found & (
+                    (prior & (out2 == lit[:, None])).any(1) | lio
                 )
-                if leaf:
-                    lftotal = torch.where(
-                        enter_leaf,
-                        0,
-                        torch.where(l_retry, lftotal + 1, lftotal),
-                    )
-                    in_leaf = enter_leaf | l_retry
-                    dom_r = torch.where(enter_leaf, r, dom_r)
-                    domain = torch.where(enter_leaf, it, domain)
-                okf = okf & ~fail
-                done = done | fail | (rep >= numrep) | (outpos >= nslots)
+                l_place = l_found & ~l_rej
+                l_retry_cand = l_empty | l_rej
+                l_exhaust = l_retry_cand & (lftotal + 1 >= leaf_tries)
+                l_retry = l_retry_cand & ~l_exhaust
+                outer_reject = outer_reject | l_bad | l_exhaust
+                place = (place_direct | l_place) & act
+            else:
+                place = place_direct & act
+            or_skip = outer_reject & (ftotal + 1 >= tries)
+            or_retry = outer_reject & ~or_skip
+            advance = place | o_bad | or_skip
+            fail = fail & act
+
+            sel = place[:, None] & (colsR == outpos[:, None])
+            if leaf:
+                out = torch.where(
+                    sel, torch.where(l_place, domain, it)[:, None], out
+                )
+                out2 = torch.where(sel, lit[:, None], out2)
+            else:
+                out = torch.where(sel, it[:, None], out)
+            rep = rep + advance
+            outpos = outpos + place
+            ftotal = torch.where(
+                advance, 0, torch.where(or_retry, ftotal + 1, ftotal)
+            )
+            if leaf:
+                lftotal = torch.where(
+                    enter_leaf,
+                    0,
+                    torch.where(l_retry, lftotal + 1, lftotal),
+                )
+                in_leaf = enter_leaf | l_retry
+                dom_r = torch.where(enter_leaf, r, dom_r)
+                domain = torch.where(enter_leaf, it, domain)
+            okf = okf & ~fail
+            done = done | fail | (rep >= numrep) | (outpos >= nslots)
         return (out2 if leaf else out), outpos, okf
 
     # -- generic choosers (one draw per lane per step) -----------------
@@ -1269,10 +1265,10 @@ class _Lanes:
     def _loop(self, step, init, start, slots, outs, x32, bound, key):
         """Run ``step(state, x32) -> state`` from ``init(start, slots)``
         until every lane is done, reading ``done`` every SYNC_EVERY
-        steps.  A batch ``_replays`` takes runs every lane through
-        replays of a block of SYNC_EVERY steps recorded once for ``key``
-        (``_Block``); another drops the finished lanes once they are
-        half the batch (a finished lane's outputs no longer change).
+        steps.  A batch ``_replays`` takes runs every lane through the
+        chooser's recorders for ``key`` (``_replayed``); another drops
+        the finished lanes once they are half the batch (a finished
+        lane's outputs no longer change).
         Returns the ``outs`` fields of the final state over all lanes."""
         if _replays(self.cm, x32.shape[0]):
             return self._replayed(step, init, start, slots, outs, x32, bound, key)
@@ -1313,17 +1309,19 @@ class _Lanes:
         return final
 
     def _replayed(self, step, init, start, slots, outs, x32, bound, key):
-        """``_loop`` over every lane by replays of the block recorded for
-        ``key`` and this batch's shapes, recorded on a first call.  The
-        outputs are the block's own tensors, valid until its next load."""
+        """``_loop`` over every lane by the chooser's two recorders for
+        ``key`` and this batch's shapes (``_chooser_recorders``): its
+        start, then its block until every lane is done.  The outputs are
+        the recordings' own state tensors, valid until their next load."""
         key = (key, x32.shape[0], self.nw, str(self.cm.device))
-        block = _recorded(
-            key, self.cm, lambda: _Block(self, step, init, start, slots, x32)
+        begin, block = _recorded(
+            key, self.cm, lambda: _chooser_recorders(self, step, init, start, slots, x32)
         )
-        block.load(start, slots, x32, self.wv)
+        begin.load(start=start, slots=slots, x32=x32, wv=self.wv)
+        begin()
         taken = 0
         while True:
-            block.replay()
+            block()
             taken += SYNC_EVERY
             with host_wait("chooser_live"):
                 nlive = int((~block.ins["done"]).sum())
@@ -1357,84 +1355,82 @@ class _Lanes:
         colsR = torch.arange(R, device=dev)
 
         def step(st, x32):
-            with record_function("crush.choose"):
-                outpos, ftotal, lftotal = st["outpos"], st["ftotal"], st["lftotal"]
-                in_leaf, out, out2 = st["leaf"], st["out"], st["out2"]
-                act = ~st["done"]
-                leaf_rep = 0 if stable else outpos
-                r_outer = st["rep"] + ftotal
-                sub_r = r_outer >> (vary_r - 1) if vary_r else 0
-                r = torch.where(in_leaf, leaf_rep + sub_r + lftotal, r_outer)
+            outpos, ftotal, lftotal = st["outpos"], st["ftotal"], st["lftotal"]
+            in_leaf, out, out2 = st["leaf"], st["out"], st["out2"]
+            act = ~st["done"]
+            leaf_rep = 0 if stable else outpos
+            r_outer = st["rep"] + ftotal
+            sub_r = r_outer >> (vary_r - 1) if vary_r else 0
+            r = torch.where(in_leaf, leaf_rep + sub_r + lftotal, r_outer)
             # choose_args position: the running outpos at every draw
             # (mapper.c:526-530), and the chooseleaf recursion re-enters
             # with the same outpos (:578-588)
             item, empty, found, desc, hard_bad, nrow = self.step_draw(
                 st, x32, r, ttype, outpos
             )
-            with record_function("crush.choose"):
 
-                o = ~in_leaf
-                o_desc = o & desc
-                o_found = o & found
-                prior = colsR < outpos[:, None]
-                collide = o_found & (prior & (out == item[:, None])).any(1)
-                direct = o_found & ~collide
-                enter_leaf = direct & (item < 0) if leaf else torch.zeros_like(direct)
-                if leaf:
-                    direct = direct & (item >= 0)
-                out_now = self.is_out(item, x32)
-                direct_out = direct & out_now if ttype == 0 else torch.zeros_like(direct)
-                place_direct = direct & ~direct_out
+            o = ~in_leaf
+            o_desc = o & desc
+            o_found = o & found
+            prior = colsR < outpos[:, None]
+            collide = o_found & (prior & (out == item[:, None])).any(1)
+            direct = o_found & ~collide
+            enter_leaf = direct & (item < 0) if leaf else torch.zeros_like(direct)
+            if leaf:
+                direct = direct & (item >= 0)
+            out_now = self.is_out(item, x32)
+            direct_out = direct & out_now if ttype == 0 else torch.zeros_like(direct)
+            place_direct = direct & ~direct_out
 
-                l_desc = in_leaf & desc
-                l_found = in_leaf & found
-                l_rej = l_found & ((prior & (out2 == item[:, None])).any(1) | out_now)
-                l_place = l_found & ~l_rej
-                l_retry_cand = (in_leaf & empty) | l_rej
-                l_exhaust = l_retry_cand & (lftotal + 1 >= leaf_tries)
-                l_retry = l_retry_cand & ~l_exhaust
+            l_desc = in_leaf & desc
+            l_found = in_leaf & found
+            l_rej = l_found & ((prior & (out2 == item[:, None])).any(1) | out_now)
+            l_place = l_found & ~l_rej
+            l_retry_cand = (in_leaf & empty) | l_rej
+            l_exhaust = l_retry_cand & (lftotal + 1 >= leaf_tries)
+            l_retry = l_retry_cand & ~l_exhaust
 
-                outer_reject = (
-                    (o & empty) | collide | direct_out
-                    | (in_leaf & hard_bad) | l_exhaust
-                )
-                or_skip = outer_reject & (ftotal + 1 >= tries)
-                or_retry = outer_reject & ~or_skip
-                place = (place_direct | l_place) & act
-                advance = place | (o & hard_bad) | or_skip
+            outer_reject = (
+                (o & empty) | collide | direct_out
+                | (in_leaf & hard_bad) | l_exhaust
+            )
+            or_skip = outer_reject & (ftotal + 1 >= tries)
+            or_retry = outer_reject & ~or_skip
+            place = (place_direct | l_place) & act
+            advance = place | (o & hard_bad) | or_skip
 
-                sel = place[:, None] & (colsR == outpos[:, None])
-                out = torch.where(
-                    sel, torch.where(l_place, st["domain"], item)[:, None], out
-                )
-                if leaf:
-                    out2 = torch.where(sel, item[:, None], out2)
-                rep = st["rep"] + advance
-                outpos = outpos + place
-                domain = torch.where(enter_leaf, item, st["domain"])
-                return {
-                    "done": st["done"] | (rep >= numrep) | (outpos >= st["slots"]),
-                    "rep": rep,
-                    "outpos": outpos,
-                    "ftotal": torch.where(
-                        advance, 0, torch.where(or_retry, ftotal + 1, ftotal)
-                    ),
-                    "lftotal": torch.where(
-                        enter_leaf, 0, torch.where(l_retry, lftotal + 1, lftotal)
-                    ),
-                    "leaf": enter_leaf | l_desc | l_retry,
-                    "row": torch.where(
-                        o_desc | l_desc | enter_leaf,
-                        nrow,
-                        torch.where(l_retry, self.row_of(domain), st["start"]),
-                    ),
-                    "start": st["start"],
-                    "slots": st["slots"],
-                    "domain": domain,
-                    "depth": torch.where(o_desc | l_desc, st["depth"] + 1, 0),
-                    "out": out,
-                    "out2": out2,
-                }
+            sel = place[:, None] & (colsR == outpos[:, None])
+            out = torch.where(
+                sel, torch.where(l_place, st["domain"], item)[:, None], out
+            )
+            if leaf:
+                out2 = torch.where(sel, item[:, None], out2)
+            rep = st["rep"] + advance
+            outpos = outpos + place
+            domain = torch.where(enter_leaf, item, st["domain"])
+            return {
+                "done": st["done"] | (rep >= numrep) | (outpos >= st["slots"]),
+                "rep": rep,
+                "outpos": outpos,
+                "ftotal": torch.where(
+                    advance, 0, torch.where(or_retry, ftotal + 1, ftotal)
+                ),
+                "lftotal": torch.where(
+                    enter_leaf, 0, torch.where(l_retry, lftotal + 1, lftotal)
+                ),
+                "leaf": enter_leaf | l_desc | l_retry,
+                "row": torch.where(
+                    o_desc | l_desc | enter_leaf,
+                    nrow,
+                    torch.where(l_retry, self.row_of(domain), st["start"]),
+                ),
+                "start": st["start"],
+                "slots": st["slots"],
+                "domain": domain,
+                "depth": torch.where(o_desc | l_desc, st["depth"] + 1, 0),
+                "out": out,
+                "out2": out2,
+            }
 
         def init(start, slots):
             zero = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -1485,112 +1481,110 @@ class _Lanes:
         colsR = torch.arange(R, device=dev)
 
         def step(st, x32):
-            with record_function("crush.choose"):
-                slot, ftotal, lftotal = st["slot"], st["ftotal"], st["lftotal"]
-                in_leaf, out, out2 = st["leaf"], st["out"], st["out2"]
-                act = ~st["done"]
-                stride = numrep
-                if CRUSH_BUCKET_UNIFORM in cm.algs_present:
-                    # a uniform bucket whose size divides numrep
-                    # strides by numrep + 1 (mapper.c:722-728)
-                    bsz = cm.sizes[st["row"]]
-                    stride = torch.where(
-                        (cm.algs[st["row"]] == CRUSH_BUCKET_UNIFORM)
-                        & (bsz > 0)
-                        & (bsz % numrep == 0),
-                        numrep + 1,
-                        numrep,
-                    )
-                r = torch.where(
-                    in_leaf,
-                    slot + st["parent_r"] + stride * lftotal,
-                    slot + stride * ftotal,
+            slot, ftotal, lftotal = st["slot"], st["ftotal"], st["lftotal"]
+            in_leaf, out, out2 = st["leaf"], st["out"], st["out2"]
+            act = ~st["done"]
+            stride = numrep
+            if CRUSH_BUCKET_UNIFORM in cm.algs_present:
+                # a uniform bucket whose size divides numrep
+                # strides by numrep + 1 (mapper.c:722-728)
+                bsz = cm.sizes[st["row"]]
+                stride = torch.where(
+                    (cm.algs[st["row"]] == CRUSH_BUCKET_UNIFORM)
+                    & (bsz > 0)
+                    & (bsz % numrep == 0),
+                    numrep + 1,
+                    numrep,
                 )
+            r = torch.where(
+                in_leaf,
+                slot + st["parent_r"] + stride * lftotal,
+                slot + stride * ftotal,
+            )
             # choose_args position: outer draws pass the frame's outpos,
             # 0 from do_rule (mapper.c:736-739); the leaf recursion
             # enters with outpos = rep (:790-794), the slot
             item, empty, found, desc, hard_bad, nrow = self.step_draw(
                 st, x32, r, ttype, torch.where(in_leaf, slot, 0)
             )
-            with record_function("crush.choose"):
 
-                o = ~in_leaf
-                o_desc = o & desc
-                o_found = o & found
-                collide = o_found & (out == item[:, None]).any(1)
-                direct = o_found & ~collide
-                enter_leaf = direct & (item < 0) if leaf else torch.zeros_like(direct)
-                if leaf:
-                    direct = direct & (item >= 0)
-                out_now = self.is_out(item, x32)
-                direct_out = direct & out_now if ttype == 0 else torch.zeros_like(direct)
-                place_direct = direct & ~direct_out
+            o = ~in_leaf
+            o_desc = o & desc
+            o_found = o & found
+            collide = o_found & (out == item[:, None]).any(1)
+            direct = o_found & ~collide
+            enter_leaf = direct & (item < 0) if leaf else torch.zeros_like(direct)
+            if leaf:
+                direct = direct & (item >= 0)
+            out_now = self.is_out(item, x32)
+            direct_out = direct & out_now if ttype == 0 else torch.zeros_like(direct)
+            place_direct = direct & ~direct_out
 
-                l_desc = in_leaf & desc
-                l_found = in_leaf & found
-                l_rej = l_found & out_now
-                l_place = l_found & ~l_rej
-                l_retry_cand = (in_leaf & empty) | l_rej
-                l_exhaust = l_retry_cand & (lftotal + 1 >= leaf_tries)
-                l_retry = l_retry_cand & ~l_exhaust
+            l_desc = in_leaf & desc
+            l_found = in_leaf & found
+            l_rej = l_found & out_now
+            l_place = l_found & ~l_rej
+            l_retry_cand = (in_leaf & empty) | l_rej
+            l_exhaust = l_retry_cand & (lftotal + 1 >= leaf_tries)
+            l_retry = l_retry_cand & ~l_exhaust
 
-                place = (place_direct | l_place) & act
-                kill = o & hard_bad & act  # slot permanently NONE
-                # break: the slot stays UNDEF for a later round
-                brk = (
-                    (o & empty) | collide | direct_out
-                    | (in_leaf & hard_bad) | l_exhaust
+            place = (place_direct | l_place) & act
+            kill = o & hard_bad & act  # slot permanently NONE
+            # break: the slot stays UNDEF for a later round
+            brk = (
+                (o & empty) | collide | direct_out
+                | (in_leaf & hard_bad) | l_exhaust
+            )
+            at = colsR == slot[:, None]
+            put = at & place[:, None]
+            none = at & kill[:, None]
+            out = torch.where(
+                put,
+                torch.where(l_place, st["domain"], item)[:, None],
+                torch.where(none, CRUSH_ITEM_NONE, out),
+            )
+            if leaf:
+                out2 = torch.where(
+                    put, item[:, None], torch.where(none, CRUSH_ITEM_NONE, out2)
                 )
-                at = colsR == slot[:, None]
-                put = at & place[:, None]
-                none = at & kill[:, None]
-                out = torch.where(
-                    put,
-                    torch.where(l_place, st["domain"], item)[:, None],
-                    torch.where(none, CRUSH_ITEM_NONE, out),
-                )
-                if leaf:
-                    out2 = torch.where(
-                        put, item[:, None], torch.where(none, CRUSH_ITEM_NONE, out2)
-                    )
-                left = st["left"] - (place | kill).to(torch.int64)
-                finished = place | kill | brk
-                # the next UNDEF slot after this one; a wrap starts the
-                # next round
-                undef = out == CRUSH_ITEM_UNDEF
-                after = undef & (colsR > slot[:, None])
-                has_after = after.any(1)
-                nxt = torch.where(
-                    has_after,
-                    after.to(torch.int8).argmax(1),
-                    undef.to(torch.int8).argmax(1),
-                )
-                adv_ftotal = ftotal + (~has_after).to(torch.int64)
-                adv_done = (left <= 0) | ~undef.any(1) | (adv_ftotal >= tries)
-                domain = torch.where(enter_leaf, item, st["domain"])
-                return {
-                    "done": st["done"] | (finished & adv_done),
-                    "slot": torch.where(finished, nxt, slot),
-                    "left": left,
-                    "ftotal": torch.where(finished, adv_ftotal, ftotal),
-                    "leaf": (enter_leaf | l_desc | l_retry) & ~finished,
-                    "row": torch.where(
-                        o_desc | l_desc | enter_leaf,
-                        nrow,
-                        torch.where(
-                            l_retry & ~finished, self.row_of(domain), st["start"]
-                        ),
+            left = st["left"] - (place | kill).to(torch.int64)
+            finished = place | kill | brk
+            # the next UNDEF slot after this one; a wrap starts the
+            # next round
+            undef = out == CRUSH_ITEM_UNDEF
+            after = undef & (colsR > slot[:, None])
+            has_after = after.any(1)
+            nxt = torch.where(
+                has_after,
+                after.to(torch.int8).argmax(1),
+                undef.to(torch.int8).argmax(1),
+            )
+            adv_ftotal = ftotal + (~has_after).to(torch.int64)
+            adv_done = (left <= 0) | ~undef.any(1) | (adv_ftotal >= tries)
+            domain = torch.where(enter_leaf, item, st["domain"])
+            return {
+                "done": st["done"] | (finished & adv_done),
+                "slot": torch.where(finished, nxt, slot),
+                "left": left,
+                "ftotal": torch.where(finished, adv_ftotal, ftotal),
+                "leaf": (enter_leaf | l_desc | l_retry) & ~finished,
+                "row": torch.where(
+                    o_desc | l_desc | enter_leaf,
+                    nrow,
+                    torch.where(
+                        l_retry & ~finished, self.row_of(domain), st["start"]
                     ),
-                    "start": st["start"],
-                    "domain": domain,
-                    "lftotal": torch.where(
-                        enter_leaf, 0, torch.where(l_retry, lftotal + 1, lftotal)
-                    ),
-                    "depth": torch.where(o_desc | l_desc, st["depth"] + 1, 0),
-                    "parent_r": torch.where(enter_leaf, r, st["parent_r"]),
-                    "out": out,
-                    "out2": out2,
-                }
+                ),
+                "start": st["start"],
+                "domain": domain,
+                "lftotal": torch.where(
+                    enter_leaf, 0, torch.where(l_retry, lftotal + 1, lftotal)
+                ),
+                "depth": torch.where(o_desc | l_desc, st["depth"] + 1, 0),
+                "parent_r": torch.where(enter_leaf, r, st["parent_r"]),
+                "out": out,
+                "out2": out2,
+            }
 
         def init(start, slots):
             zero = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -1630,147 +1624,95 @@ def _plan_key(plan: dict) -> tuple:
 
 
 def _replays(cm: CompiledMap, lanes: int) -> bool:
-    """Whether a chooser over ``lanes`` lanes replays a recording (a
-    generic chooser's ``_Block``, the fast path's ``_FastBlock``): on the
-    card, where a batch this wide makes each launch worth saving."""
+    """Whether a chooser over ``lanes`` lanes runs through recorders
+    (``_Recorder``): on the card, where a batch this wide makes each
+    launch worth saving."""
     return cm.device.type == "cuda" and lanes >= GRAPH_LANES
 
 
-class _Block:
-    """SYNC_EVERY steps of a generic chooser, from static input tensors
-    to static outputs, recorded once as a CUDA graph on the card (one
-    launch a replay for the ~200 of each step; the steps themselves on
-    another device), and the chooser's starting state built from its
-    start rows and slots, recorded as a second graph.  The recordings
-    read the map's tables, the input tensors and the recording lanes'
-    weight vector in place, so a call first loads its start rows,
-    slots, lanes and weights into them and replays the start; each
-    replay leaves the state it reached in the state tensors for the
-    next.  Every lane steps in every replay: a finished lane's outputs
-    do not change."""
+class _Recorder:
+    """``fn()``, a function over static tensors (``ins``, which a caller
+    loads; ``fn`` reads them in place, as it does the map's tables), run
+    by one policy: eagerly in its first call, which also loads every
+    kernel a recording launches; in its second recorded as a CUDA graph
+    on the map's card (``_capture``) and replayed; replayed in every
+    later call.  Off the card every call runs ``fn`` eagerly.  A replay
+    returns ``fn``'s outputs as recorded, the recording's own tensors
+    (the next replay overwrites them), and counts the straw2 launches
+    the recording holds."""
 
-    def __init__(self, lanes: _Lanes, step, init, start, slots, x32):
-        self.cm, self.step, self.init, self.wv = lanes.cm, step, init, lanes.wv
-        self.start, self.slots, self.x32 = start.clone(), slots.clone(), x32.clone()
-        self.ins = {k: v.clone() for k, v in init(self.start, self.slots).items()}
-        self.graph = self.first = None
-        if self.cm.device.type != "cuda":
-            return
-        # one pass outside the recordings loads every kernel they launch;
-        # unlike the fast path's, the recording pays off in its first call,
-        # which replays it until every lane is done
-        self._init()
-        self._steps()
-        self.first, _, _ = _capture(self.cm, self._init)
-        self.graph, _, self.draws = _capture(self.cm, self._steps)
+    def __init__(self, cm: CompiledMap, fn, ins: dict):
+        self.cm, self.fn, self.ins = cm, fn, ins
+        self.calls = self.draws = 0
+        self.graph = self.outs = None
 
-    def _init(self) -> None:
-        """The starting state from the start rows and slots, written into
-        the state tensors."""
-        for k, v in self.init(self.start, self.slots).items():
+    def load(self, **values) -> None:
+        for k, v in values.items():
             self.ins[k].copy_(v)
 
-    def _steps(self) -> None:
-        """SYNC_EVERY steps from the input tensors, the state reached
-        written back into them."""
-        st = self.ins
-        for _ in range(SYNC_EVERY):
-            st = self.step(st, self.x32)
-        for k, v in st.items():
-            if v is not self.ins[k]:
-                self.ins[k].copy_(v)
-
-    def load(self, start, slots, x32, wv) -> None:
-        self.start.copy_(start)
-        self.slots.copy_(slots)
-        self.x32.copy_(x32)
-        self.wv.copy_(wv)
-        if self.first is None:
-            self._init()
-        else:
-            _replay(self.cm, self.first, 0)
-
-    def replay(self) -> None:
-        if self.graph is None:
-            self._steps()
-        else:
-            _replay(self.cm, self.graph, self.draws)
-
-
-class _FastBlock:
-    """The fast firstn path of one plan over one batch width, from a
-    static lanes tensor and weight vector to static outputs, recorded
-    as a CUDA graph on the card: both candidate descents, ``is_out`` and
-    the state machine's replay, thousands of launches, as one.  The
-    recording bakes in the plan's take row and candidate tables and
-    reads the map's tables and its inputs in place, so a call loads its
-    lanes and weights, replays, and returns copies of the outputs (the
-    next call's replay overwrites them).  The first call runs the steps
-    eagerly, which loads every kernel the recording launches; the second
-    records, so a width mapped once never pays for a recording; on
-    another device every call runs the steps eagerly."""
-
-    def __init__(self, lanes: _Lanes, plan: dict, x32):
-        self.cm, self.plan = lanes.cm, plan
-        self.x32 = torch.empty_like(x32)
-        self.lanes = _Lanes(lanes.cm, torch.empty_like(lanes.wv))
-        self.graph = self.outs = None
-        self.calls = self.draws = 0
-
-    def _steps(self):
-        return self.lanes._fast_firstn(self.plan, self.x32)
-
-    def run(self, x32, wv):
-        global fast_replays
-        self.x32.copy_(x32)
-        self.lanes.wv.copy_(wv)
-        fast_replays += 1
+    def __call__(self):
         self.calls += 1
-        if self.calls == 2 and self.cm.device.type == "cuda":
-            self.graph, self.outs, self.draws = _capture(self.cm, self._steps)
         if self.graph is None:
-            return self._steps()
-        _replay(self.cm, self.graph, self.draws)
-        return tuple(t.clone() for t in self.outs)
+            if self.calls == 1 or self.cm.device.type != "cuda":
+                return self.fn()
+            before = counts["crush_kernel_draws"]
+            self.graph, self.outs = _capture(self.cm, self.fn)
+            # recorded, not run: each replay counts them
+            self.draws = counts["crush_kernel_draws"] - before
+            counts["crush_kernel_draws"] = before
+        with torch.cuda.device(self.cm.items.device):
+            self.graph.replay()
+        counts["crush_kernel_draws"] += self.draws
+        return self.outs
+
+
+def _chooser_recorders(lanes: _Lanes, step, init, start, slots, x32):
+    """A generic chooser's two recorders over one set of static tensors:
+    its start, the state ``init`` builds from the start rows and slots,
+    and its block, SYNC_EVERY ``step``s from that state with the state
+    reached written back into it (one launch a replay for the ~200 of
+    each step).  Each replay leaves the state for the next; every lane
+    steps in every replay (a finished lane's outputs do not change).
+    ``step`` reads ``lanes``' weight vector, which becomes static too."""
+    ins = {"start": start.clone(), "slots": slots.clone(), "x32": x32.clone(), "wv": lanes.wv}
+    state = {k: v.clone() for k, v in init(ins["start"], ins["slots"]).items()}
+
+    def begin() -> None:
+        for k, v in init(ins["start"], ins["slots"]).items():
+            state[k].copy_(v)
+
+    def block() -> None:
+        st = state
+        for _ in range(SYNC_EVERY):
+            st = step(st, ins["x32"])
+        for k, v in st.items():
+            if v is not state[k]:
+                state[k].copy_(v)
+
+    return _Recorder(lanes.cm, begin, ins), _Recorder(lanes.cm, block, state)
 
 
 def _capture(cm: CompiledMap, fn):
     """``fn()`` recorded as a CUDA graph on the card that holds ``cm``'s
     tables, under that card and on a capture stream of this thread's
     there, whichever card is current (the mesh route maps each shard on
-    its own card from one thread).  Returns (graph, ``fn``'s outputs,
-    the straw2 launches recorded), the launches taken off
-    ``draw_launches`` again: recorded, not run."""
-    global draw_launches
+    its own card from one thread).  Returns (graph, ``fn``'s outputs)."""
     dev = cm.items.device
     streams = getattr(_BLOCKS, "streams", None)
     if streams is None:
         streams = _BLOCKS.streams = {}
     if dev not in streams:
         streams[dev] = torch.cuda.Stream(dev)
-    before = draw_launches
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.device(dev), torch.cuda.graph(
         graph, stream=streams[dev], capture_error_mode="thread_local"
     ):
         outs = fn()
-    draws = draw_launches - before
-    draw_launches = before
-    return graph, outs, draws
+    return graph, outs
 
 
-def _replay(cm: CompiledMap, graph, draws: int) -> None:
-    """One replay of ``graph`` (recorded by ``_capture``) on ``cm``'s
-    card's current stream, after the loads of its inputs there; counts
-    its ``draws`` straw2 launches."""
-    global draw_launches
-    with torch.cuda.device(cm.items.device):
-        graph.replay()
-    draw_launches += draws
-
-
-# Each thread's recordings by (chooser, plan, lanes, weights, device),
-# the newest last: a replay loads its inputs into the recording's own
+# Each thread's recorders by (chooser, plan, lanes, weights, device),
+# the newest last: a run loads its inputs into the recorders' own
 # tensors, so two threads never share one.
 _BLOCKS = threading.local()
 _BLOCKS_MAX = 16
@@ -1784,17 +1726,18 @@ def _block_cache() -> collections.OrderedDict:
 
 
 def _recorded(key, cm: CompiledMap, make):
-    """This thread's recording for ``key``, made by ``make()`` where it
-    has none or one made against another compiled map."""
+    """This thread's recorders for ``key`` (a tuple of them, over one
+    compiled map), made by ``make()`` where it has none or ones made
+    against another compiled map."""
     blocks = _block_cache()
-    block = blocks.get(key)
-    if block is None or block.cm is not cm:
-        block = blocks[key] = make()
+    got = blocks.get(key)
+    if got is None or got[0].cm is not cm:
+        got = blocks[key] = make()
         while len(blocks) > _BLOCKS_MAX:
             blocks.popitem(last=False)
     else:
         blocks.move_to_end(key)
-    return block
+    return got
 
 
 def step_span(step: int, plan: dict, lanes: int, chained: bool):
@@ -1822,7 +1765,6 @@ def _chained_step(lanes: _Lanes, plan, x32, w, result_max: int):
     earlier items; a firstn sub-lane runs to ``nslots`` and keeps what
     fits, the same first placements.  The results are packed per lane
     in item order: (w' (N, W'), count (N,))."""
-    global chained_lanes
     dev = lanes.cm.device
     n, width = w.shape
     nslots = plan["nslots"]
@@ -1835,25 +1777,24 @@ def _chained_step(lanes: _Lanes, plan, x32, w, result_max: int):
         # result_max: osize = min(result_max, nslots * those items)
         before = live.cumsum(1) - live.to(torch.int64)
         slots = torch.where(live, (result_max - nslots * before).clamp(0, nslots), 0)
-    chained_lanes += n * width
+    counts["crush_chained_lanes"] += n * width
     chooser = lanes.choose_firstn if plan["firstn"] else lanes.choose_indep
     got, cnt, _ok = chooser(
         plan, x32.repeat_interleave(width),
         start=rows.reshape(-1).clamp_min(0), slots=slots.reshape(-1),
     )
-    with record_function("crush.pack"):
-        cnt = cnt.view(n, width)
-        out_w = min(width * nslots, result_max)
-        # item i keeps what fits after the earlier items' counts, each
-        # sum clamped to result_max; its slots go to that sum + j, the
-        # rest to a spare column
-        total = cnt.cumsum(1)
-        begins = (total - cnt).clamp_max(result_max)
-        take = total.clamp_max(result_max) - begins
-        cols = torch.arange(nslots, device=dev)
-        dest = torch.where(cols < take[..., None], begins[..., None] + cols, out_w)
-        out = torch.full((n, out_w + 1), CRUSH_ITEM_NONE, device=dev)
-        out.scatter_(1, dest.view(n, -1), got.view(n, -1))
+    cnt = cnt.view(n, width)
+    out_w = min(width * nslots, result_max)
+    # item i keeps what fits after the earlier items' counts, each
+    # sum clamped to result_max; its slots go to that sum + j, the
+    # rest to a spare column
+    total = cnt.cumsum(1)
+    begins = (total - cnt).clamp_max(result_max)
+    take = total.clamp_max(result_max) - begins
+    cols = torch.arange(nslots, device=dev)
+    dest = torch.where(cols < take[..., None], begins[..., None] + cols, out_w)
+    out = torch.full((n, out_w + 1), CRUSH_ITEM_NONE, device=dev)
+    out.scatter_(1, dest.view(n, -1), got.view(n, -1))
     return out[:, :out_w], take.sum(1)
 
 
@@ -1888,24 +1829,22 @@ def _run_rule(cm: CompiledMap, plans, xs, wv, result_max: int):
         if chained and not emitted:
             # a chained step's output is packed, NONE past each count:
             # the rule's first emit copies it whole
-            with record_function("crush.emit"):
-                result[:, : got.shape[1]] = got
-                rlen = cnt
+            result[:, : got.shape[1]] = got
+            rlen = cnt
             emitted = True
             continue
         emitted = True
-        with record_function("crush.emit"):
-            ok = ok & okg
-            # append got[:cnt] to result at rlen
-            for i in range(got.shape[1]):
-                slot = rlen + i
-                valid = (i < cnt) & (slot < result_max)
-                result = torch.where(
-                    valid[:, None] & (cols == slot[:, None]),
-                    got[:, i : i + 1],
-                    result,
-                )
-            rlen = torch.clamp(rlen + cnt, max=result_max)
+        ok = ok & okg
+        # append got[:cnt] to result at rlen
+        for i in range(got.shape[1]):
+            slot = rlen + i
+            valid = (i < cnt) & (slot < result_max)
+            result = torch.where(
+                valid[:, None] & (cols == slot[:, None]),
+                got[:, i : i + 1],
+                result,
+            )
+        rlen = torch.clamp(rlen + cnt, max=result_max)
     return result.to(torch.int32), rlen.to(torch.int32), ok
 
 
@@ -1923,15 +1862,20 @@ def batch_do_rule_raw(
 ):
     """The batched rule's raw output for inputs ``xs``, as device
     tensors: (results (N, result_max) int32, counts (N,) int32, ok (N,)
-    bool).  Lanes with ok == False outran the fast path's speculation
-    window; ``apply_oracle_fallback`` finishes them."""
+    bool), CHUNK lanes a run of the rule, over one upload of the weights
+    and one lookup of the plans.  Lanes with ok == False outran the fast
+    path's speculation window; ``apply_oracle_fallback`` finishes them."""
     if weights is not None:  # one conversion of a list for both readers
         weights = np.asarray(weights, dtype=np.int64)
     plans = _plans(cm, ruleno, result_max, _spec_boost_for(weights))
     xs = torch.as_tensor(xs, device=cm.device).to(torch.int64)
     with host_wait("weights_upload"):
         wv = _weight_vector(cm, weights)
-    return _run_rule(cm, plans, xs, wv, result_max)
+    parts = [
+        _run_rule(cm, plans, xs[i : i + CHUNK], wv, result_max)
+        for i in range(0, max(xs.shape[0], 1), CHUNK)
+    ]
+    return parts[0] if len(parts) == 1 else tuple(torch.cat(p) for p in zip(*parts))
 
 
 def apply_oracle_fallback(
@@ -1939,7 +1883,7 @@ def apply_oracle_fallback(
     ruleno: int,
     xs,
     res,
-    counts,
+    cnt,
     ok,
     result_max: int,
     weights=None,
@@ -1948,8 +1892,7 @@ def apply_oracle_fallback(
     (ok == False) through the exact oracle; returns finalized numpy
     (results, counts).  Accepts device tensors or numpy, and the packed
     int16 wire form (see batch_do_rule_range), which it unpacks.  Adds
-    the number of lanes it re-mapped to ``fallback_lanes``."""
-    global fallback_lanes
+    the number of lanes it re-mapped to ``crush_oracle_lanes``."""
 
     def host(v):
         if not isinstance(v, torch.Tensor):
@@ -1957,12 +1900,12 @@ def apply_oracle_fallback(
         with host_wait("oracle_download"):
             return v.cpu().numpy()
 
-    res, counts, ok = host(res), host(counts), host(ok)
+    res, cnt, ok = host(res), host(cnt), host(ok)
     if res.dtype == np.int16:
         res32 = res.astype(np.int32)
         res32[res == -32768] = CRUSH_ITEM_NONE
         res = res32
-        counts = counts.astype(np.int32)
+        cnt = cnt.astype(np.int32)
     bad = np.nonzero(~ok)[0]
     if bad.size:
         if getattr(cm.source, "mutation", 0) != cm.source_mutation:
@@ -1975,15 +1918,15 @@ def apply_oracle_fallback(
             weights = np.full(max(cm.max_devices, 1), 0x10000, np.int64)
         wl = [int(w) for w in np.asarray(weights)]
         res = res.copy()
-        counts = counts.copy()
+        cnt = cnt.copy()
         xs = host(xs)
         for i in bad:
             row = cm.source.do_rule(ruleno, int(xs[i]), result_max, wl)
             res[i, :] = CRUSH_ITEM_NONE
             res[i, : len(row)] = row
-            counts[i] = len(row)
-        fallback_lanes += int(bad.size)
-    return res, counts
+            cnt[i] = len(row)
+        counts["crush_oracle_lanes"] += int(bad.size)
+    return res, cnt
 
 
 def batch_do_rule(
@@ -1994,18 +1937,12 @@ def batch_do_rule(
     weights=None,
 ):
     """Map a batch of inputs: xs (N,) -> (results (N, result_max) int32
-    padded with CRUSH_ITEM_NONE, counts (N,)) as numpy arrays, CHUNK
-    lanes a device call, the oracle fallback applied.  ``weights`` is
-    the 16.16 device reweight vector."""
+    padded with CRUSH_ITEM_NONE, counts (N,)) as numpy arrays, the
+    oracle fallback applied.  ``weights`` is the 16.16 device reweight
+    vector."""
     xs = torch.as_tensor(np.asarray(xs, dtype=np.int64), device=cm.device)
-    parts = [
-        batch_do_rule_raw(cm, ruleno, xs[i : i + CHUNK], result_max, weights)
-        for i in range(0, max(xs.shape[0], 1), CHUNK)
-    ]
-    res, counts, ok = (torch.cat(p) for p in zip(*parts))
-    return apply_oracle_fallback(
-        cm, ruleno, xs, res, counts, ok, result_max, weights
-    )
+    res, cnt, ok = batch_do_rule_raw(cm, ruleno, xs, result_max, weights)
+    return apply_oracle_fallback(cm, ruleno, xs, res, cnt, ok, result_max, weights)
 
 
 def batch_do_rule_range(
@@ -2034,9 +1971,8 @@ def batch_do_rule_range(
     xs = lo + torch.arange(n, dtype=torch.int64, device=cm.device)
     res, counts, ok = batch_do_rule_raw(cm, ruleno, xs, result_max, weights)
     if packed:
-        with record_function("crush.emit"):
-            res = torch.where(res == CRUSH_ITEM_NONE, -32768, res).to(torch.int16)
-            counts = counts.to(torch.uint8)
+        res = torch.where(res == CRUSH_ITEM_NONE, -32768, res).to(torch.int16)
+        counts = counts.to(torch.uint8)
     return res, counts, ok
 
 

@@ -100,38 +100,33 @@ def _download(t: torch.Tensor) -> np.ndarray:
     return out.numpy()
 
 
+# ``perf dump``'s counters of an update, name -> description; the keys
+# of ``torchmap.counts`` among them
+_COUNTERS = {
+    "updates": "full-map recomputes",
+    "pgs_mapped": "PGs mapped across updates",
+    "crush_oracle_lanes": "lanes the oracle re-mapped past the fast path",
+    "crush_compiles": "CRUSH tables compiled (compile_map) for updates",
+    "host_syncs": "points where the host waited for the device",
+    "crush_kernel_draws": "launches of the straw2 draw kernel (CUDA maps)",
+    "crush_chained_lanes":
+        "sub-lanes of chained choose steps (a PG and an item of its working vector)",
+    "crush_fast_replays":
+        "chunks the fast firstn path mapped through its recording (a CUDA graph)",
+    "crush_host_route_pgs":
+        "PGs mapped by the scalar oracle because the batched mapper refused the map",
+}
+
+
 def _build_perf():
     from ..common import PerfCountersBuilder
 
-    return (
-        PerfCountersBuilder("osdmap_mapping")
-        .add_u64_counter("updates", "full-map recomputes")
-        .add_u64_counter("pgs_mapped", "PGs mapped across updates")
-        .add_time_avg("fixup_stages", "fix-up stage time, download included")
-        .add_u64_counter(
-            "crush_oracle_lanes", "lanes the oracle re-mapped past the fast path"
-        )
-        .add_u64_counter(
-            "crush_compiles", "CRUSH tables compiled (compile_map) for updates"
-        )
-        .add_u64_counter("host_syncs", "points where the host waited for the device")
-        .add_u64_counter(
-            "crush_kernel_draws", "launches of the straw2 draw kernel (CUDA maps)"
-        )
-        .add_u64_counter(
-            "crush_chained_lanes",
-            "sub-lanes of chained choose steps (a PG and an item of its working vector)",
-        )
-        .add_u64_counter(
-            "crush_fast_replays",
-            "chunks the fast firstn path mapped through its recording (a CUDA graph)",
-        )
-        .add_u64_counter(
-            "crush_host_route_pgs",
-            "PGs mapped by the scalar oracle because the batched mapper refused the map",
-        )
-        .create_perf_counters()
+    perf = PerfCountersBuilder("osdmap_mapping").add_time_avg(
+        "fixup_stages", "fix-up stage time, download included"
     )
+    for name, desc in _COUNTERS.items():
+        perf.add_u64_counter(name, desc)
+    return perf.create_perf_counters()
 
 
 class OSDMapMapping:
@@ -158,9 +153,7 @@ class OSDMapMapping:
         maps through the scalar oracle and fixes up on the CPU."""
         self.epoch = osdmap.epoch
         self.perf.inc("updates")
-        lanes, waits = torchmap.fallback_lanes, torchmap.host_waits
-        draws, chained = torchmap.draw_launches, torchmap.chained_lanes
-        replays = torchmap.fast_replays
+        before = torchmap.counts.copy()
         pgs = sum(pool.pg_num for pool in osdmap.pools.values())
         tags = {"epoch": osdmap.epoch, "pools": len(osdmap.pools), "pgs": pgs}
         with tracing.span("osdmap_mapping.update", tags=tags):
@@ -168,11 +161,8 @@ class OSDMapMapping:
                 self._update_pool(osdmap, pool, use_device)
                 self.perf.inc("pgs_mapped", pool.pg_num)
         self._seeds = {k: v for k, v in self._seeds.items() if k in osdmap.pools}
-        self.perf.inc("crush_oracle_lanes", torchmap.fallback_lanes - lanes)
-        self.perf.inc("host_syncs", torchmap.host_waits - waits)
-        self.perf.inc("crush_kernel_draws", torchmap.draw_launches - draws)
-        self.perf.inc("crush_chained_lanes", torchmap.chained_lanes - chained)
-        self.perf.inc("crush_fast_replays", torchmap.fast_replays - replays)
+        for name, n in (torchmap.counts - before).items():
+            self.perf.inc(name, n)
 
     def _update_pool(
         self, osdmap: OSDMap, pool: PgPool, use_device: bool
@@ -285,20 +275,9 @@ class OSDMapMapping:
             from ..ops.residency import note_shape
 
             dmesh = default_mesh()
+            mesh = dmesh is not None and dmesh.serves(self.device)
             try:
-                if dmesh is not None and dmesh.serves(self.device):
-                    with dispatch_profiler().dispatch(
-                        "crush", backend="torch"
-                    ) as dp:
-                        dp.set_ops(1)
-                        dp.set_stripes(n)
-                        dp.add_bytes_in(n * 8)
-                        note_shape("crush_batch", n, pool.size)
-                        return self._mesh_rule(
-                            dp, osdmap.crush, ruleno, pps, pool.size,
-                            osdmap.osd_weight,
-                        )
-                cm = _compiled(osdmap.crush, dev)
+                cm = None if mesh else _compiled(osdmap.crush, dev)
                 # an UnsupportedMap raised in here discards the
                 # flight-recorder entry (no commit on exception); the
                 # oracle loop below records its own
@@ -309,6 +288,11 @@ class OSDMapMapping:
                     dp.set_stripes(n)
                     dp.add_bytes_in(n * 8)
                     note_shape("crush_batch", n, pool.size)
+                    if mesh:
+                        return self._mesh_rule(
+                            dp, osdmap.crush, ruleno, pps, pool.size,
+                            osdmap.osd_weight,
+                        )
                     return self._device_rule(
                         dp, cm, ruleno, pps, pool.size, osdmap.osd_weight
                     )
@@ -352,20 +336,11 @@ class OSDMapMapping:
 
     @staticmethod
     def _device_rule(dp, cm, ruleno, pps, size, weights):
-        """torchmap's raw output over CHUNK-lane pieces, the oracle's
-        rows written over the lanes that outran the fast path's window
-        (one read of their indices), positions past each count NONE."""
-        n = pps.shape[0]
+        """torchmap's raw output, the oracle's rows written over the lanes
+        that outran the fast path's window (one read of their indices),
+        positions past each count NONE."""
         with dp.stage("compute"):
-            parts = [
-                torchmap.batch_do_rule_raw(
-                    cm, ruleno, pps[i : i + torchmap.CHUNK], size, weights
-                )
-                for i in range(0, n, torchmap.CHUNK)
-            ]
-            res, counts, ok = (
-                parts[0] if len(parts) == 1 else (torch.cat(p) for p in zip(*parts))
-            )
+            res, counts, ok = torchmap.batch_do_rule_raw(cm, ruleno, pps, size, weights)
             res, counts = res.to(torch.int64), counts.to(torch.int64)
         with dp.stage("sync"):
             with torchmap.host_wait("ok_read"):

@@ -70,15 +70,10 @@ def sharded_batch_do_rule(
     padded, n = meshmod.pad_to_devices(xs_np, dmesh.n)
     t0 = time.perf_counter()
     tables = {dev: _tables(cmap, dev) for dev in dmesh.distinct()}
-    raw = []
-    for part, dev in zip(dmesh.split(torch.from_numpy(padded)), dmesh.devices):
-        pieces = [
-            torchmap.batch_do_rule_raw(
-                tables[dev], ruleno, part[i : i + torchmap.CHUNK], result_max, weights
-            )
-            for i in range(0, max(part.shape[0], 1), torchmap.CHUNK)
-        ]
-        raw.append([torch.cat(p) for p in zip(*pieces)])
+    raw = [
+        torchmap.batch_do_rule_raw(tables[dev], ruleno, part, result_max, weights)
+        for part, dev in zip(dmesh.split(torch.from_numpy(padded)), dmesh.devices)
+    ]
     # host-side re-assembly: gather every shard, drop the pad lanes
     res, counts, ok = (dmesh.gather(list(p)).numpy()[:n] for p in zip(*raw))
     meshmod.record_shard_dispatch(

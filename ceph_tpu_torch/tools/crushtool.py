@@ -166,11 +166,11 @@ def _map_range(m: CrushMap, args, weights, timed: bool = True):
                   file=sys.stderr)
             backend = "oracle"
     if backend == "torch":
-        before = torchmap.fallback_lanes
+        before = torchmap.counts["crush_oracle_lanes"]
         res, counts = torchmap.batch_do_rule(
             cm, args.rule, xs, args.num_rep, weights
         )
-        fallback = torchmap.fallback_lanes - before
+        fallback = torchmap.counts["crush_oracle_lanes"] - before
         elapsed = time.perf_counter() - t0
         if timed:
             # time a second pass for the throughput figure

@@ -848,8 +848,6 @@ def phase_resident():
 CRUSH_PGS = 1 << 20
 CRUSH_CHUNK = 1 << 19
 CRUSH_VARIANT_PGS = 1 << 18
-CRUSH_LABELS = ("crush.hash", "crush.ln", "crush.draw", "crush.replay", "crush.choose",
-                "crush.emit")
 
 
 def _oracle_rows(job):
@@ -864,46 +862,6 @@ def _hold_against_oracle(pool, cmap, rule, rmax, xs, res, counts) -> None:
     for x, w in zip(xs, want):
         got = res[x, : counts[x]].tolist()
         check(got == w, f"rule {rule} x={x}: {got} != oracle {w}")
-
-
-def _profile_split(fn) -> dict:
-    """Device time of one call under torch.profiler, split by the
-    mapper's ``record_function`` labels (exclusive of nested labels),
-    with kernels and copies summed and the idle share of the host
-    clock's time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def labelled_below(ev) -> float:
-        tot = 0.0
-        for ch in ev.cpu_children:
-            tot += ch.device_time_total if ch.name in CRUSH_LABELS else labelled_below(ch)
-        return tot
-
-    split = dict.fromkeys(CRUSH_LABELS, 0.0)
-    kernels = copies = 0.0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CPU and ev.name in CRUSH_LABELS:
-            split[ev.name] += (ev.device_time_total - labelled_below(ev)) / 1e3
-        for k in ev.kernels:
-            if "memcpy" in k.name.lower():
-                copies += k.duration / 1e3
-            else:
-                kernels += k.duration / 1e3
-    out = {"wall_ms": wall_ms, "kernels_ms": kernels, "copies_ms": copies}
-    if kernels == 0.0:
-        out["note"] = "device time not measured (the profiler saw no kernel)"
-        return out
-    out["split_ms"] = {k.split(".")[1]: v for k, v in split.items()}
-    out["split_ms"]["unlabelled"] = kernels + copies - sum(split.values())
-    out["idle_share"] = 1 - (kernels + copies) / wall_ms
-    return out
 
 
 def _crush_rule(pool, smi: str, pm, cm, rule: int, rmax: int, n: int) -> dict:
@@ -925,11 +883,11 @@ def _crush_rule(pool, smi: str, pm, cm, rule: int, rmax: int, n: int) -> dict:
         return (np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]),
                 np.concatenate(oks))
 
-    tm.fallback_lanes = 0
+    tm.counts["crush_oracle_lanes"] = 0
     t0 = time.perf_counter()
     res, counts, ok = one_pass()
     first_s = time.perf_counter() - t0
-    fallback = tm.fallback_lanes
+    fallback = tm.counts["crush_oracle_lanes"]
     check(res.shape == (n, rmax) and counts.shape == (n,), f"rule {rule}: shapes {res.shape}")
     check(bool((counts == rmax).all()), f"rule {rule}: short mappings {int((counts < rmax).sum())}")
     times = []
@@ -961,8 +919,6 @@ def _crush_rule(pool, smi: str, pm, cm, rule: int, rmax: int, n: int) -> dict:
     run = tm.make_chained_runner(cm, rule, rmax, CRUSH_CHUNK, iters=4)
     run(0)
     chained = sorted(run(1 + t)[1] for t in range(3))[1]
-    prof = _profile_split(lambda: tm.batch_do_rule_range(cm, rule, 0, CRUSH_CHUNK, rmax,
-                                                         packed=True))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = crushtool.main(["--build", "10000:40:25", "--test", "--max-x", str(n),
@@ -976,14 +932,13 @@ def _crush_rule(pool, smi: str, pm, cm, rule: int, rmax: int, n: int) -> dict:
         "pgs": n, "positions": rmax, "fallback_lanes": fallback,
         "first_pass_s": first_s, "e2e_s": e2e_s, "e2e_mappings_per_s": n / e2e_s,
         "chained_ms": chained, "chained_mappings_per_s": 4 * CRUSH_CHUNK / chained * 1e3,
-        "profile": prof, "crushtool": lines[0], "chi2": stats["chi2"],
+        "crushtool": lines[0], "chi2": stats["chi2"],
         "bad_mappings": stats["bad"], "oracle_checked": int(len(xs)),
     }
     print(f"[5] rule {rule} on {smi}: end to end (numpy out, fallback included, median of 3) "
           f"{n / e2e_s:.0f} mappings/s ({e2e_s:.4f} s, first pass {first_s:.3f} s); "
           f"device-resident (4 x 2^19 chained, CUDA events) "
           f"{row['chained_mappings_per_s']:.0f} mappings/s ({chained:.3f} ms)")
-    print(f"[5] rule {rule}: one 2^19 chunk under torch.profiler: {json.dumps(prof)}")
     print(f"[5] rule {rule}: crushtool {lines[0]!r}; chi-squared {stats['chi2']}, "
           f"bad mappings {stats['bad']}")
     return row
@@ -1112,9 +1067,9 @@ def _crush_variant(pool, smi: str, name: str, pm, rule: int, rmax: int) -> dict:
     n = CRUSH_VARIANT_PGS
     cm = tm.compile_map(pm)
     xs = np.arange(n)
-    tm.fallback_lanes = 0
+    tm.counts["crush_oracle_lanes"] = 0
     res, counts = tm.batch_do_rule(cm, rule, xs, rmax)
-    fallback = tm.fallback_lanes
+    fallback = tm.counts["crush_oracle_lanes"]
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1228,7 +1183,7 @@ def phase_crush(smi: str, pool) -> dict:
     from ceph_tpu_torch.tools.crushtool import build_hierarchy
 
     t0 = time.perf_counter()
-    tm.draw_launches = 0
+    tm.counts["crush_kernel_draws"] = 0
     pm = build_hierarchy(10000, 40, 25)
     cm = tm.compile_map(pm)
     tables = {k: v for k, v in vars(cm).items() if isinstance(v, torch.Tensor)}
@@ -1251,7 +1206,7 @@ def phase_crush(smi: str, pool) -> dict:
     print(f"[5] golden vectors of the reference C: on cuda {golden['card']}, through the "
           f"oracle {golden['oracle']} (refused by the batched mapper, as by jaxmap: "
           f"{golden['refused']}), every line equal to the file")
-    launches = tm.draw_launches
+    launches = tm.counts["crush_kernel_draws"]
     check(launches > 0, "the straw2 draw kernel was never launched")
     print(f"[5] straw2 draw kernel: {launches} launches over the phase")
     kernel = _straw2_kernel_times(smi)
@@ -1687,7 +1642,7 @@ def phase_osdmap(smi: str, pool) -> dict:
     pgs = sum(p.pg_num for p in om.pools.values())
     mapping = OSDMapMapping()
     check(mapping.device.type == "cuda", f"OSDMapMapping on {mapping.device}")
-    tm.fallback_lanes = 0
+    tm.counts["crush_oracle_lanes"] = 0
     warm_s = _timed_update(mapping, om)
     # a pool's CRUSH stage is timed by the kernel set's l_tpu_crush_lat
     perf0 = {**mapping.perf.dump(), **kernel_stats().dump()}
@@ -1695,7 +1650,7 @@ def phase_osdmap(smi: str, pool) -> dict:
     times = [_timed_update(mapping, om) for _ in range(3)]
     perf1 = {**mapping.perf.dump(), **kernel_stats().dump()}
     split = breakdown(prof0, dispatch_profiler().totals())
-    fallback1 = tm.fallback_lanes
+    fallback1 = tm.counts["crush_oracle_lanes"]
     e1 = sorted(times)[1]
     chained = (perf1["crush_chained_lanes"] - perf0["crush_chained_lanes"]) / 3
     host_route = perf1["crush_host_route_pgs"] - perf0["crush_host_route_pgs"]
@@ -1725,7 +1680,7 @@ def phase_osdmap(smi: str, pool) -> dict:
 
     inc, wire_bytes, touched = _epoch2(om, mapping)
     om.apply_incremental(inc)
-    tm.fallback_lanes = 0
+    tm.counts["crush_oracle_lanes"] = 0
     prof0 = dispatch_profiler().totals()
     e2 = _timed_update(mapping, om)
     perf2 = {**mapping.perf.dump(), **kernel_stats().dump()}
@@ -1733,13 +1688,13 @@ def phase_osdmap(smi: str, pool) -> dict:
     epoch2 = {"update_s": e2, "pg_mappings_per_s": pgs / e2, "incremental_bytes": wire_bytes,
               "crush_stage_avg_s": avg("l_tpu_crush_lat", perf1, perf2),
               "fixup_stages_avg_s": avg("fixup_stages", perf1, perf2),
-              "fallback_lanes": tm.fallback_lanes, "dispatch": split2,
+              "fallback_lanes": tm.counts["crush_oracle_lanes"], "dispatch": split2,
               "touched_pgs": {pid: len(v) for pid, v in touched.items()}}
     print(f"[7] epoch 2 ({wire_bytes} B incremental: 100 down, 100 out, 20 at 0x8000, affinity 0 "
           f"and 0x8000 on 100 each, 1000 pg_upmap_items, 100 pg_upmap, 500 pg_temp, 100 "
           f"primary_temp): {e2:.4f} s = {pgs / e2:.0f} PG mappings/s; a pool's crush_stage "
           f"{epoch2['crush_stage_avg_s']:.4f} s, fixup_stages {epoch2['fixup_stages_avg_s']:.4f} "
-          f"s; {tm.fallback_lanes} oracle lanes; dispatch compute {split2['compute_ms']} ms, "
+          f"s; {tm.counts["crush_oracle_lanes"]} oracle lanes; dispatch compute {split2['compute_ms']} ms, "
           f"sync (the oracle lanes' read and re-map) {split2['sync_ms']} ms")
     checked2 = _hold_mapping(pool, om, mapping, touched, 2)
 

@@ -223,14 +223,14 @@ def test_straw2_draw_on_the_cpu_is_the_plain_version():
     rows = torch.from_numpy(np.nonzero(cm.np_types == 1)[0]).repeat(50)[:, None]
     x = torch.arange(rows.shape[0], dtype=torch.int32)[:, None]
     r = torch.full((1, 1), 3, dtype=torch.int32)
-    before = torchmap.draw_launches
+    before = torchmap.counts["crush_kernel_draws"]
     item, _ = lanes.pick(rows.squeeze(1), x, r, None, cm.sz, (CRUSH_BUCKET_STRAW2,), 1)
     col = lanes.draw(x, cm.items32[rows.squeeze(1)], cm.wdiv[rows.squeeze(1)],
                      cm.wlive[rows.squeeze(1)], r)
     assert torch.equal(item, cm.items[rows.squeeze(1)].gather(1, col).squeeze(1))
     res, counts, ok = torchmap.batch_do_rule_raw(cm, 0, np.arange(256), 3)
     _assert_matches_oracle(pm, res, counts, 0, np.arange(256), 3)
-    assert torchmap.draw_launches == before
+    assert torchmap.counts["crush_kernel_draws"] == before
 
 
 def test_straw2_cuda_route_without_the_library_raises(monkeypatch, tmp_path):
@@ -251,12 +251,12 @@ def test_straw2_cuda_route_without_the_library_raises(monkeypatch, tmp_path):
     _, cm = _port(three_level_map())
     card = dataclasses.replace(cm, device=torch.device("cuda"))
     lanes = torchmap._Lanes(card, torch.full((cm.max_devices,), 0x10000))
-    before = torchmap.draw_launches
+    before = torchmap.counts["crush_kernel_draws"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         lanes.pick(0, torch.zeros((4, 1, 1), dtype=torch.int32),
                    torch.zeros((1, 2, 1), dtype=torch.int32), None, 2,
                    (CRUSH_BUCKET_STRAW2,), 1)
-    assert torchmap.draw_launches == before
+    assert torchmap.counts["crush_kernel_draws"] == before
 
 
 def test_kernel_resources_name_the_straw2_kernel():
@@ -407,11 +407,22 @@ def _raw_pair(m, cm, rule, xs, rmax, weights):
 @pytest.mark.parametrize("name", sorted(MAPS))
 @pytest.mark.parametrize("rule", [0, 1], ids=["firstn", "indep"])
 @pytest.mark.parametrize("weights,rmax", [("full", 3), ("mixed", 5)])
-def test_raw_output_matches_jaxmap_lane_for_lane(name, rule, weights, rmax):
+@pytest.mark.parametrize("chunk", [None, 96], ids=["one_chunk", "chunks_of_96"])
+def test_raw_output_matches_jaxmap_lane_for_lane(monkeypatch, name, rule, weights, rmax, chunk):
+    """256 lanes in one run of the rule, or in three (96, 96, 64) under
+    one upload of the weights; an empty batch maps to empty results."""
+    if chunk:
+        monkeypatch.setattr(torchmap, "CHUNK", chunk)
     m = MAPS[name]()
     _, cm = _port(m)
     w = mixed_weight_vector(m.max_devices) if weights == "mixed" else None
+    uploads = []
+    vector = torchmap._weight_vector
+    monkeypatch.setattr(torchmap, "_weight_vector", lambda *a: uploads.append(a) or vector(*a))
     (res, counts, ok), (jres, jcounts, jok) = _raw_pair(m, cm, rule, np.arange(256), rmax, w)
+    assert len(uploads) == 1
+    empty = torchmap.batch_do_rule_raw(cm, rule, np.arange(0), rmax, w)
+    assert [tuple(t.shape) for t in empty] == [(0, rmax), (0,), (0,)]
     np.testing.assert_array_equal(ok, jok)
     np.testing.assert_array_equal(res[ok], jres[ok])
     np.testing.assert_array_equal(counts[ok], jcounts[ok])
@@ -506,7 +517,7 @@ FAST_CASES = {"chooseleaf_hosts": (three_level_map, 0), "choose_hosts": (_choose
 @pytest.mark.parametrize("name", sorted(FAST_CASES))
 def test_recorded_fast_path_equals_the_eager_one(monkeypatch, name):
     """The fast firstn path through its recording (a CUDA graph on the
-    card; here the same steps run eagerly through ``_FastBlock``): two
+    card; here its recorder runs the same steps eagerly): two
     chunks of one width under two reweight vectors, all through one
     recording, equal the eager path lane for lane, ``ok`` included, and
     the JAX package's scalar mapper where ``ok``; a chunk's outputs are
@@ -527,7 +538,7 @@ def test_recorded_fast_path_equals_the_eager_one(monkeypatch, name):
     want = [[lanes(w).fast_firstn(plan, x32) for x32 in chunks] for w in vectors]
     monkeypatch.setattr(torchmap, "_replays", lambda cm, lanes: True)
     monkeypatch.setattr(torchmap, "_BLOCKS", threading.local())
-    replays = torchmap.fast_replays
+    replays = torchmap.counts["crush_fast_replays"]
     for w, eager in zip(vectors, want):
         first = lanes(w).fast_firstn(plan, chunks[0])
         kept = [t.clone() for t in first]
@@ -543,8 +554,9 @@ def test_recorded_fast_path_equals_the_eager_one(monkeypatch, name):
             for i in np.nonzero(ok.numpy())[0]:
                 x = int(x32[i]) & 0xFFFFFFFF
                 assert out[i, : cnt[i]].tolist() == m.do_rule(rule, x, rmax, wl), x
-    assert torchmap.fast_replays - replays == 4
-    assert len(torchmap._block_cache()) == 1  # recorded once, run for both vectors
+    assert torchmap.counts["crush_fast_replays"] - replays == 4
+    (recs,) = torchmap._block_cache().values()  # one recorder, run for both vectors
+    assert [(r.calls, r.graph) for r in recs] == [(4, None)]  # off the card: never recorded
 
 
 def test_range_packed_chained_and_fallback_guard():
@@ -553,9 +565,9 @@ def test_range_packed_chained_and_fallback_guard():
     xs = np.arange(100, 356)
     packed = torchmap.batch_do_rule_range(cm, 0, 100, 256, 5, w, packed=True)
     assert packed[0].dtype == torch.int16 and packed[1].dtype == torch.uint8
-    before = torchmap.fallback_lanes
+    before = torchmap.counts["crush_oracle_lanes"]
     res, counts = torchmap.apply_oracle_fallback(cm, 0, xs, *packed, 5, w)
-    assert torchmap.fallback_lanes - before == int((~packed[2]).sum()) > 0
+    assert torchmap.counts["crush_oracle_lanes"] - before == int((~packed[2]).sum()) > 0
     _assert_matches_oracle(pm, res, counts, 0, xs, 5, w)
     run = torchmap.make_chained_runner(cm, 1, 3, 128, iters=3)
     assert run(0)[0] == run(0)[0] != run(1)[0]

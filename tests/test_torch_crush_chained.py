@@ -136,11 +136,11 @@ def test_chained_rule_equals_both_oracles(name, seed):
     xs = np.random.default_rng([seed, 3]).integers(
         0, 2**32, size=48 if name == "rack_all_out" else 240
     )
-    before = torchmap.chained_lanes
+    before = torchmap.counts["crush_chained_lanes"]
     res, counts, ok = (t.numpy() for t in torchmap.batch_do_rule_raw(cm, rule, xs, rmax, w))
     assert ok.all()
     chained = sum(len(steps) - 1 for _take, steps in cm.rules[rule])
-    assert torchmap.chained_lanes - before >= chained * len(xs)
+    assert torchmap.counts["crush_chained_lanes"] - before >= chained * len(xs)
     wl = [int(v) for v in w]
     holes = 0
     for i, x in enumerate(xs):
@@ -250,7 +250,7 @@ def test_each_choose_step_is_a_span_and_the_host_route_counts():
 @pytest.mark.parametrize("name", ["lrc", "few_racks", "firstn", "single_indep"])
 def test_replayed_blocks_equal_the_eager_loop(monkeypatch, name):
     """The generic choosers' recorded blocks (a CUDA graph on the card;
-    here the same steps run eagerly through ``_Block``) over every lane
+    here their recorders run the same steps eagerly) over every lane
     give the dropping loop's output, and a block recorded under one
     reweight vector maps the next call's."""
     if name == "single_indep":
@@ -271,4 +271,5 @@ def test_replayed_blocks_equal_the_eager_loop(monkeypatch, name):
         np.testing.assert_array_equal(got[1], counts)
         np.testing.assert_array_equal(got[2], ok)
     steps = 1 if name == "single_indep" else len(cm.rules[rule][0][1])
-    assert len(torchmap._block_cache()) == steps  # recorded once, replayed for both vectors
+    # a start and a block a chooser, made once, run for both vectors
+    assert [len(recs) for recs in torchmap._block_cache().values()] == [2] * steps

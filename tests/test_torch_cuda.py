@@ -573,11 +573,11 @@ def test_lrc_chained_rule_on_the_card_equals_the_oracle(cuda, mixed):
     w = _mixed_weights(pm.max_devices, 17) if mixed else None
     cm = torchmap.compile_map(pm)
     xs = np.random.default_rng(2**31 + 17).integers(0, 1 << 32, 1 << 17)
-    draws, lanes = torchmap.draw_launches, torchmap.chained_lanes
+    draws, lanes = torchmap.counts["crush_kernel_draws"], torchmap.counts["crush_chained_lanes"]
     res, counts, ok = (t.cpu().numpy() for t in torchmap.batch_do_rule_raw(cm, rule, xs, 8, w))
     assert ok.all() and (counts == 8).all()
-    assert torchmap.chained_lanes - lanes == 2 << 17
-    assert torchmap.draw_launches > draws
+    assert torchmap.counts["crush_chained_lanes"] - lanes == 2 << 17
+    assert torchmap.counts["crush_kernel_draws"] > draws
     # 2^17 lanes and more replay the chooser's recorded blocks
     assert torchmap._block_cache()
     wl = None if w is None else [int(v) for v in w]
@@ -624,10 +624,10 @@ def _kernel_equals_plain_draw(card, cpu, rows, x, r, pos, szi):
     def on(t):
         return t if t is None or isinstance(t, int) else t.cuda()
 
-    before = torchmap.draw_launches
+    before = torchmap.counts["crush_kernel_draws"]
     col, item = torchmap.straw2_draw_kernel(card, on(rows), on(x), on(r), on(pos), szi, True)
     torch.cuda.synchronize()
-    assert torchmap.draw_launches == before + 1
+    assert torchmap.counts["crush_kernel_draws"] == before + 1
     lanes = torchmap._Lanes(cpu, torch.full((max(cpu.max_devices, 1),), 0x10000))
     want = lanes.draw(x, *_straw2_cols(cpu, rows, pos, szi), r)
     assert col.dtype == torch.int64 and torch.equal(col.cpu(), want)
@@ -738,9 +738,9 @@ def test_straw2_kernel_counts_launches_and_raises_on_a_refused_one(cuda):
 
     m = _bench_map()
     card = torchmap.compile_map(m)
-    before = torchmap.draw_launches
+    before = torchmap.counts["crush_kernel_draws"]
     torchmap.batch_do_rule_raw(card, 0, np.arange(4096), 3)
-    assert torchmap.draw_launches - before == 4
+    assert torchmap.counts["crush_kernel_draws"] - before == 4
     om = OSDMap.build(m, 10000)
     om.add_pool(PgPool(pool_id=1, size=3, crush_rule=0, pg_num=1 << 20))
     mapping = OSDMapMapping()
@@ -748,43 +748,67 @@ def test_straw2_kernel_counts_launches_and_raises_on_a_refused_one(cuda):
     assert mapping.perf.dump()["crush_kernel_draws"] == 8
     x = _lanes_x(64, 3).cuda()
     r = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
-    before = torchmap.draw_launches
+    before = torchmap.counts["crush_kernel_draws"]
     with pytest.raises(RuntimeError, match="crush_straw2_draw launch failed"):
         torchmap.straw2_draw_kernel(card, 0, x, r, None, card.sz + 1, True)
     with pytest.raises(ValueError):
         torchmap.straw2_draw_kernel(card, 0, x.to(torch.int64), r, None, 4, True)
     with pytest.raises(ValueError):
         torchmap.straw2_draw_kernel(card, 0, x.cpu(), r, None, 4, True)
-    assert torchmap.draw_launches == before
+    assert torchmap.counts["crush_kernel_draws"] == before
+
+
+def _recorders(cm, fast: bool) -> list:
+    """This thread's recorders over compiled map ``cm``: the fast firstn
+    path's, or the generic choosers' (a start and a block each)."""
+    from ceph_tpu_torch.crush import torchmap
+
+    return [r for key, recs in torchmap._block_cache().items()
+            if (key[0][0] == "fast") == fast for r in recs if r.cm is cm]
 
 
 @pytest.mark.parametrize("rule,rmax", [(0, 3), (1, 6)])
-def test_crush_raw_output_of_the_benchmark_map_equals_cpu(cuda, rule, rmax):
+def test_crush_raw_output_of_the_benchmark_map_equals_cpu(cuda, monkeypatch, rule, rmax):
     """Rules 0 (the fast firstn path) and 1 (the generic indep chooser)
     of the benchmark's 10,000-OSD map, one host's OSDs out, over 2^16
     PGs: the raw output on the card equals the CPU's.  Three calls on
-    the card: rule 0's first runs the fast path op by op and its second,
-    over the lanes reversed, records its graph and replays it; rule 1's
-    first records the chooser's blocks.  Later calls replay, and a
-    replay's outputs outlive the next replay."""
+    the card, the second over the lanes reversed, and every recorder by
+    one policy: its first run records nothing, its second records once,
+    later runs replay (rule 0's one recorder runs once a call; rule 1's
+    start once a call and its block until every lane is done, so the
+    block records inside the first call).  Every call counts the eager
+    run's straw2 launches, replays included, and a replay's outputs
+    outlive the next replay."""
     from ceph_tpu_torch.crush import torchmap
 
     m = _bench_map()
     w = np.full(m.max_devices, 0x10000, dtype=np.int64)
     w[4 * 1234 : 4 * 1235] = 0
     card, cpu = torchmap.compile_map(m), torchmap.compile_map(m, device="cpu")
+    captured = []
+    capture = torchmap._capture
+    monkeypatch.setattr(torchmap, "_capture",
+                        lambda cm, fn: captured.append(fn) or capture(cm, fn))
     xs = np.arange(1 << 16)
-    got = torchmap.batch_do_rule_raw(card, rule, xs, rmax, w)
-    back = torchmap.batch_do_rule_raw(card, rule, xs[::-1].copy(), rmax, w)
-    again = torchmap.batch_do_rule_raw(card, rule, xs, rmax, w)
+    runs, draws = [], []
+    for call, lanes in enumerate((xs, xs[::-1].copy(), xs)):
+        before = torchmap.counts["crush_kernel_draws"]
+        runs.append(torchmap.batch_do_rule_raw(card, rule, lanes, rmax, w))
+        draws.append(torchmap.counts["crush_kernel_draws"] - before)
+        recs = _recorders(card, fast=rule == 0)
+        assert len(recs) == (1 if rule == 0 else 2)
+        assert all((r.graph is not None) == (r.calls >= 2) for r in recs)
+        assert len(captured) == sum(r.calls >= 2 for r in recs)  # each recorded once
+        if call == 0:
+            assert recs[0].calls == 1 and recs[0].graph is None  # the first run records nothing
+        else:
+            assert recs[0].calls == call + 1 and recs[0].graph is not None
+    assert draws[0] == draws[1] == draws[2] > 0
     want = torchmap.batch_do_rule_raw(cpu, rule, xs, rmax, w)
-    for g, b, a, v in zip(got, back, again, want):
+    for g, b, a, v in zip(*runs, want):
         assert g.device.type == "cuda" and torch.equal(g.cpu(), v)
         assert torch.equal(b.cpu(), v.flip(0))
         assert torch.equal(a.cpu(), v)
-    if rule == 0:
-        assert any(isinstance(b, torchmap._FastBlock) and b.cm is card and b.graph is not None
-                   for b in torchmap._block_cache().values())
 
 
 def test_fast_path_recording_over_remap_updates_equals_the_eager_path(cuda, monkeypatch):
@@ -799,6 +823,7 @@ def test_fast_path_recording_over_remap_updates_equals_the_eager_path(cuda, monk
     from ceph_tpu_torch.crush import torchmap
     from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
     from ceph_tpu_torch.osd import Incremental, OSDMap, OSDMapMapping, PgPool
+    from ceph_tpu_torch.osd.mapping import _compiled
 
     def trim(v):
         v = list(v)
@@ -811,12 +836,12 @@ def test_fast_path_recording_over_remap_updates_equals_the_eager_path(cuda, monk
     mapping = OSDMapMapping()
     cache = torchmap._block_cache()
     recorded = None
-    for epoch in ("base", "down", "out"):
+    for epoch, change in enumerate(("base", "down", "out")):
         inc = Incremental(epoch=om.epoch + 1)
         for o in range(4 * 1234, 4 * 1235):
-            if epoch == "down":
+            if change == "down":
                 inc.mark_down(o)
-            elif epoch == "out":
+            elif change == "out":
                 inc.new_weight[o] = 0
         om.apply_incremental(inc)
         before = mapping.perf.dump()
@@ -826,8 +851,11 @@ def test_fast_path_recording_over_remap_updates_equals_the_eager_path(cuda, monk
         assert after["crush_kernel_draws"] - before["crush_kernel_draws"] == 8
         if recorded is None:
             recorded = dict(cache)
-            assert any(isinstance(b, torchmap._FastBlock) and b.graph is not None
-                       for b in recorded.values())
+            # recorded in the first update's second chunk
+            card = _compiled(om.crush, torch.device("cuda", torch.cuda.current_device()))
+            (fast,) = _recorders(card, fast=True)
+            assert fast.graph is not None
+        assert fast.calls == 2 * (epoch + 1)
         assert list(cache) == list(recorded)
         assert all(cache[k] is b for k, b in recorded.items())
         eager = OSDMapMapping()
@@ -867,9 +895,8 @@ def test_recordings_follow_the_maps_card_not_the_current_one(cuda):
             for got in runs:
                 for g, v in zip(got, want):
                     assert g.device == torch.device("cuda:1") and torch.equal(g.cpu(), v)
-        recorded = [b for b in torchmap._block_cache().values() if b.cm is second]
-        assert any(isinstance(b, torchmap._FastBlock) and b.graph is not None for b in recorded)
-        assert any(isinstance(b, torchmap._Block) and b.graph is not None for b in recorded)
+        for fast in (True, False):
+            assert any(r.graph is not None for r in _recorders(second, fast))
         dmesh = meshmod.build_mesh()
         assert dmesh.n == torch.cuda.device_count()
         pgs = np.arange(1 << 20)
@@ -1376,3 +1403,4 @@ def test_host_syncs_count_every_wait_of_a_remap_sized_update(cuda):
     assert all(name.startswith("sync.") for name in seen), (seen, elsewhere)
     assert len(seen) <= syncs == len(sites), (seen, sites, elsewhere)
     assert set(sites) - set(seen) == unflagged, (seen, sites)
+    assert sites.count("sync.weights_upload") == 1  # one for both 2^19-lane chunks

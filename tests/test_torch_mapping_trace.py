@@ -148,11 +148,11 @@ def test_without_a_tracer_no_span_is_made_and_results_are_equal(monkeypatch):
 def test_oracle_lanes_equal_the_fallback_lanes():
     om = cluster(reweights=True)
     mapping = OSDMapMapping(device="cpu")
-    before = torchmap.fallback_lanes
+    before = torchmap.counts["crush_oracle_lanes"]
     tracer = tracing.Tracer("test")
     with tracer.start_span("epoch"):
         mapping.update(om)
-    lanes = torchmap.fallback_lanes - before
+    lanes = torchmap.counts["crush_oracle_lanes"] - before
     assert lanes > 0
     assert counters(mapping)["crush_oracle_lanes"] == lanes
     (fallback,) = [s for s in tracer.dump_traces()["spans"] if s["name"] == "oracle_fallback"]
@@ -235,11 +235,11 @@ def test_the_mesh_route_counts_its_compiles_and_every_wait(monkeypatch):
     monkeypatch.setenv("CEPH_TPU_MESH", "1")
     try:
         mapping = OSDMapMapping(device="cpu:0")
-        lanes = torchmap.fallback_lanes
+        lanes = torchmap.counts["crush_oracle_lanes"]
         tracer = tracing.Tracer("test")
         with tracer.start_span("epoch"):
             mapping.update(om)
-        lanes = torchmap.fallback_lanes - lanes
+        lanes = torchmap.counts["crush_oracle_lanes"] - lanes
     finally:
         meshmod._reset_default_mesh_for_tests()
     spans = tracer.dump_traces()["spans"]

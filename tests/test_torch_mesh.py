@@ -197,9 +197,9 @@ def test_sharded_mapping_with_reweights_and_fallback_lanes(jax_mesh, n_dev):
     cm = torchmap.compile_map(pm, device="cpu")
     _res, _cnt, ok = torchmap.batch_do_rule_raw(cm, 0, xs, 5, weights)
     assert not bool(ok.all())  # the fallback is exercised
-    before = torchmap.fallback_lanes
+    before = torchmap.counts["crush_oracle_lanes"]
     res, cnt = sharded_batch_do_rule(pm, 0, xs, 5, weights=weights, dmesh=cpu_mesh(n_dev))
-    assert torchmap.fallback_lanes - before == int((~ok).sum())
+    assert torchmap.counts["crush_oracle_lanes"] - before == int((~ok).sum())
     wl = [int(w) for w in weights]
     for x in xs:
         oracle = pm.do_rule(0, int(x), 5, wl)
